@@ -1,0 +1,291 @@
+"""The batched template search and its on-device (M, T) maxima state.
+
+The reference processes one template at a time (``demod_binary.c:1180-1443``)
+and keeps per-template toplists with dynamic thresholds.  Here a batch of
+templates runs through the resample -> FFT-prep -> rfft -> power -> fold
+chain in one pass, and the device carries ``M[k][j]`` (the largest summed
+power of fundamental bin j at harmonic level k over all templates so far)
+and ``T[k][j]`` (the first template index reaching it), in the phase-major
+layout of ``ops/harmonic.py``.  The merge uses strict ``>`` and the batch
+argmax takes the first index, so earlier templates win ties, matching the
+reference's keep-first-seen semantics (``demod_binary.c:1360``).
+
+:class:`BankStep` holds the whole bank's parameters and the state on the
+device and updates the state in place, one batch per call.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..oracle.pipeline import DerivedParams
+from ..oracle.sincos import libm_sinf_array
+from ..ops.harmonic import state_width, sumspec_batch, to_natural_order
+from ..ops.resample import fftprep_series
+from ..ops.spectrum import power_spectrum
+
+# below any real summed power: padded batch slots are masked to this before
+# the batch reduction so they can never claim a bin
+NEG_SENTINEL = -3.0e38
+
+
+@dataclass(frozen=True)
+class SearchGeometry:
+    """Static geometry of one search configuration."""
+
+    nsamples: int
+    n_unpadded: int
+    fft_size: int
+    window_2: int
+    fund_hi: int
+    harm_hi: int
+    dt: float
+    # bank-wide bound on |d del_t/di| = tau*omega (max_slope_for_bank)
+    max_slope: float = 0.008
+    # bank-wide bound on the per-sample LUT-index step 64*omega*dt/2pi
+    lut_step: float = 1e-3
+    # LUT periods covering the phase span psi0 + omega*t_obs
+    lut_tiles: int = 1024
+
+    @classmethod
+    def from_derived(
+        cls,
+        d: DerivedParams,
+        max_slope: float = 0.008,
+        lut_step: float = 1e-3,
+        lut_tiles: int = 1024,
+    ) -> "SearchGeometry":
+        return cls(
+            nsamples=d.nsamples,
+            n_unpadded=d.n_unpadded,
+            fft_size=d.fft_size,
+            window_2=d.window_2,
+            fund_hi=d.fundamental_idx_hi,
+            harm_hi=d.harmonic_idx_hi,
+            dt=d.dt,
+            max_slope=max_slope,
+            lut_step=lut_step,
+            lut_tiles=lut_tiles,
+        )
+
+
+def _pow2_ceil(x: float) -> float:
+    return float(2.0 ** math.ceil(math.log2(x)))
+
+
+def max_slope_for_bank(P: np.ndarray, tau: np.ndarray, headroom: float = 1.5) -> float:
+    """Bank-derived modulation-slope bound, rounded up to a power of two."""
+    if len(P) == 0:
+        return 0.008
+    slope = float(np.max(np.asarray(tau) * (2.0 * np.pi / np.asarray(P))))
+    return _pow2_ceil(max(slope * headroom, 1.0 / 1024.0))
+
+
+def lut_step_for_bank(P: np.ndarray, dt: float, headroom: float = 1.5) -> float:
+    """Bank-derived LUT-index-step bound, rounded up to a power of two."""
+    if len(P) == 0:
+        return 1e-3
+    step = 64.0 * float(dt) / float(np.min(np.asarray(P)))
+    return _pow2_ceil(max(step * headroom, 1e-6))
+
+
+def normalize_psi0(psi0: np.ndarray) -> np.ndarray:
+    """Reduce initial orbital phases into [0, 2pi) on the host, in double;
+    in-range values pass through bit-identical.  The unwrapped LUT index
+    needs a nonnegative phase."""
+    psi = np.asarray(psi0, dtype=np.float64)
+    out = np.fmod(psi, 2.0 * np.pi)
+    return np.where(out < 0.0, out + 2.0 * np.pi, out)
+
+
+# largest LUT tiling the reference package builds (its ops/sincos.py)
+MAX_LUT_TILES = 1 << 17
+
+
+def lut_tiles_for_bank(P: np.ndarray, psi0: np.ndarray, n_unpadded: int, dt: float) -> int:
+    """LUT periods covering this bank's phase span (normalized psi0 +
+    omega*t_obs), a power of two in [1024, MAX_LUT_TILES]."""
+    if len(P) == 0:
+        return 1024
+    psi_max = float(np.max(normalize_psi0(psi0))) if len(psi0) else 2 * np.pi
+    span = psi_max / (2.0 * np.pi) + n_unpadded * float(dt) / float(np.min(P))
+    tiles = 1024
+    while tiles - 2 < span and tiles < MAX_LUT_TILES:
+        tiles *= 2
+    return tiles
+
+
+def validate_bank_bounds(
+    geom: SearchGeometry,
+    bank_P: np.ndarray,
+    bank_tau: np.ndarray,
+    bank_psi0: np.ndarray | None = None,
+) -> None:
+    """Check the bank against the geometry's bounds: the same contract the
+    reference package's kernels hold, so both search the same bank."""
+    if not len(bank_P):
+        return
+    P = np.asarray(bank_P)
+    bank_slope = float(np.max(np.asarray(bank_tau) * (2.0 * np.pi / P)))
+    if bank_slope > geom.max_slope:
+        raise ValueError(
+            f"template bank modulation slope {bank_slope:.3g} exceeds "
+            f"geometry bound {geom.max_slope:.3g}; rebuild SearchGeometry "
+            "with max_slope_for_bank(P, tau)"
+        )
+    bank_lut_step = 64.0 * geom.dt / float(np.min(P))
+    if bank_lut_step > geom.lut_step:
+        raise ValueError(
+            f"template bank LUT-index step {bank_lut_step:.3g} exceeds "
+            f"geometry bound {geom.lut_step:.3g}; rebuild SearchGeometry "
+            "with lut_step_for_bank(P, dt)"
+        )
+    psi0_max = 2.0 * np.pi
+    if bank_psi0 is not None and len(bank_psi0):
+        psi0_min = float(np.min(np.asarray(bank_psi0)))
+        psi0_max = float(np.max(np.asarray(bank_psi0)))
+        if psi0_min < 0.0 or psi0_max >= 2.0 * np.pi:
+            raise ValueError(
+                f"template bank psi0 outside [0, 2pi) (min {psi0_min:.3g}, "
+                f"max {psi0_max:.3g}): fold the bank through normalize_psi0 first"
+            )
+    span_periods = psi0_max / (2.0 * np.pi) + geom.n_unpadded * geom.dt / float(np.min(P))
+    if span_periods > geom.lut_tiles - 2:
+        raise ValueError(
+            f"search phase spans {span_periods:.0f} LUT periods, beyond the "
+            f"geometry's bound ({geom.lut_tiles}); rebuild SearchGeometry with "
+            "lut_tiles_for_bank(P, psi0, n, dt)"
+        )
+
+
+def bank_params_host(P, tau, psi0, dt) -> tuple[np.ndarray, ...]:
+    """Per-template float32 ``(tau, Omega, psi0, S0)`` derived as the
+    reference driver does (``demod_binary.c:1208-1238``): float casts,
+    ``Omega = 2*pi/P`` in double narrowed once, ``S0 = tau * sinf(psi0) *
+    step_inv`` as an all-float32 chain through glibc's sinf."""
+    tau32 = np.asarray(tau, dtype=np.float32)
+    psi32 = np.asarray(psi0, dtype=np.float32)
+    P32 = np.asarray(P, dtype=np.float32)
+    step_inv = np.float32(1.0) / np.float32(dt)
+    omega = (np.float64(2.0) * np.pi / P32.astype(np.float64)).astype(np.float32)
+    s0 = ((tau32 * libm_sinf_array(psi32)).astype(np.float32) * step_inv).astype(np.float32)
+    return tau32, omega, psi32, s0
+
+
+def upload_bank(params: tuple[np.ndarray, ...], batch_size: int, device="cuda") -> torch.Tensor:
+    """The whole bank resident on ``device`` as float32[capacity, 4] rows
+    (tau, omega, psi0, S0), padded past ``n + batch_size`` with the
+    harmless template (0, 1, 0, 0) so every batch slice stays in range;
+    padded slots are masked out by the step."""
+    n = len(params[0])
+    cap = n + int(batch_size)
+    rows = np.tile(np.array([0.0, 1.0, 0.0, 0.0], dtype=np.float32), (cap, 1))
+    rows[:n] = np.stack([np.asarray(a, dtype=np.float32) for a in params], axis=1)
+    return torch.from_numpy(rows).to(resolve_device(device))
+
+
+def init_state(geom: SearchGeometry, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed (M, T): float32 and int32 [5, W] phase-major."""
+    dev = resolve_device(device)
+    W = state_width(geom.fund_hi)
+    return (
+        torch.zeros((5, W), dtype=torch.float32, device=dev),
+        torch.zeros((5, W), dtype=torch.int32, device=dev),
+    )
+
+
+def state_to_natural(arr, geom: SearchGeometry) -> np.ndarray:
+    """Phase-major (5, W) M or T -> natural bin order (5, fund_hi) on the host."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.cpu().numpy()
+    return to_natural_order(arr, geom.fund_hi)
+
+
+def state_from_jax(M, T, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference package's (M, T) state (arrays of any kind numpy
+    accepts, same phase-major layout) as the port's tensors on ``device``."""
+    dev = resolve_device(device)
+    return (
+        torch.from_numpy(np.array(M, dtype=np.float32)).to(dev),
+        torch.from_numpy(np.array(T, dtype=np.int32)).to(dev),
+    )
+
+
+def bank_from_jax(params, device="cuda") -> torch.Tensor:
+    """The reference package's bank arrays ``(tau, omega, psi0, S0)`` (from
+    its ``bank_params_host`` or ``upload_bank``) as the port's resident
+    float32[n, 4] bank on ``device``."""
+    cols = [np.asarray(a, dtype=np.float32) for a in params]
+    return torch.from_numpy(np.stack(cols, axis=1)).to(resolve_device(device))
+
+
+class BankStep(nn.Module):
+    """One batch of the search: slice the resident bank at ``t_offset``,
+    resample (kernel A), FFT-prep (kernel B), rfft + power, fold (kernel C),
+    and merge the batch into the (M, T) state in place.
+
+    ``bank`` is the float32[capacity, 4] resident bank (:func:`upload_bank`
+    or :func:`bank_from_jax`) with capacity >= n_total + batch_size."""
+
+    def __init__(self, geom: SearchGeometry, bank: torch.Tensor, batch_size: int, state=None):
+        super().__init__()
+        self.geom = geom
+        self.batch_size = int(batch_size)
+        self.register_buffer("bank", bank)
+        if state is None:
+            state = init_state(geom, bank.device)
+        self.register_buffer("M", state[0])
+        self.register_buffer("T", state[1])
+
+    @torch.no_grad()
+    def forward(self, ts_even: torch.Tensor, ts_odd: torch.Tensor, t_offset: int, n_total: int):
+        g = self.geom
+        B = self.batch_size
+        if t_offset + B > self.bank.shape[0]:
+            raise ValueError("bank capacity too small for this batch: pad it by batch_size")
+        p = self.bank[t_offset : t_offset + B]
+        x = fftprep_series(
+            ts_even, ts_odd, p[:, 0], p[:, 1], p[:, 2], p[:, 3],
+            nsamples=g.nsamples, n_unpadded=g.n_unpadded, dt=g.dt,
+        )
+        ps = power_spectrum(x, nsamples=g.nsamples)
+        del x
+        sums = sumspec_batch(ps, fund_hi=g.fund_hi, harm_hi=g.harm_hi)  # (B, 5, W)
+        del ps
+        valid = torch.arange(t_offset, t_offset + B, device=sums.device) < n_total
+        sums = torch.where(valid[:, None, None], sums, torch.full_like(sums[:1], NEG_SENTINEL))
+        bmax = sums.amax(dim=0)
+        barg = sums.argmax(dim=0).to(torch.int32)  # first index of the max in the batch
+        better = bmax > self.M
+        self.M.copy_(torch.where(better, bmax, self.M))
+        self.T.copy_(torch.where(better, barg + t_offset, self.T))
+        return self.M, self.T
+
+
+def run_bank(
+    ts: torch.Tensor,
+    bank_P: np.ndarray,
+    bank_tau: np.ndarray,
+    bank_psi0: np.ndarray,
+    geom: SearchGeometry,
+    batch_size: int = 16,
+    state=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Search the whole bank over the time series ``ts`` (float32[n_unpadded],
+    on the device the search runs on); returns the (M, T) state."""
+    validate_bank_bounds(geom, bank_P, bank_tau, bank_psi0)
+    dev = ts.device
+    n = len(bank_P)
+    bank = upload_bank(bank_params_host(bank_P, bank_tau, bank_psi0, geom.dt), batch_size, dev)
+    step = BankStep(geom, bank, batch_size, state=state)
+    ts_even = ts[0::2].contiguous()
+    ts_odd = ts[1::2].contiguous()
+    for start in range(0, n, batch_size):
+        step(ts_even, ts_odd, start, n)
+    return step.M, step.T

@@ -1,0 +1,137 @@
+"""Build, load and count the port's CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` into a shared library with a plain C
+interface, in the package's git-ignored ``build/`` directory, at first
+use; all sources build at once, one ``nvcc`` process each.  The libraries
+are keyed by a hash of their source and flags, so an edited kernel
+rebuilds and an unchanged one is reused.  ctypes binds every pointer and
+the stream as ``c_void_p``; each C entry returns ``cudaGetLastError()``
+and :func:`check` raises when it is not 0.
+
+``launch_counts`` holds one plain integer per kernel: a wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that it
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+
+SOURCES = ("resample", "fftprep", "fold")
+MAX_GRID_T = 65535  # templates per launch: the batch is a grid dimension
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # no FMA contraction anywhere: the resampler's index arithmetic must
+    # round every multiply and add on its own (csrc/resample.cu)
+    "-fmad=false",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "resample": {
+        "erp_resample_block": [],
+        "erp_resample_init": [_I, _P, _P, _P],
+        "erp_resample_stream": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I],
+    },
+    "fftprep": {
+        "erp_fftprep": [_I, _P, _P, _P, _P, _P, _I, _I, _I],
+    },
+    "fold": {
+        "erp_fold_cols": [],
+        "erp_fold": [_I, _P, _P, _P, _I, _I, _I, _I, _I],
+    },
+}
+
+launch_counts = {name: 0 for name in SOURCES}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        key = f.read() + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha1(key).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build() -> float:
+    """Compile every kernel library that is not built yet, all in
+    parallel; returns the wall seconds.  Raises with nvcc's output when a
+    source does not compile."""
+    t0 = time.perf_counter()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = []
+    for name in SOURCES:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs.append((name, proc, tmp, out))
+    failures = []
+    for name, proc, tmp, out in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent process never loads a torn file
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building all kernels first
+    when any is missing."""
+    with _lock:
+        if name not in _libs:
+            build()
+            for n in SOURCES:
+                if n in _libs:
+                    continue
+                lib = ctypes.CDLL(library_path(n))
+                for fn, argtypes in _SIGNATURES[n].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _libs[n] = lib
+        return _libs[name]
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

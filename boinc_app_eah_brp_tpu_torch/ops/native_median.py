@@ -1,0 +1,72 @@
+"""ctypes binding for the native running median (``native/erp_rngmed.cpp``).
+
+The whitening stage's sliding median over the spectrum is the one
+inherently serial stage, and it stays on the host as in the reference
+(``demod_binary.c:856-1079``).  The library is compiled with ``g++`` into
+the package's git-ignored ``build/`` directory at first use.  A build or
+load failure raises: there is no other median to fall back to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+from .kernels import BUILD_DIR
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+SOURCE = os.path.join(_REPO, "native", "erp_rngmed.cpp")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+N_THREADS = min(os.cpu_count() or 1, 16)
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        with open(SOURCE, "rb") as f:
+            digest = hashlib.sha1(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+        path = os.path.join(BUILD_DIR, f"liberp_rngmed-{digest}.so")
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            proc = subprocess.run(
+                ["g++", *CXX_FLAGS, SOURCE, "-o", tmp],
+                capture_output=True, text=True,
+            )
+            if proc.returncode:
+                raise RuntimeError(f"building {SOURCE} failed:\n{proc.stderr}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        lib.erp_rngmed.restype = ctypes.c_int
+        lib.erp_rngmed.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_int32,
+        ]
+        _lib = lib
+        return lib
+
+
+def running_median(x: np.ndarray, window: int) -> np.ndarray:
+    """float32[len(x) - window + 1]: medians of ``x[m : m + window]``, the
+    two central values averaged in double for an even window
+    (``rngmed.c`` semantics)."""
+    lib = _library()
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    n_out = len(x) - window + 1
+    if n_out <= 0:
+        raise ValueError("window larger than input")
+    out = np.empty(n_out, dtype=np.float32)
+    rc = lib.erp_rngmed(x.ctypes.data, len(x), window, out.ctypes.data, N_THREADS)
+    if rc != 0:
+        raise RuntimeError(f"erp_rngmed failed with code {rc}")
+    return out

@@ -1,0 +1,78 @@
+"""Whitening + RFI zapping (``demod_binary.c:856-1079``), along the
+native-FFT branch of the reference package's ``ops/whiten.py``.
+
+The FFTs run on the device (cuFFT through ``torch.fft``); the sliding
+median and the zap-noise stream (a serial taus2 RNG) stay on the host, as
+in the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..oracle.pipeline import DerivedParams, SearchConfig
+from ..oracle.whiten import seed_from_samples, zap_noise
+from .native_median import running_median
+
+
+def whiten_and_zap(
+    samples: np.ndarray,  # float32[n_unpadded]
+    derived: DerivedParams,
+    cfg: SearchConfig,
+    zap_ranges: np.ndarray,  # float64[nz, 2] (fmin, fmax) Hz
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """The whitened, zapped series float32[n_unpadded] on ``device``:
+    rfft of the zero-padded series, power with DC 0, host running median,
+    ``sqrt(ln 2 / median)`` scale, zap-noise scatter, edge bins zeroed,
+    ``irfft * sqrt(nsamples)``."""
+    dev = resolve_device(device)
+    n_unpadded = derived.n_unpadded
+    nsamples = derived.nsamples
+    fft_size = derived.fft_size
+    window = cfg.window
+    window_2 = int(0.5 * window + 0.5)
+    if fft_size < window:
+        raise ValueError(
+            f"Running median window ({window} bins) is too wide for data set ({fft_size} bins)!"
+        )
+    samples = np.asarray(samples, dtype=np.float32)
+    seed = seed_from_samples(samples)
+
+    padded = torch.zeros(nsamples, dtype=torch.float32, device=dev)
+    padded[:n_unpadded] = torch.from_numpy(samples).to(dev)
+    F = torch.fft.rfft(padded)
+    re, im = F.real, F.imag
+
+    ps = re * re + im * im
+    ps[0] = 0.0
+    rm = running_median(ps.cpu().numpy(), window)
+
+    white_size = fft_size - window + 1
+    # tensor / tensor: a Python scalar numerator would go through
+    # reciprocal-then-multiply, which rounds differently
+    ln2 = torch.tensor(np.float32(np.log(2.0)), device=dev)
+    factor = torch.sqrt(ln2 / torch.from_numpy(rm).to(dev))
+    scale = torch.ones(fft_size, dtype=torch.float32, device=dev)
+    scale[window_2 : window_2 + white_size] = factor
+    re = re * scale
+    im = im * scale
+
+    bin_ranges = (np.asarray(zap_ranges) * derived.t_obs + 0.5).astype(np.uint32)
+    sigma = float(np.sqrt(0.5) * np.sqrt(cfg.padding))
+    idx, vals = zap_noise(seed, bin_ranges, sigma, fft_size)
+    if len(idx):
+        idx_d = torch.from_numpy(idx).to(dev)
+        re[idx_d] = torch.from_numpy(np.real(vals).astype(np.float32)).to(dev)
+        im[idx_d] = torch.from_numpy(np.imag(vals).astype(np.float32)).to(dev)
+
+    re[:window_2] = 0.0
+    re[fft_size - window_2 :] = 0.0
+    im[:window_2] = 0.0
+    im[fft_size - window_2 :] = 0.0
+
+    back = torch.fft.irfft(torch.complex(re, im), n=nsamples)
+    back = back * float(np.sqrt(np.float32(nsamples)))
+    return back[:n_unpadded].contiguous()

@@ -1,0 +1,431 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA card and measure its kernels.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases:
+1. print the card's name and power limit (nvidia-smi);
+2. build the CUDA kernels from ``boinc_app_eah_brp_tpu_torch/csrc``;
+3. hold each kernel against its plain PyTorch version on the card at the
+   production width (a 2^22-sample workunit at 65.476 us, padding 3,
+   f0 400 Hz, a batch of 32 templates of ``tests/golden/bank200.txt``):
+   the resampler (and its single-template launch), FFT-prep and the fold
+   must agree bitwise; each is timed beside its plain version;
+4. run the search end to end through the command line on a seeded
+   synthetic 4-bit workunit with a binary-pulsar signal injected at one
+   bank template, with the kernel launch counts reset just before, and
+   check the candidate file and that every kernel ran;
+5. print the kernel table as one JSON line, the run's numbers, and last
+   ``{"ok": true, "device": {...}}``.
+
+Any failed check exits non-zero; so does a machine without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+BANK = os.path.join(REPO, "tests", "golden", "bank200.txt")
+N_UNPADDED = 1 << 22
+TSAMPLE_US = 65.476
+PADDING = 3.0
+F0 = 400.0
+FA = 0.08
+WINDOW = 1000
+BATCH = 32
+INJECT = 57  # bank200 row whose orbit the synthetic signal follows
+SEED = 20261016
+DEVICE = "cuda"
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
+# tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+KERNEL_ROWS = {
+    "resample": ("boinc_app_eah_brp_tpu/ops/pallas_resample.py:352", "resample.cu"),
+    "fftprep": ("boinc_app_eah_brp_tpu/ops/pallas_resample.py:772", "fftprep.cu"),
+    "fold": ("boinc_app_eah_brp_tpu/ops/pallas_sumspec.py:126", "fold.cu"),
+}
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise CheckFailed(what)
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean ms per call over ``reps`` calls after one warm-up, by CUDA
+    events around the whole run."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / PEAK_BYTES_S
+    t_ops = ops / PEAK_F32_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def production_geometry():
+    from boinc_app_eah_brp_tpu_torch.io import read_template_bank
+    from boinc_app_eah_brp_tpu_torch.models import search
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+
+    cfg = SearchConfig(f0=F0, padding=PADDING, fA=FA, window=WINDOW, white=True)
+    derived = DerivedParams.derive(N_UNPADDED, TSAMPLE_US, cfg)
+    bank = read_template_bank(BANK)
+    geom = search.SearchGeometry.from_derived(
+        derived,
+        max_slope=search.max_slope_for_bank(bank.P, bank.tau),
+        lut_step=search.lut_step_for_bank(bank.P, derived.dt),
+        lut_tiles=search.lut_tiles_for_bank(bank.P, bank.psi0, N_UNPADDED, derived.dt),
+    )
+    return geom, bank
+
+
+def check_kernels(torch, dev, geom, bank) -> tuple[dict, dict]:
+    """Phase 3: every kernel against its plain version at the production
+    width; returns (per-kernel measurements, single-template check)."""
+    from boinc_app_eah_brp_tpu_torch.models import search
+    from boinc_app_eah_brp_tpu_torch.ops import harmonic, resample
+    from boinc_app_eah_brp_tpu_torch.ops.spectrum import power_spectrum
+
+    n, nsamples, half = geom.n_unpadded, geom.nsamples, geom.n_unpadded // 2
+    rng = np.random.default_rng(SEED)
+    ts = torch.from_numpy(rng.normal(0.0, 1.0, n).astype(np.float32)).to(dev)
+    ev, od = ts[0::2].contiguous(), ts[1::2].contiguous()
+    params = resample.stream_params(
+        *search.bank_params_host(bank.P[:BATCH], bank.tau[:BATCH], bank.psi0[:BATCH], geom.dt), device=dev
+    )
+    T = params.shape[0]
+    kw = dict(n_unpadded=n, dt=geom.dt)
+    out = {}
+
+    # A: the resampler
+    raw, lf = resample.resample_stream(ev, od, params, **kw)
+    raw_p, lf_p = resample.resample_stream_plain(ev, od, params, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(raw, raw_p), "resample kernel != plain version (gathered samples)")
+    check(torch.equal(lf, lf_p), "resample kernel != plain version (trailing-run blocks)")
+    n_steps, mean = resample.batch_stats(raw, lf, n_unpadded=n)
+    n_steps_p, _ = resample.batch_stats(raw_p, lf_p, n_unpadded=n)
+    check(torch.equal(n_steps, n_steps_p), "resample kernel != plain version (n_steps)")
+    nblk = lf.shape[2]
+    out["resample"] = dict(
+        max_abs_err=float((raw - raw_p).abs().max()),
+        ms=time_ms(torch, lambda: resample.resample_stream(ev, od, params, **kw), 20),
+        plain_ms=time_ms(torch, lambda: resample.resample_stream_plain(ev, od, params, **kw), 3),
+        library_ms=None,
+    )
+    out["resample"]["bound_ms"], out["resample"]["bound_by"] = bound(
+        n * 4 + T * 16 + T * n * 4 + T * 2 * nblk * 4, T * n * 22
+    )
+    del raw_p, lf_p
+
+    # A1: the single-template launch of the same kernel
+    one = params[17:18].contiguous()
+    r1, l1 = resample.resample_stream(ev, od, one, **kw)
+    r1p, l1p = resample.resample_stream_plain(ev, od, one, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(r1, r1p) and torch.equal(l1, l1p), "single-template resample != plain version")
+    a1 = dict(
+        name="resample T=1",
+        max_abs_err=float((r1 - r1p).abs().max()),
+        ms=time_ms(torch, lambda: resample.resample_stream(ev, od, one, **kw), 50),
+        plain_ms=time_ms(torch, lambda: resample.resample_stream_plain(ev, od, one, **kw), 3),
+    )
+    a1["bound_ms"], a1["bound_by"] = bound(n * 4 + 16 + n * 4 + 2 * nblk * 4, n * 22)
+
+    # B: FFT-prep
+    x = resample.fftprep(raw, n_steps, mean, nsamples=nsamples)
+    x_p = resample.fftprep_plain(raw, n_steps, mean, nsamples=nsamples)
+    torch.cuda.synchronize()
+    check(torch.equal(x, x_p), "fftprep kernel != plain version")
+    i = torch.arange(nsamples, device=dev)
+    mask = i[None, :] < n_steps[:, None]
+    src = torch.zeros((T, nsamples), dtype=torch.float32, device=dev)
+    src[:, :n] = raw.transpose(1, 2).reshape(T, n)
+    out["fftprep"] = dict(
+        max_abs_err=float((x - x_p).abs().max()),
+        ms=time_ms(torch, lambda: resample.fftprep(raw, n_steps, mean, nsamples=nsamples), 20),
+        plain_ms=time_ms(torch, lambda: resample.fftprep_plain(raw, n_steps, mean, nsamples=nsamples), 3),
+        library_ms=time_ms(torch, lambda: torch.where(mask, src, mean[:, None]), 20),
+    )
+    out["fftprep"]["bound_ms"], out["fftprep"]["bound_by"] = bound(
+        T * n * 4 + T * 8 + T * nsamples * 4, 0
+    )
+    del x_p, src, mask, i
+
+    # C: the fold, on the cuFFT spectrum of B's series
+    stages = dict(rfft_power_ms=time_ms(torch, lambda: power_spectrum(x, nsamples=nsamples), 5))
+    ps = power_spectrum(x, nsamples=nsamples)
+    del x
+    sums = harmonic.sumspec_batch(ps, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
+    sums_p = harmonic.sumspec_batch_plain(ps, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
+    torch.cuda.synchronize()
+    check(torch.equal(sums, sums_p), "fold kernel != plain version")
+    W = sums.shape[2]
+    read = min(ps.shape[1], 16 * W + 16)  # the spectrum prefix the fold reads
+    out["fold"] = dict(
+        max_abs_err=float((sums - sums_p).abs().max()),
+        ms=time_ms(torch, lambda: harmonic.sumspec_batch(ps, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi), 20),
+        plain_ms=time_ms(
+            torch, lambda: harmonic.sumspec_batch_plain(ps, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi), 2
+        ),
+        library_ms=None,
+    )
+    # per column: 15 multipliers x 16 rows of adds, 16 masks, ~31 maxima
+    out["fold"]["bound_ms"], out["fold"]["bound_by"] = bound(
+        T * read * 4 + T * 5 * W * 4, T * W * (15 * 16 + 16 + 31)
+    )
+    del ps, sums, sums_p
+
+    # one whole batch step (A, stats, B, rfft + power, C, merge)
+    bank_dev = search.upload_bank(
+        search.bank_params_host(bank.P, bank.tau, bank.psi0, geom.dt), BATCH, dev
+    )
+    step = search.BankStep(geom, bank_dev, BATCH, state=search.init_state(geom, dev))
+    stages["batch_step_ms"] = time_ms(torch, lambda: step(ev, od, 0, len(bank)), 3)
+    out["stages"] = stages
+    return out, a1
+
+
+def synthetic_workunit(path: str, geom, bank) -> tuple[float, float]:
+    """A 4-bit workunit of N_UNPADDED samples: N(4, 1) noise plus a pulse
+    train whose arrival times follow bank row INJECT's orbit, made from
+    SEED.  Returns the template's (P, tau)."""
+    from boinc_app_eah_brp_tpu_torch.io import write_workunit
+
+    P, tau, psi0 = bank.P[INJECT], bank.tau[INJECT], bank.psi0[INJECT]
+    rng = np.random.default_rng(SEED)
+    dt = TSAMPLE_US * 1e-6
+    i = np.arange(N_UNPADDED, dtype=np.float64)
+    t = i * dt
+    # detector sample i sees pulsar time f^-1(i), f(j) = j - del_t[j]
+    del_t = (tau * np.sin(2 * np.pi / P * t + psi0) - tau * np.sin(psi0)) / dt
+    t_pulsar = np.interp(i, i - del_t, i) * dt
+    pulse = 0.4 * (np.cos(2 * np.pi * 123.4567 * t_pulsar) > 0.95)
+    x = np.clip(np.round(pulse + rng.normal(4.0, 1.0, N_UNPADDED)), 0, 15)
+    write_workunit(path, x.astype(np.float32), tsample_us=TSAMPLE_US, scale=1.0)
+    return float(np.float32(P)), float(np.float32(tau))
+
+
+def run_main_path(torch, geom, bank, workdir: str) -> dict:
+    """Phase 4: the search through the command line, counts reset just
+    before and read just after."""
+    from boinc_app_eah_brp_tpu_torch.io import parse_result_file
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
+
+    wu = os.path.join(workdir, "smoke.bin4")
+    zap = os.path.join(workdir, "smoke.zap")
+    cand = os.path.join(workdir, "smoke.cand")
+    P_inj, tau_inj = synthetic_workunit(wu, geom, bank)
+    with open(zap, "w") as f:
+        f.write("60.0 60.5\n180.0 180.2\n")
+    argv = (
+        f"-i {wu} -o {cand} -t {BANK} -l {zap} -W -P {PADDING} -f {F0} -A {FA} "
+        f"-B {WINDOW} --batch {BATCH} --device {DEVICE}"
+    ).split()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(rc == 0, f"search exited with {rc}")
+    text = open(cand).read()
+    check(text.endswith("%DONE%\n"), "candidate file does not end with %DONE%")
+    rows = parse_result_file(cand).lines
+    lines = [ln for ln in text.splitlines() if ln and not ln.startswith("%")]
+    check(len(lines) > 0 and all(len(ln.split()) == 7 for ln in lines), "malformed candidate lines")
+    top = rows[:5]
+    found = any(abs(r[1] - P_inj) < 1e-6 * P_inj and abs(r[2] - tau_inj) < 1e-6 for r in top)
+    check(
+        found,
+        f"injected template (P={P_inj}, tau={tau_inj}) not among the top 5 candidates: "
+        f"{top.tolist()}",
+    )
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched by the search")
+
+    # The same run again, now that cuFFT plans and the median library are
+    # loaded, and then its stages one at a time in the driver's order.
+    from boinc_app_eah_brp_tpu_torch.io import (
+        ResultFile, empty_candidates, read_template_bank, read_workunit, read_zaplist,
+        write_result_file,
+    )
+    from boinc_app_eah_brp_tpu_torch.models.search import run_bank, state_to_natural
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+    from boinc_app_eah_brp_tpu_torch.oracle.stats import base_thresholds
+    from boinc_app_eah_brp_tpu_torch.oracle.toplist import (
+        finalize_candidates, update_toplist_from_maxima,
+    )
+    from boinc_app_eah_brp_tpu_torch.ops.whiten import whiten_and_zap
+
+    t0 = time.perf_counter()
+    check(cli_main(argv) == 0, "second search run failed")
+    torch.cuda.synchronize()
+    wall_warm = time.perf_counter() - t0
+
+    stages = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    cfg = SearchConfig(f0=F0, padding=PADDING, fA=FA, window=WINDOW, white=True)
+    wu_data = timed("read_s", lambda: (read_workunit(wu), read_template_bank(BANK)))[0]
+    derived = DerivedParams.derive(wu_data.nsamples, float(wu_data.header["tsample"]), cfg)
+    ts = timed(
+        "whiten_s",
+        lambda: whiten_and_zap(wu_data.samples, derived, cfg, read_zaplist(zap), device=DEVICE),
+    )
+    M, T = timed(
+        "search_loop_s", lambda: run_bank(ts, bank.P, bank.tau, bank.psi0, geom, batch_size=BATCH)
+    )
+    emitted = timed(
+        "toplist_s",
+        lambda: finalize_candidates(
+            update_toplist_from_maxima(
+                empty_candidates(), state_to_natural(M, geom), state_to_natural(T, geom),
+                bank.P.astype(np.float32), bank.tau.astype(np.float32),
+                bank.psi0.astype(np.float32), base_thresholds(cfg.fA, derived.fft_size),
+                geom.window_2,
+            ),
+            derived.t_obs,
+        ),
+    )
+    timed(
+        "write_s",
+        lambda: write_result_file(
+            os.path.join(workdir, "stages.cand"), ResultFile(candidates=emitted, t_obs=derived.t_obs)
+        ),
+    )
+    return dict(
+        **stages,
+        search_loop_templates_per_s=len(bank) / stages["search_loop_s"],
+        wall_first_s=wall,
+        wall_s=wall_warm,
+        unattributed_s=wall_warm - sum(stages.values()),
+        templates_per_s=len(bank) / wall_warm,
+        peak_device_bytes=int(peak),
+        n_candidates=len(lines),
+        top_candidate=[float(v) for v in rows[0]],
+        launches=launches,
+    )
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    try:
+        from boinc_app_eah_brp_tpu_torch.ops import kernels
+    except ImportError as e:
+        print(f"chip_smoke: the port package is missing beside this script ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(smi)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    build_s = kernels.build()
+    for name in kernels.SOURCES:
+        kernels.library(name)
+    print(json.dumps({"build_s": build_s}))
+
+    workdir = os.path.join(kernels.BUILD_DIR, "chip_smoke")  # git-ignored
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        geom, bank = production_geometry()
+        measured, a1 = check_kernels(torch, dev, geom, bank)
+        torch.cuda.empty_cache()
+        run = run_main_path(torch, geom, bank, workdir)
+    except CheckFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    print(json.dumps({"stages": measured.pop("stages")}))
+    rows = []
+    for name, (replaces, src) in KERNEL_ROWS.items():
+        m = measured[name]
+        rows.append(
+            dict(
+                name=name,
+                route="cuda",
+                source=f"boinc_app_eah_brp_tpu_torch/csrc/{src}",
+                replaces=replaces,
+                launches=run["launches"][name],
+                max_abs_err=m["max_abs_err"],
+                ms=m["ms"],
+                plain_ms=m["plain_ms"],
+                bound_ms=m["bound_ms"],
+                bound_by=m["bound_by"],
+                library_ms=m["library_ms"],
+            )
+        )
+    print(json.dumps({"single_template": a1}))
+    print(json.dumps({"main_path": {k: v for k, v in run.items() if k != "launches"}}))
+    print(json.dumps({"kernels": rows}))
+    print(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {
+                    "platform": "gpu",
+                    "kind": torch.cuda.get_device_name(0),
+                    "count": torch.cuda.device_count(),
+                },
+            }
+        )
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,52 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX
+package, and its entry points run on the CPU when asked to."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "boinc_app_eah_brp_tpu_torch"
+
+_PROBE = """
+import sys
+import numpy as np
+from boinc_app_eah_brp_tpu_torch.io import write_template_bank, write_workunit, TemplateBank
+from boinc_app_eah_brp_tpu_torch.runtime.cli import main
+
+rng = np.random.default_rng(0)
+write_workunit("wu.bin4", np.clip(np.round(rng.normal(4, 1, 2048)), 0, 15).astype(np.float32),
+               tsample_us=500.0, scale=1.0)
+write_template_bank("bank.dat", TemplateBank(np.array([1000.0, 2.0]), np.array([0.0, 0.03]),
+                                             np.array([0.0, 1.0])))
+open("zap.txt", "w").write("50.0 51.0\\n")
+rc = main("-i wu.bin4 -o out.cand -t bank.dat -l zap.txt -W -B 100 --batch 2 --device cpu".split())
+assert rc == 0, rc
+assert open("out.cand").read().endswith("%DONE%\\n")
+assert "jax" not in sys.modules, "jax imported"
+assert not [m for m in sys.modules if m.startswith("boinc_app_eah_brp_tpu.")
+            or m == "boinc_app_eah_brp_tpu"], "JAX package imported"
+print("ok")
+"""
+
+
+def test_port_cpu_path_imports_no_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run(
+        [sys.executable, "-c", _PROBE], env=env, cwd=str(tmp_path),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_port_sources_name_neither_jax_nor_the_jax_package():
+    pattern = re.compile(r"boinc_app_eah_brp_tpu\.|from jax|import jax")
+    offenders = [
+        str(p.relative_to(REPO))
+        for p in sorted(PORT.rglob("*"))
+        if p.suffix in (".py", ".cu", ".cuh") and pattern.search(p.read_text())
+    ]
+    assert not offenders, offenders

@@ -1,0 +1,255 @@
+"""PyTorch port, resampler (kernels A and B, plain versions on the CPU)
+against the JAX package's Pallas kernels in interpret mode and its XLA
+resampler, on the same numpy inputs.
+
+Tolerances: gathered samples and n_steps are bitwise equal to the JAX
+package's numpy oracle (``oracle/resample.py``, the reference's
+uncontracted float32 chain).  Against the JAX functions run by XLA on the
+CPU they are bitwise equal except at samples where XLA contracts
+``tau*s*step_inv - S0`` into a fused multiply-add and ``i - del_t`` lands
+on the other side of a rounding tie: every such mismatch must be one where
+the contracted and the uncontracted index differ (``torch_parity.contraction_ties``).  The pad mean is a float32 sum of up to 1.6e4
+positive samples taken in another order (XLA on the CPU accumulates
+serially, with an error bound of ~n*eps; PyTorch sums pairwise): it is
+held to rtol 1e-4, about 8x the largest difference seen (1.3e-5).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from boinc_app_eah_brp_tpu.models.search import bank_params_host as jax_bank_params
+from boinc_app_eah_brp_tpu.ops.pallas_resample import (
+    _batch_stats,
+    _launch_stream_batch,
+    resample_fftprep_pallas_batch,
+    resample_split_pallas,
+    resample_split_pallas_batch,
+)
+from boinc_app_eah_brp_tpu.ops.resample import resample_split as xla_resample_split
+from boinc_app_eah_brp_tpu.ops.sincos import sincos_lut_lookup as jax_sincos
+from boinc_app_eah_brp_tpu.oracle.resample import ResampleParams, resample as oracle_resample
+from boinc_app_eah_brp_tpu_torch.models.search import bank_params_host
+from boinc_app_eah_brp_tpu_torch.ops import resample as port
+from boinc_app_eah_brp_tpu_torch.ops.sincos import sincos_lut_unwrapped
+from fixtures import synthetic_timeseries
+from torch_parity import DT, contraction_ties
+
+MEAN_RTOL = 1e-4
+MAX_SLOPE = 0.00390625
+LUT_STEP = 1.52587890625e-05
+BANK200 = os.path.join(os.path.dirname(__file__), "golden", "bank200.txt")
+
+
+def _bank(rows):
+    """float32 (tau, omega, psi0, S0) of bank200 rows, via the port (the
+    JAX package's derivation is checked equal in test_bank_params_match)."""
+    b = np.loadtxt(BANK200)[rows]
+    return bank_params_host(b[:, 0], b[:, 1], b[:, 2], DT)
+
+
+def _series(n, seed=0):
+    ts = synthetic_timeseries(n, f_signal=33.0, P_orb=1462.99, tau=0.19, psi0=1.75, seed=seed)
+    return ts[0::2].copy(), ts[1::2].copy()
+
+
+def _kw(n, padding):
+    nsamples = int(padding * n + 0.5)
+    nsamples += nsamples % 2
+    return dict(nsamples=nsamples, n_unpadded=n, dt=DT)
+
+
+def _jax_kw(n, padding):
+    return dict(_kw(n, padding), max_slope=MAX_SLOPE, lut_step=LUT_STEP, lut_tiles=1024)
+
+
+def _assert_equal_but_ties(got, want, ties):
+    """got == want bitwise, except where ``ties`` marks a contraction tie."""
+    got, want = np.asarray(got), np.asarray(want)
+    bad = (got != want) & ~ties
+    assert not bad.any(), f"{bad.sum()} mismatches outside contraction ties"
+    assert ties.mean() < 1e-3
+
+
+def test_bank_params_match():
+    b = np.loadtxt(BANK200)
+    got = bank_params_host(b[:, 0], b[:, 1], b[:, 2], DT)
+    want = jax_bank_params(b[:, 0], b[:, 1], b[:, 2], DT)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_sincos_matches_blocked_lut():
+    # monotone phase with a LUT-index step of 0.0127 per element, inside
+    # the blocked lookup's max_step contract
+    x = (np.linspace(0.0, 50.0, 40000) + 0.3).astype(np.float32)
+    ws, wc = jax_sincos(jnp.asarray(x), max_step=0.02, tiles=1024)
+    gs, gc = sincos_lut_unwrapped(torch.from_numpy(x))
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+    np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+
+
+@pytest.mark.parametrize("renorm", [None, 6.5])
+@pytest.mark.parametrize("n,padding", [(1 << 14, 1.5), (10000, 1.0)])
+def test_stream_and_stats_match_pallas(n, padding, renorm):
+    """Kernel A's plain version == the Pallas batched stream launch: raw
+    gathered streams and n_steps bitwise, mean to MEAN_RTOL."""
+    ev, od = _series(n)
+    params = _bank([0, 1, 2, 7, 150])
+    raw, lf = port.resample_stream(
+        torch.from_numpy(ev), torch.from_numpy(od), port.stream_params(*params),
+        n_unpadded=n, dt=DT, renorm=renorm,
+    )
+    n_steps, mean = port.batch_stats(raw, lf, n_unpadded=n)
+    T = len(params[0])
+    out, jlf, n_blocks = _launch_stream_batch(
+        jnp.asarray(ev), jnp.asarray(od), *(jnp.asarray(p) for p in params),
+        n_unpadded=n, dt=DT, max_slope=MAX_SLOPE, lut_tiles=1024,
+        renorm=renorm, interpret=True,
+    )
+    _, _, w_steps, _, _, w_mean = _batch_stats(out, jlf, T=T, half=n // 2, n_blocks=n_blocks)
+    w_raw = np.asarray(out).reshape(T, 2, -1)[:, :, : n // 2]
+    _assert_equal_but_ties(raw.numpy(), w_raw, contraction_ties(params, n))
+    np.testing.assert_array_equal(n_steps.numpy(), np.asarray(w_steps))
+    np.testing.assert_allclose(mean.numpy(), np.asarray(w_mean), rtol=MEAN_RTOL)
+
+
+def _assert_padded_match(got, want, n_steps, mean, ties):
+    """(even, odd) outputs: equal below n_steps but for contraction ties,
+    the pad within MEAN_RTOL."""
+    ge, go = (np.asarray(a) for a in got)
+    we, wo = (np.asarray(a) for a in want)
+    T, half_out = ge.shape
+    half = ties.shape[2]
+    for t in range(T):
+        i = np.arange(half_out * 2).reshape(-1, 2)
+        for p, (g, w) in enumerate(((ge[t], we[t]), (go[t], wo[t]))):
+            head = i[:, p] < n_steps[t]
+            tie = np.zeros(half_out, dtype=bool)
+            tie[: min(half, half_out)] = ties[t, p, :half_out]
+            _assert_equal_but_ties(g[head], w[head], tie[head])
+            np.testing.assert_allclose(g[~head], w[~head], rtol=MEAN_RTOL)
+            np.testing.assert_array_equal(g[~head], np.full((~head).sum(), mean[t]))
+
+
+def _port_stats(ev, od, params, n):
+    raw, lf = port.resample_stream(
+        torch.from_numpy(ev), torch.from_numpy(od), port.stream_params(*params), n_unpadded=n, dt=DT
+    )
+    n_steps, mean = port.batch_stats(raw, lf, n_unpadded=n)
+    return n_steps.numpy(), mean.numpy()
+
+
+@pytest.mark.parametrize("entry", ["split", "fftprep"])
+def test_batch_entries_match_pallas(entry):
+    n = 1 << 14
+    ev, od = _series(n, seed=1)
+    params = _bank([0, 3, 42, 199])
+    if entry == "split":
+        port_fn, jax_fn = port.resample_split_batch, resample_split_pallas_batch
+    else:
+        port_fn, jax_fn = port.resample_fftprep_batch, resample_fftprep_pallas_batch
+    got = port_fn(
+        torch.from_numpy(ev), torch.from_numpy(od), *(torch.from_numpy(p) for p in params),
+        **_kw(n, 1.5),
+    )
+    want = jax_fn(
+        jnp.asarray(ev), jnp.asarray(od), *(jnp.asarray(p) for p in params),
+        interpret=True, **_jax_kw(n, 1.5),
+    )
+    assert got[0].shape == tuple(want[0].shape)
+    _assert_padded_match(got, want, *_port_stats(ev, od, params, n), contraction_ties(params, n))
+
+
+@pytest.mark.parametrize("rows", [[0, 1, 2], [17, 60, 199]])
+def test_stream_matches_oracle(rows):
+    """Kernel A's plain version + stats == the numpy oracle of the
+    reference resampler: gathered head and n_steps bitwise, the serial
+    float32 mean to MEAN_RTOL."""
+    n = 1 << 14
+    ev, od = _series(n, seed=6)
+    ts = np.empty(n, dtype=np.float32)
+    ts[0::2], ts[1::2] = ev, od
+    b = np.loadtxt(BANK200)[rows]
+    params = bank_params_host(b[:, 0], b[:, 1], b[:, 2], DT)
+    raw, lf = port.resample_stream(
+        torch.from_numpy(ev), torch.from_numpy(od), port.stream_params(*params), n_unpadded=n, dt=DT
+    )
+    n_steps, mean = port.batch_stats(raw, lf, n_unpadded=n)
+    for t, (P, tau, psi) in enumerate(b):
+        rp = ResampleParams.from_template(P, tau, psi, DT, 2 * n, n)
+        want, w_steps, w_mean = oracle_resample(ts, rp)
+        assert int(n_steps[t]) == w_steps
+        got = raw[t].T.reshape(-1).numpy()  # interleave the parity streams
+        np.testing.assert_array_equal(got[:w_steps], want[:w_steps])
+        np.testing.assert_allclose(float(mean[t]), w_mean, rtol=MEAN_RTOL)
+
+
+def test_fftprep_equals_split_path():
+    """Kernel B's series == kernel A + a mean pad written out here, bit for
+    bit (the same select between the same sample and mean bits)."""
+    n = 1 << 13
+    ev, od = (torch.from_numpy(a) for a in _series(n, seed=2))
+    params = [torch.from_numpy(p) for p in _bank([1, 5, 9])]
+    kw = _kw(n, 3.0)
+    raw, lf = port.resample_stream(ev, od, port.stream_params(*params), n_unpadded=n, dt=kw["dt"])
+    n_steps, mean = port.batch_stats(raw, lf, n_unpadded=n)
+    half, half_out = n // 2, kw["nsamples"] // 2
+    m2 = torch.arange(half, dtype=torch.int32) * 2
+    tail = mean[:, None].expand(len(mean), half_out - half)
+    want = [
+        torch.cat([torch.where(m2 + p < n_steps[:, None], raw[:, p], mean[:, None]), tail], dim=1)
+        for p in (0, 1)
+    ]
+    got = port.resample_split_batch(ev, od, *params, **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_single_template_matches_pallas():
+    """The T=1 form (kernel A1's counterpart)."""
+    n = 1 << 14
+    ev, od = _series(n, seed=4)
+    params = _bank([17])
+    got = port.resample_split(
+        torch.from_numpy(ev), torch.from_numpy(od), *(torch.from_numpy(p[0:1]) for p in params),
+        **_kw(n, 1.5),
+    )
+    want = resample_split_pallas(
+        jnp.asarray(ev), jnp.asarray(od), *(jnp.float32(p[0]) for p in params),
+        interpret=True, **_jax_kw(n, 1.5),
+    )
+    _assert_padded_match(
+        [g[None] for g in got], [np.asarray(w)[None] for w in want],
+        *_port_stats(ev, od, params, n), contraction_ties(params, n),
+    )
+
+
+def test_batch_matches_vmapped_xla():
+    n = 1 << 13
+    ev, od = _series(n, seed=5)
+    params = _bank([0, 11, 120])
+    got = port.resample_split_batch(
+        torch.from_numpy(ev), torch.from_numpy(od), *(torch.from_numpy(p) for p in params),
+        **_kw(n, 1.5),
+    )
+    kw = _jax_kw(n, 1.5)
+    we, wo = jax.vmap(
+        lambda a, b, c, d: xla_resample_split(
+            jnp.asarray(ev), jnp.asarray(od), a, b, c, d, use_lut=True, **kw
+        )
+    )(*(jnp.asarray(p) for p in params))
+    _assert_padded_match(
+        got, (we, wo), *_port_stats(ev, od, params, n), contraction_ties(params, n)
+    )
+
+
+def test_plain_stream_needs_cpu_tensor():
+    """A wrapper takes its plain version only for a CPU tensor."""
+    ev = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        port.resample_stream(ev, ev, torch.zeros(1, 4, device="meta"), n_unpadded=16, dt=DT)

@@ -1,0 +1,181 @@
+"""PyTorch port, the batched search step and the slice end to end on the
+CPU, against the JAX package.
+
+Tolerances:
+* one ``BankStep`` against JAX ``make_bank_step`` (resident Pallas chain,
+  interpret mode) from the same carried-over state: the power spectra
+  come from two FFT libraries, so M is held to rtol 1e-5 (the largest
+  difference seen is ~1e-6) and T must be equal.  The templates are ones
+  without a contraction tie at this length (``torch_parity``): at a tie
+  XLA on the CPU fuses a multiply-add the reference does not, gathers a
+  different sample, and moves every bin of that template by ~1%;
+* the candidate files of the two drivers are compared with the
+  validator's tolerance (``io/validate.py::compare_candidate_rows``).
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from boinc_app_eah_brp_tpu.io import parse_result_file as jax_parse
+from boinc_app_eah_brp_tpu.io.validate import compare_candidate_rows
+from boinc_app_eah_brp_tpu.models import search as jax_search
+from boinc_app_eah_brp_tpu.oracle.pipeline import DerivedParams as JaxDerived
+from boinc_app_eah_brp_tpu.oracle.pipeline import SearchConfig as JaxConfig
+from boinc_app_eah_brp_tpu.runtime.driver import DriverArgs as JaxArgs
+from boinc_app_eah_brp_tpu.runtime.driver import run_search as jax_run_search
+from boinc_app_eah_brp_tpu_torch.io import (
+    parse_result_file,
+    write_template_bank,
+    write_workunit,
+)
+from boinc_app_eah_brp_tpu_torch.models import search
+from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+from boinc_app_eah_brp_tpu_torch.runtime.cli import main, parse_args
+from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
+from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EMISC, RADPUL_EVAL
+from fixtures import small_bank, synthetic_timeseries
+from torch_parity import DT, contraction_ties
+
+M_RTOL = 1e-5
+BANK200 = os.path.join(os.path.dirname(__file__), "golden", "bank200.txt")
+
+
+def _geoms(n, cfg_kw, P, tau, psi0):
+    jd = JaxDerived.derive(n, DT * 1e6, JaxConfig(**cfg_kw))
+    d = DerivedParams.derive(n, DT * 1e6, SearchConfig(**cfg_kw))
+    bounds = dict(
+        max_slope=search.max_slope_for_bank(P, tau),
+        lut_step=search.lut_step_for_bank(P, DT),
+        lut_tiles=search.lut_tiles_for_bank(P, psi0, n, DT),
+    )
+    return jax_search.SearchGeometry.from_derived(jd, **bounds), search.SearchGeometry.from_derived(
+        d, **bounds
+    )
+
+
+def test_bank_step_matches_jax_resident_step(monkeypatch):
+    monkeypatch.setenv("ERP_PALLAS_RESIDENT", "1")
+    monkeypatch.setenv("ERP_PALLAS_SUMSPEC", "1")
+    n, B = 1 << 13, 3
+    b = np.loadtxt(BANK200)[[0, 1, 2, 6, 9]]
+    P, tau, psi0 = b[:, 0], b[:, 1], b[:, 2]
+    assert not contraction_ties(search.bank_params_host(P, tau, psi0, DT), n).any()
+    jgeom, geom = _geoms(n, dict(padding=1.5, window=200, f0=250.0), P, tau, psi0)
+    assert jax_search.use_pallas_resident(jgeom) and jax_search.use_pallas_sumspec(jgeom)
+    ts = np.random.default_rng(11).normal(0.0, 1.0, n).astype(np.float32)
+    ts_args = jax_search.prepare_ts(jgeom, ts)
+    jbank = jax_search.upload_bank(jax_search.bank_params_host(P, tau, psi0, DT), B)
+    jstep = jax_search.make_bank_step(jgeom, B)
+    M, T = jax_search.init_state(jgeom)
+    M, T = jstep(ts_args, *jbank, jnp.int32(0), jnp.int32(len(P)), M, T)
+
+    # carry the JAX state after the first batch into the port, then run
+    # the second (partly masked) batch on both
+    step = search.BankStep(
+        geom,
+        search.bank_from_jax([np.asarray(a) for a in jbank], device="cpu"),
+        B,
+        state=search.state_from_jax(np.asarray(M), np.asarray(T), device="cpu"),
+    )
+    M, T = jstep(ts_args, *jbank, jnp.int32(B), jnp.int32(len(P)), M, T)
+    pM, pT = step(torch.from_numpy(ts[0::2].copy()), torch.from_numpy(ts[1::2].copy()), B, len(P))
+    np.testing.assert_allclose(pM.numpy(), np.asarray(M), rtol=M_RTOL)
+    np.testing.assert_array_equal(pT.numpy(), np.asarray(T))
+    assert set(np.unique(pT.numpy())) <= set(range(len(P)))
+
+
+def test_ties_go_to_the_earliest_template():
+    """First-index argmax inside a batch, strict '>' across batches: a bank
+    of the same two templates twice keeps every bin on templates 0/1."""
+    n, B = 1 << 12, 2
+    row = np.loadtxt(BANK200)[[3, 8]]
+    b = np.concatenate([row, row, row[:1]])
+    P, tau, psi0 = b[:, 0], b[:, 1], b[:, 2]
+    _, geom = _geoms(n, dict(padding=1.0, window=100, f0=200.0), P, tau, psi0)
+    ts = torch.from_numpy(np.random.default_rng(2).normal(0.0, 1.0, n).astype(np.float32))
+    M, T = search.run_bank(ts, P, tau, psi0, geom, batch_size=B)
+    assert int(T.max()) <= 1
+    # a batch holding template 0 twice resolves every tie to its first slot
+    bank = search.upload_bank(search.bank_params_host(P[[0, 0]], tau[[0, 0]], psi0[[0, 0]], DT), 2, "cpu")
+    step = search.BankStep(geom, bank, 2, state=search.init_state(geom, "cpu"))
+    M2, T2 = step(ts[0::2].contiguous(), ts[1::2].contiguous(), 0, 2)
+    assert int(T2.max()) == 0 and float(M2.max()) > 0.0
+
+
+@pytest.fixture
+def workdir(tmp_path):
+    n = 4096
+    ts = synthetic_timeseries(n, f_signal=33.0, P_orb=2.2, tau=0.04, psi0=1.2, amp=7.0)
+    paths = {k: str(tmp_path / v) for k, v in dict(
+        wu="test.bin4", bank="bank.dat", zap="zap.txt", jax="jax.cand", port="port.cand"
+    ).items()}
+    write_workunit(paths["wu"], ts, tsample_us=500.0, scale=1.0, dm=55.5)
+    write_template_bank(paths["bank"], small_bank(P_true=2.2, tau_true=0.04, psi_true=1.2))
+    with open(paths["zap"], "w") as f:
+        f.write("50.0 51.0\n120.0 121.5\n")
+    return paths
+
+
+def test_slice_matches_jax_driver(workdir):
+    common = dict(
+        inputfile=workdir["wu"], templatebank=workdir["bank"], zaplistfile=workdir["zap"],
+        window=200, batch_size=2, white=True,
+    )
+    assert run_search(DriverArgs(outputfile=workdir["port"], device="cpu", **common)) == 0
+    assert jax_run_search(
+        JaxArgs(outputfile=workdir["jax"], rescore=False, mesh_devices=1, **common)
+    ) == 0
+    got, want = parse_result_file(workdir["port"]), jax_parse(workdir["jax"])
+    assert got.done and want.done and len(got.lines) > 0
+    for rows in (got.lines, want.lines):
+        assert abs(rows[0][1] - 2.2) < 1e-4 and abs(rows[0][2] - 0.04) < 1e-4
+    diff = compare_candidate_rows(got.lines, want.lines, t_obs=4096 * DT)
+    assert diff.ok, diff.report()
+
+
+def test_cli_runs_the_slice(workdir):
+    rc = main(
+        f"-i {workdir['wu']} -o {workdir['port']} -t {workdir['bank']} -l {workdir['zap']} "
+        "-W -B 200 -P 1.0 --batch 3 --device cpu".split()
+    )
+    assert rc == 0
+    assert open(workdir["port"]).read().endswith("%DONE%\n")
+
+
+@pytest.mark.parametrize(
+    "argv,code",
+    [
+        ("-c cp.bin", RADPUL_EMISC),
+        ("--shmem /dev/shm/x", RADPUL_EMISC),
+        ("--rescore", RADPUL_EMISC),
+        ("-z", RADPUL_EMISC),
+        ("-P 0.5", RADPUL_EVAL),
+        ("--batch 0", RADPUL_EVAL),
+        ("--bogus", RADPUL_EMISC),
+    ],
+)
+def test_cli_refuses_what_the_slice_does_not_honour(argv, code):
+    base = "-i a.bin4 -o o.cand -t t.bank ".split()
+    assert parse_args(base + argv.split()) == code
+
+
+def test_unwhitened_run_is_refused(workdir):
+    args = DriverArgs(
+        inputfile=workdir["wu"], outputfile=workdir["port"], templatebank=workdir["bank"],
+        device="cpu",
+    )
+    assert run_search(args) == RADPUL_EVAL
+    assert not os.path.exists(workdir["port"])
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = DerivedParams.derive(1024, 500.0, SearchConfig(window=100))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        search.init_state(search.SearchGeometry.from_derived(d))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        search.state_from_jax(np.zeros((5, 8), np.float32), np.zeros((5, 8), np.int32))

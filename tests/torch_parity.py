@@ -1,0 +1,24 @@
+"""Shared helpers of the PyTorch port's parity tests."""
+
+import numpy as np
+
+from boinc_app_eah_brp_tpu.oracle.sincos import sincos_lut_lookup as oracle_sincos
+
+DT = 500e-6  # sample time of the test workunits (s)
+
+
+def contraction_ties(params, n):
+    """bool[T, 2, n//2]: samples whose nearest index differs between the
+    uncontracted del_t chain and one with ``tau*s*step_inv - S0`` fused."""
+    f32 = np.float32
+    tau, om, psi, s0 = (np.asarray(p, dtype=f32)[:, None] for p in params)
+    step_inv = f32(1.0) / f32(DT)
+    i_f = np.arange(n, dtype=f32)[None, :]
+    phase = om * (i_f * f32(DT)) + psi
+    s = oracle_sincos(phase)[0]
+    a = tau * s
+    del_u = a * step_inv - s0
+    del_f = (a.astype(np.float64) * np.float64(step_inv) - s0.astype(np.float64)).astype(f32)
+    idx = [np.clip((i_f - d + f32(0.5)).astype(np.int32), 0, n - 1) for d in (del_u, del_f)]
+    T = tau.shape[0]
+    return (idx[0] != idx[1]).reshape(T, n // 2, 2).transpose(0, 2, 1)

@@ -2,9 +2,10 @@
 
 The reference processes one template at a time (``demod_binary.c:1180-1443``)
 and keeps per-template toplists with dynamic thresholds.  Here a batch of
-templates runs through the resample -> FFT-prep -> rfft -> power -> fold
-chain in one pass, and the device carries ``M[k][j]`` (the largest summed
-power of fundamental bin j at harmonic level k over all templates so far)
+templates runs through the resample -> FFT-prep -> rfft -> power + fold
+chain in one pass (the fold forms the power from the complex spectrum),
+and the device carries ``M[k][j]`` (the largest summed power of
+fundamental bin j at harmonic level k over all templates so far)
 and ``T[k][j]`` (the first template index reaching it), in the phase-major
 layout of ``ops/harmonic.py``.  The merge uses strict ``>`` and the batch
 argmax takes the first index, so earlier templates win ties, matching the
@@ -26,9 +27,8 @@ from torch import nn
 from ..device import resolve_device
 from ..oracle.pipeline import DerivedParams
 from ..oracle.sincos import libm_sinf_array
-from ..ops.harmonic import state_width, sumspec_batch, to_natural_order
+from ..ops.harmonic import state_width, sumspec_spectrum, to_natural_order
 from ..ops.resample import fftprep_series
-from ..ops.spectrum import power_spectrum
 
 # below any real summed power: padded batch slots are masked to this before
 # the batch reduction so they can never claim a bin
@@ -227,8 +227,9 @@ def bank_from_jax(params, device="cuda") -> torch.Tensor:
 
 class BankStep(nn.Module):
     """One batch of the search: slice the resident bank at ``t_offset``,
-    resample (kernel A), FFT-prep (kernel B), rfft + power, fold (kernel C),
-    and merge the batch into the (M, T) state in place.
+    resample (kernel A), FFT-prep (kernel B), rfft, power + fold (kernel C
+    on the complex spectrum), and merge the batch into the (M, T) state in
+    place.
 
     ``bank`` is the float32[capacity, 4] resident bank (:func:`upload_bank`
     or :func:`bank_from_jax`) with capacity >= n_total + batch_size."""
@@ -254,10 +255,10 @@ class BankStep(nn.Module):
             ts_even, ts_odd, p[:, 0], p[:, 1], p[:, 2], p[:, 3],
             nsamples=g.nsamples, n_unpadded=g.n_unpadded, dt=g.dt,
         )
-        ps = power_spectrum(x, nsamples=g.nsamples)
+        F = torch.fft.rfft(x)
         del x
-        sums = sumspec_batch(ps, fund_hi=g.fund_hi, harm_hi=g.harm_hi)  # (B, 5, W)
-        del ps
+        sums = sumspec_spectrum(F, nsamples=g.nsamples, fund_hi=g.fund_hi, harm_hi=g.harm_hi)
+        del F  # sums: (B, 5, W)
         valid = torch.arange(t_offset, t_offset + B, device=sums.device) < n_total
         sums = torch.where(valid[:, None, None], sums, torch.full_like(sums[:1], NEG_SENTINEL))
         bmax = sums.amax(dim=0)

@@ -10,8 +10,13 @@ maxima.  Results are stored phase-major, a (5, W) row per template: level
 k's phase p occupies ``[p*Q_k, (p+1)*Q_k)`` (see :func:`level_layout`).
 
 Kernel C (``csrc/fold.cu``) does the whole fold of a template batch in one
-launch; :func:`sumspec_batch_plain` is its plain PyTorch version,
-transcribed from ``_harmonic_sumspec_impl``.
+launch, through two entries: :func:`sumspec_batch` folds float32 power
+spectra, :func:`sumspec_spectrum` folds straight from the complex rfft
+output and forms the power in the kernel, so the search never holds the
+batch's float spectra.  :func:`sumspec_batch_plain` is the plain PyTorch
+version, transcribed from ``_harmonic_sumspec_impl``, and
+:func:`sumspec_spectrum_plain` puts :func:`~.spectrum.power_from_rfft`
+before it.
 """
 
 from __future__ import annotations
@@ -20,11 +25,12 @@ import numpy as np
 import torch
 
 from . import kernels
+from .spectrum import power_from_rfft
 
 # C accumulation order across harmonic levels (hs_common.c:78-148)
 _ACCUM_ORDER = [16, 8, 12, 4, 14, 10, 6, 2, 15, 13, 11, 9, 7, 5, 3, 1]
 
-FOLD_COLS = 255  # output columns per kernel-C block (csrc/fold.cu kCols)
+FOLD_COLS = 255  # output columns per kernel-C tile (csrc/fold.cu kCols)
 
 
 def level_layout(fund_hi: int) -> list[tuple[int, int]]:
@@ -131,6 +137,26 @@ def sumspec_batch_plain(ps: torch.Tensor, *, fund_hi: int, harm_hi: int) -> torc
     return out
 
 
+def _fold_read(L: int, W: int) -> int:
+    """Spectrum prefix that the fold of W columns reads: 16W + 16 bins,
+    or the whole spectrum when it is shorter."""
+    return min(L, 16 * W + 16)
+
+
+def _fold_launch_checks(x: torch.Tensor, dtype, what: str) -> None:
+    if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dtype}[T, L] tensor")
+    if x.shape[0] < 1:
+        raise ValueError("empty template batch")
+
+
+def _fold_library():
+    lib = kernels.library("fold")
+    if lib.erp_fold_cols() != FOLD_COLS:
+        raise RuntimeError("kernel C tile width disagrees with FOLD_COLS")
+    return lib
+
+
 def sumspec_batch(ps: torch.Tensor, *, fund_hi: int, harm_hi: int) -> torch.Tensor:
     """Kernel C: float32[T, 5, W] phase-major run maxima of the spectra
     ``ps[T, L]`` (counterpart of ``sumspec_pallas_batch``)."""
@@ -138,21 +164,55 @@ def sumspec_batch(ps: torch.Tensor, *, fund_hi: int, harm_hi: int) -> torch.Tens
         return sumspec_batch_plain(ps, fund_hi=fund_hi, harm_hi=harm_hi)
     if ps.device.type != "cuda":
         raise ValueError(f"unsupported device {ps.device}")
-    if ps.dtype != torch.float32 or ps.dim() != 2 or not ps.is_contiguous():
-        raise ValueError("ps must be a contiguous float32[T, L] tensor")
+    _fold_launch_checks(ps, torch.float32, "ps")
     T, L = ps.shape
-    if not 0 < T <= kernels.MAX_GRID_T:
-        raise ValueError(f"template batch of {T} outside [1, {kernels.MAX_GRID_T}]")
     W = state_width(fund_hi)
-    lib = kernels.library("fold")
-    if lib.erp_fold_cols() != FOLD_COLS:
-        raise RuntimeError("kernel C tile width disagrees with FOLD_COLS")
+    lib = _fold_library()
     dev = ps.device
     out = torch.empty((T, 5, W), dtype=torch.float32, device=dev)
     rc = lib.erp_fold(
         dev.index, kernels.stream_handle(dev), ps.data_ptr(), out.data_ptr(),
-        T, L, fund_hi, harm_hi, W,
+        T, L, _fold_read(L, W), fund_hi, harm_hi, W,
     )
     kernels.check(rc, "fold kernel launch")
     kernels.launch_counts["fold"] += 1
+    return out
+
+
+def sumspec_spectrum_plain(
+    F: torch.Tensor, *, nsamples: int, fund_hi: int, harm_hi: int
+) -> torch.Tensor:
+    """Plain version of kernel C on complex input: :func:`sumspec_batch_plain`
+    of the power spectra of ``F[T, L]`` (:func:`~.spectrum.power_from_rfft`)."""
+    return sumspec_batch_plain(
+        power_from_rfft(F, nsamples=nsamples), fund_hi=fund_hi, harm_hi=harm_hi
+    )
+
+
+def sumspec_spectrum(
+    F: torch.Tensor, *, nsamples: int, fund_hi: int, harm_hi: int
+) -> torch.Tensor:
+    """Kernel C on the complex rfft output ``F`` (complex64[T, L],
+    ``nsamples``-point transforms): float32[T, 5, W] phase-major run maxima
+    of the power spectra, which exist only in a reused scratch of the
+    spectrum prefix that the fold reads."""
+    if F.device.type == "cpu":
+        return sumspec_spectrum_plain(F, nsamples=nsamples, fund_hi=fund_hi, harm_hi=harm_hi)
+    if F.device.type != "cuda":
+        raise ValueError(f"unsupported device {F.device}")
+    _fold_launch_checks(F, torch.complex64, "F")
+    T, L = F.shape
+    W = state_width(fund_hi)
+    read = _fold_read(L, W)
+    lib = _fold_library()
+    dev = F.device
+    # two power slots: the kernel converts template t+1 while it folds t
+    scratch = torch.empty(2 * read, dtype=torch.float32, device=dev)
+    out = torch.empty((T, 5, W), dtype=torch.float32, device=dev)
+    rc = lib.erp_fold_spectrum(
+        dev.index, kernels.stream_handle(dev), F.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        T, L, read, fund_hi, harm_hi, W, float(np.float32(1.0 / nsamples)),
+    )
+    kernels.check(rc, "fold kernel launch (complex input)")
+    kernels.launch_counts["fold_spectrum"] += 1
     return out

@@ -8,9 +8,11 @@ rebuilds and an unchanged one is reused.  ctypes binds every pointer and
 the stream as ``c_void_p``; each C entry returns ``cudaGetLastError()``
 and :func:`check` raises when it is not 0.
 
-``launch_counts`` holds one plain integer per kernel: a wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that it
-went through the kernels.
+``launch_counts`` holds one plain integer per kernel entry (``KERNELS``):
+a wrapper adds one where it launches its kernel and nowhere else, so a run
+can show that it went through the kernels.  One source may serve several
+entries: ``resample.cu`` the batched and the single-template resampler,
+``fold.cu`` the fold of float power and of the complex spectrum.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 SOURCES = ("resample", "fftprep", "fold")
+KERNELS = ("resample", "resample_t1", "fftprep", "fold", "fold_spectrum")
 MAX_GRID_T = 65535  # templates per launch: the batch is a grid dimension
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -35,6 +38,7 @@ NVCC_FLAGS = (
     # no FMA contraction anywhere: the resampler's index arithmetic must
     # round every multiply and add on its own (csrc/resample.cu)
     "-fmad=false",
+    "-Xptxas", "-v",  # registers, shared memory and spills of each kernel
 )
 
 _P = ctypes.c_void_p
@@ -51,13 +55,16 @@ _SIGNATURES = {
     },
     "fold": {
         "erp_fold_cols": [],
-        "erp_fold": [_I, _P, _P, _P, _I, _I, _I, _I, _I],
+        "erp_fold": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+        "erp_fold_spectrum": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F],
     },
 }
 
-launch_counts = {name: 0 for name in SOURCES}
+launch_counts = {name: 0 for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
+# ptxas's resource report of each kernel built by this process
+ptxas_report: dict[str, list[str]] = {}
 _lock = threading.Lock()
 
 
@@ -82,7 +89,8 @@ def library_path(name: str) -> str:
 
 def build() -> float:
     """Compile every kernel library that is not built yet, all in
-    parallel; returns the wall seconds.  Raises with nvcc's output when a
+    parallel; returns the wall seconds and keeps ptxas's resource report
+    of each in :data:`ptxas_report`.  Raises with nvcc's output when a
     source does not compile."""
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -104,6 +112,11 @@ def build() -> float:
             failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, out)  # atomic: a concurrent process never loads a torn file
+            ptxas_report[name] = [
+                ln.split("ptxas info    : ")[-1].strip()
+                for ln in log.splitlines()
+                if any(w in ln for w in ("entry function", "registers", "spill"))
+            ]
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0

@@ -10,19 +10,18 @@ import numpy as np
 import torch
 
 
-def power_spectrum(x: torch.Tensor, *, nsamples: int) -> torch.Tensor:
-    """float32[..., nsamples//2 + 1] of the real series ``x[..., nsamples]``,
-    DC bin zeroed per spectrum."""
-    F = torch.fft.rfft(x)
+def power_from_rfft(F: torch.Tensor, *, nsamples: int) -> torch.Tensor:
+    """``(re*re + im*im) * float32(1/nsamples)`` of the complex spectra
+    ``F[..., L]``, each multiply and add rounded on its own, DC bin zeroed
+    per spectrum: the plain version of the power epilogue that kernel C
+    forms from the complex spectrum (``ops/harmonic.py::sumspec_spectrum``)."""
     ps = (F.real * F.real + F.imag * F.imag) * float(np.float32(1.0 / nsamples))
     ps[..., 0] = 0.0
     return ps
 
 
-def power_spectrum_split(
-    even: torch.Tensor, odd: torch.Tensor, *, nsamples: int
-) -> torch.Tensor:
-    """:func:`power_spectrum` of the interleaved series given as its
-    (even, odd) parity streams."""
-    x = torch.stack([even, odd], dim=-1).reshape(*even.shape[:-1], -1)
-    return power_spectrum(x, nsamples=nsamples)
+def power_spectrum(x: torch.Tensor, *, nsamples: int) -> torch.Tensor:
+    """float32[..., nsamples//2 + 1] of the real series ``x[..., nsamples]``,
+    DC bin zeroed per spectrum."""
+    return power_from_rfft(torch.fft.rfft(x), nsamples=nsamples)
+

@@ -11,12 +11,14 @@ Phases:
 3. hold each kernel against its plain PyTorch version on the card at the
    production width (a 2^22-sample workunit at 65.476 us, padding 3,
    f0 400 Hz, a batch of 32 templates of ``tests/golden/bank200.txt``):
-   the resampler (and its single-template launch), FFT-prep and the fold
-   must agree bitwise; each is timed beside its plain version;
+   the resampler (and its single-template launch), FFT-prep, the fold of
+   float power and the fold of the complex spectrum must agree bitwise;
+   each is timed beside its plain version and its bound, and rfft, the
+   eager power epilogue and a whole batch step are timed alone;
 4. run the search end to end through the command line on a seeded
    synthetic 4-bit workunit with a binary-pulsar signal injected at one
    bank template, with the kernel launch counts reset just before, and
-   check the candidate file and that every kernel ran;
+   check the candidate file and that every kernel of the main path ran;
 5. print the kernel table as one JSON line, the run's numbers, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -54,9 +56,13 @@ PEAK_F32_S = 67e12
 
 KERNEL_ROWS = {
     "resample": ("boinc_app_eah_brp_tpu/ops/pallas_resample.py:352", "resample.cu"),
+    "resample_t1": ("boinc_app_eah_brp_tpu/ops/pallas_resample.py:322", "resample.cu"),
     "fftprep": ("boinc_app_eah_brp_tpu/ops/pallas_resample.py:772", "fftprep.cu"),
     "fold": ("boinc_app_eah_brp_tpu/ops/pallas_sumspec.py:126", "fold.cu"),
+    "fold_spectrum": ("boinc_app_eah_brp_tpu/ops/pallas_sumspec.py:126", "fold.cu"),
 }
+# the kernels the search's main path must launch
+MAIN_PATH = ("resample", "fftprep", "fold_spectrum")
 
 
 class CheckFailed(Exception):
@@ -106,12 +112,12 @@ def production_geometry():
     return geom, bank
 
 
-def check_kernels(torch, dev, geom, bank) -> tuple[dict, dict]:
+def check_kernels(torch, dev, geom, bank) -> dict:
     """Phase 3: every kernel against its plain version at the production
-    width; returns (per-kernel measurements, single-template check)."""
+    width; returns the per-kernel measurements and the stage times."""
     from boinc_app_eah_brp_tpu_torch.models import search
-    from boinc_app_eah_brp_tpu_torch.ops import harmonic, resample
-    from boinc_app_eah_brp_tpu_torch.ops.spectrum import power_spectrum
+    from boinc_app_eah_brp_tpu_torch.ops import harmonic, kernels, resample
+    from boinc_app_eah_brp_tpu_torch.ops.spectrum import power_from_rfft
 
     n, nsamples, half = geom.n_unpadded, geom.nsamples, geom.n_unpadded // 2
     rng = np.random.default_rng(SEED)
@@ -151,13 +157,15 @@ def check_kernels(torch, dev, geom, bank) -> tuple[dict, dict]:
     r1p, l1p = resample.resample_stream_plain(ev, od, one, **kw)
     torch.cuda.synchronize()
     check(torch.equal(r1, r1p) and torch.equal(l1, l1p), "single-template resample != plain version")
-    a1 = dict(
-        name="resample T=1",
+    out["resample_t1"] = dict(
         max_abs_err=float((r1 - r1p).abs().max()),
         ms=time_ms(torch, lambda: resample.resample_stream(ev, od, one, **kw), 50),
         plain_ms=time_ms(torch, lambda: resample.resample_stream_plain(ev, od, one, **kw), 3),
+        library_ms=None,
     )
-    a1["bound_ms"], a1["bound_by"] = bound(n * 4 + 16 + n * 4 + 2 * nblk * 4, n * 22)
+    out["resample_t1"]["bound_ms"], out["resample_t1"]["bound_by"] = bound(
+        n * 4 + 16 + n * 4 + 2 * nblk * 4, n * 22
+    )
 
     # B: FFT-prep
     x = resample.fftprep(raw, n_steps, mean, nsamples=nsamples)
@@ -179,38 +187,64 @@ def check_kernels(torch, dev, geom, bank) -> tuple[dict, dict]:
     )
     del x_p, src, mask, i
 
-    # C: the fold, on the cuFFT spectrum of B's series
-    stages = dict(rfft_power_ms=time_ms(torch, lambda: power_spectrum(x, nsamples=nsamples), 5))
-    ps = power_spectrum(x, nsamples=nsamples)
+    # rfft and the eager power epilogue, each alone
+    F = torch.fft.rfft(x)
+    stages = dict(
+        rfft_ms=time_ms(torch, lambda: torch.fft.rfft(x), 5),
+        power_ms=time_ms(torch, lambda: power_from_rfft(F, nsamples=nsamples), 5),
+    )
     del x
-    sums = harmonic.sumspec_batch(ps, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
-    sums_p = harmonic.sumspec_batch_plain(ps, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
+    fold_kw = dict(fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
+    W = harmonic.state_width(geom.fund_hi)
+    read = min(F.shape[1], 16 * W + 16)  # the spectrum prefix the fold reads
+    # per column: 15 multipliers x 16 rows of adds, 16 masks, ~31 maxima
+    fold_ops = T * W * (15 * 16 + 16 + 31)
+
+    # C on float power spectra (the counterpart of sumspec_pallas_batch)
+    ps = power_from_rfft(F, nsamples=nsamples)
+    before = kernels.launch_counts["fold"]
+    sums = harmonic.sumspec_batch(ps, **fold_kw)
+    check(kernels.launch_counts["fold"] == before + 1, "the float-input fold did not launch")
+    sums_p = harmonic.sumspec_batch_plain(ps, **fold_kw)
     torch.cuda.synchronize()
     check(torch.equal(sums, sums_p), "fold kernel != plain version")
-    W = sums.shape[2]
-    read = min(ps.shape[1], 16 * W + 16)  # the spectrum prefix the fold reads
     out["fold"] = dict(
         max_abs_err=float((sums - sums_p).abs().max()),
-        ms=time_ms(torch, lambda: harmonic.sumspec_batch(ps, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi), 20),
-        plain_ms=time_ms(
-            torch, lambda: harmonic.sumspec_batch_plain(ps, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi), 2
-        ),
+        ms=time_ms(torch, lambda: harmonic.sumspec_batch(ps, **fold_kw), 20),
+        plain_ms=time_ms(torch, lambda: harmonic.sumspec_batch_plain(ps, **fold_kw), 2),
         library_ms=None,
     )
-    # per column: 15 multipliers x 16 rows of adds, 16 masks, ~31 maxima
     out["fold"]["bound_ms"], out["fold"]["bound_by"] = bound(
-        T * read * 4 + T * 5 * W * 4, T * W * (15 * 16 + 16 + 31)
+        T * read * 4 + T * 5 * W * 4, fold_ops
     )
     del ps, sums, sums_p
 
-    # one whole batch step (A, stats, B, rfft + power, C, merge)
+    # C on the complex spectrum, the main path's entry: the power epilogue
+    # (3 multiplies and an add a bin) inside the fold
+    sk = dict(nsamples=nsamples, **fold_kw)
+    sums = harmonic.sumspec_spectrum(F, **sk)
+    sums_p = harmonic.sumspec_spectrum_plain(F, **sk)
+    torch.cuda.synchronize()
+    check(torch.equal(sums, sums_p), "complex-input fold kernel != plain version")
+    out["fold_spectrum"] = dict(
+        max_abs_err=float((sums - sums_p).abs().max()),
+        ms=time_ms(torch, lambda: harmonic.sumspec_spectrum(F, **sk), 20),
+        plain_ms=time_ms(torch, lambda: harmonic.sumspec_spectrum_plain(F, **sk), 2),
+        library_ms=None,
+    )
+    out["fold_spectrum"]["bound_ms"], out["fold_spectrum"]["bound_by"] = bound(
+        T * read * 8 + T * 5 * W * 4, fold_ops + T * read * 4
+    )
+    del F, sums, sums_p
+
+    # one whole batch step (A, stats, B, rfft, power + C, merge)
     bank_dev = search.upload_bank(
         search.bank_params_host(bank.P, bank.tau, bank.psi0, geom.dt), BATCH, dev
     )
     step = search.BankStep(geom, bank_dev, BATCH, state=search.init_state(geom, dev))
     stages["batch_step_ms"] = time_ms(torch, lambda: step(ev, od, 0, len(bank)), 3)
     out["stages"] = stages
-    return out, a1
+    return out
 
 
 def synthetic_workunit(path: str, geom, bank) -> tuple[float, float]:
@@ -274,8 +308,9 @@ def run_main_path(torch, geom, bank, workdir: str) -> dict:
         f"injected template (P={P_inj}, tau={tau_inj}) not among the top 5 candidates: "
         f"{top.tolist()}",
     )
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched by the search")
+    for name in MAIN_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched by the search")
+    check(launches["fold"] == 0, "the search folded a float power tensor")
 
     # The same run again, now that cuFFT plans and the median library are
     # loaded, and then its stages one at a time in the driver's order.
@@ -376,14 +411,14 @@ def main() -> int:
     build_s = kernels.build()
     for name in kernels.SOURCES:
         kernels.library(name)
-    print(json.dumps({"build_s": build_s}))
+    print(json.dumps({"build_s": build_s, "ptxas": kernels.ptxas_report}))
 
     workdir = os.path.join(kernels.BUILD_DIR, "chip_smoke")  # git-ignored
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
         geom, bank = production_geometry()
-        measured, a1 = check_kernels(torch, dev, geom, bank)
+        measured = check_kernels(torch, dev, geom, bank)
         torch.cuda.empty_cache()
         run = run_main_path(torch, geom, bank, workdir)
     except CheckFailed as e:
@@ -409,7 +444,6 @@ def main() -> int:
                 library_ms=m["library_ms"],
             )
         )
-    print(json.dumps({"single_template": a1}))
     print(json.dumps({"main_path": {k: v for k, v in run.items() if k != "launches"}}))
     print(json.dumps({"kernels": rows}))
     print(

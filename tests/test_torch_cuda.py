@@ -19,7 +19,6 @@ import torch
 
 from boinc_app_eah_brp_tpu_torch.models import search
 from boinc_app_eah_brp_tpu_torch.ops import harmonic, kernels, resample
-from boinc_app_eah_brp_tpu_torch.ops.spectrum import power_spectrum
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +60,24 @@ def test_fold_matches_plain(dev, L, fund_hi, harm_hi):
     ps = torch.empty((3, L)).exponential_(generator=g).to(dev)
     got = harmonic.sumspec_batch(ps, fund_hi=fund_hi, harm_hi=harm_hi)
     assert torch.equal(got, harmonic.sumspec_batch_plain(ps, fund_hi=fund_hi, harm_hi=harm_hi))
+
+
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize(
+    "L,fund_hi,harm_hi",
+    # the last geometry's fold reads past the spectrum: 16W + 16 = 2064 > L
+    [(98305, 5149, 82388), (5001, 301, 4817), (2049, 127, 1949)],
+)
+def test_fold_spectrum_matches_plain(dev, T, L, fund_hi, harm_hi):
+    rng = np.random.default_rng(L + T)
+    F = (rng.normal(size=(T, L)) + 1j * rng.normal(size=(T, L))).astype(np.complex64)
+    F = torch.from_numpy(F).to(dev)
+    n = 2 * (L - 1)
+    before = kernels.launch_counts["fold_spectrum"]
+    got = harmonic.sumspec_spectrum(F, nsamples=n, fund_hi=fund_hi, harm_hi=harm_hi)
+    assert kernels.launch_counts["fold_spectrum"] == before + 1
+    want = harmonic.sumspec_spectrum_plain(F, nsamples=n, fund_hi=fund_hi, harm_hi=harm_hi)
+    assert torch.equal(got, want)
 
 
 def test_bank_step_card_matches_cpu(dev):

@@ -245,14 +245,14 @@ class BankStep(nn.Module):
         self.register_buffer("T", state[1])
 
     @torch.no_grad()
-    def forward(self, ts_even: torch.Tensor, ts_odd: torch.Tensor, t_offset: int, n_total: int):
+    def forward(self, ts: torch.Tensor, t_offset: int, n_total: int):
         g = self.geom
         B = self.batch_size
         if t_offset + B > self.bank.shape[0]:
             raise ValueError("bank capacity too small for this batch: pad it by batch_size")
         p = self.bank[t_offset : t_offset + B]
         x = fftprep_series(
-            ts_even, ts_odd, p[:, 0], p[:, 1], p[:, 2], p[:, 3],
+            ts, p[:, 0], p[:, 1], p[:, 2], p[:, 3],
             nsamples=g.nsamples, n_unpadded=g.n_unpadded, dt=g.dt,
         )
         F = torch.fft.rfft(x)
@@ -285,8 +285,7 @@ def run_bank(
     n = len(bank_P)
     bank = upload_bank(bank_params_host(bank_P, bank_tau, bank_psi0, geom.dt), batch_size, dev)
     step = BankStep(geom, bank, batch_size, state=state)
-    ts_even = ts[0::2].contiguous()
-    ts_odd = ts[1::2].contiguous()
+    ts = ts.contiguous()
     for start in range(0, n, batch_size):
-        step(ts_even, ts_odd, start, n)
+        step(ts, start, n)
     return step.M, step.T

@@ -31,7 +31,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 SOURCES = ("resample", "fftprep", "fold")
 KERNELS = ("resample", "resample_t1", "fftprep", "fold", "fold_spectrum")
-MAX_GRID_T = 65535  # templates per launch: the batch is a grid dimension
+MAX_GRID_T = 65535  # templates per FFT-prep launch: the batch is a grid dimension
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -46,9 +46,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "resample": {
-        "erp_resample_block": [],
+        "erp_resample_unit": [],
         "erp_resample_init": [_I, _P, _P, _P],
-        "erp_resample_stream": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I],
+        "erp_resample_stream": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I],
     },
     "fftprep": {
         "erp_fftprep": [_I, _P, _P, _P, _P, _P, _I, _I, _I],

@@ -5,17 +5,19 @@ Counterpart of the reference package's ``ops/resample.py`` and
 
 * kernel A (``csrc/resample.cu``): per template and output sample, the
   LUT-sine phase -> ``del_t`` -> clipped nearest index -> gathered sample,
-  plus per block the last index before the trailing run;
+  and per template the statistics ``(n_steps, mean)``: the start of the
+  trailing run and the mean of the samples below it;
 * kernel B (``csrc/fftprep.cu``): the gathered samples below ``n_steps``
   and the template's pad mean above, written as the interleaved padded
   series that the real FFT reads.
 
-Between them :func:`batch_stats` reduces A's outputs to each template's
-``(n_steps, mean)``.  Each kernel has its plain PyTorch version here; a
-wrapper runs the plain version for CPU tensors and launches the kernel for
-CUDA tensors (or raises).  The plain versions are separate eager float32
-ops in the reference order and are never compiled: a fused multiply-add in
-the index arithmetic would flip nearest indices.
+Each kernel has its plain PyTorch version here; a wrapper runs the plain
+version for CPU tensors and launches the kernel for CUDA tensors (or
+raises).  The plain versions are separate eager float32 ops in the
+reference order and are never compiled: a fused multiply-add in the index
+arithmetic would flip nearest indices.  The mean's sum has one fixed
+order (:func:`masked_sum_plain`), so kernel and plain version agree bit
+for bit.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 from . import kernels
 from .sincos import COS64, SIN64, TWO_PI, TWO_PI_INV, sincos_lut_unwrapped
 
-STREAM_BLOCK = 256  # outputs per kernel-A block (csrc/resample.cu kStreamBlock)
+PER_LANE = 8  # outputs a lane of kernel A sums in order (csrc/resample.cu kPer)
+UNIT = 32 * PER_LANE  # outputs a warp sums as one unit (kUnit)
 
 _tables_ready: set[int] = set()
 
@@ -52,15 +55,49 @@ def _step_inv(dt: float) -> float:
     return float(np.float32(1.0) / np.float32(dt))
 
 
-def resample_stream_plain(ts_even, ts_odd, params, *, n_unpadded: int, dt: float, renorm=None):
-    """Plain version of kernel A: (raw float32[T, 2, half], lf int32[T, 2,
-    n_blocks]) where ``raw[t, p, m]`` is the gathered sample of interleaved
-    index ``2m+p`` and ``lf[t, p, b]`` the largest ``m`` of block ``b`` whose
-    ``i - del_t < n-1`` (-1 when there is none)."""
-    dev = ts_even.device
+def _halve(x: torch.Tensor) -> torch.Tensor:
+    """Halving tree over the last axis: ``x[..., :h] + x[..., h:]`` until
+    one element is left (the length must be a power of two)."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def masked_sum_plain(raw: torch.Tensor, n_steps: torch.Tensor) -> torch.Tensor:
+    """float32[T]: the sum of ``raw[t, p, m]`` over ``2m+p < n_steps[t]``,
+    in kernel A's fixed order: per unit of ``UNIT`` outputs, lane ``j``'s
+    ``PER_LANE`` outputs ``j, j+32, ...`` left to right, a halving tree
+    over the 32 lanes, a halving tree over the units padded with +0.0 to a
+    power of two, then ``sum_even + sum_odd``.  Left-out samples add
+    +0.0."""
+    T, _, half = raw.shape
+    m = torch.arange(half, dtype=torch.int32, device=raw.device)
+    i = 2 * m[None, :] + torch.arange(2, dtype=torch.int32, device=raw.device)[:, None]
+    x = torch.where(i[None] < n_steps[:, None, None], raw, torch.zeros((), dtype=raw.dtype, device=raw.device))
+    n_units = -(-half // UNIT)
+    x = torch.nn.functional.pad(x, (0, n_units * UNIT - half))
+    x = x.reshape(T, 2, n_units, PER_LANE, 32).transpose(-1, -2)
+    lane = x[..., 0]
+    for k in range(1, PER_LANE):
+        lane = lane + x[..., k]
+    units = _halve(lane)  # (T, 2, n_units)
+    n_pow2 = 1 << (n_units - 1).bit_length()
+    sums = _halve(torch.nn.functional.pad(units, (0, n_pow2 - n_units)))
+    return sums[:, 0] + sums[:, 1]
+
+
+def resample_stream_plain(ts, params, *, n_unpadded: int, dt: float, renorm=None):
+    """Plain version of kernel A: ``(raw float32[T, 2, half], n_steps
+    int32[T], mean float32[T])``.  ``raw[t, p, m]`` is the gathered sample
+    of interleaved index ``2m+p``; ``n_steps`` is ``max(2*lf_e, 2*lf_o+1)``
+    with ``lf_p`` the largest ``m`` of parity ``p`` whose ``i - del_t <
+    n-1`` (the reference's trailing-run start); ``mean`` is
+    :func:`masked_sum_plain` over ``n_steps`` by IEEE division.  ``ts`` is
+    the whitened time series float32[n_unpadded]."""
+    dev = ts.device
     T = params.shape[0]
     half = n_unpadded // 2
-    n_blocks = -(-half // STREAM_BLOCK)
     tau, omega, psi0, s0 = (params[:, c].reshape(T, 1, 1) for c in range(4))
     m = torch.arange(half, dtype=torch.int32, device=dev)
     parity = torch.arange(2, dtype=torch.int32, device=dev)[:, None]
@@ -72,53 +109,53 @@ def resample_stream_plain(ts_even, ts_odd, params, *, n_unpadded: int, dt: float
     x = i_f - del_t
     cond = x >= float(n_unpadded - 1)
     idx = (x + 0.5).to(torch.int32).clamp(0, n_unpadded - 1)
-    ts = torch.stack([ts_even, ts_odd], dim=-1).reshape(-1)
     raw = ts[idx.long()]
     if renorm is not None:
         raw = raw * float(np.float32(renorm))
     last = torch.where(cond, torch.tensor(-1, dtype=torch.int32, device=dev), m)
-    pad = n_blocks * STREAM_BLOCK - half
-    last = torch.nn.functional.pad(last, (0, pad), value=-1)
-    lf = last.reshape(T, 2, n_blocks, STREAM_BLOCK).amax(dim=3)
-    return raw.contiguous(), lf.to(torch.int32).contiguous()
+    lf = last.amax(dim=2)  # (T, 2)
+    n_steps = torch.maximum(2 * lf[:, 0], 2 * lf[:, 1] + 1).to(torch.int32)
+    mean = masked_sum_plain(raw, n_steps) / n_steps.to(torch.float32)
+    return raw.contiguous(), n_steps, mean
 
 
-def resample_stream(ts_even, ts_odd, params, *, n_unpadded: int, dt: float, renorm=None):
-    """Kernel A over the template batch ``params`` (:func:`stream_params`);
-    see :func:`resample_stream_plain` for the outputs."""
-    if ts_even.device.type == "cpu":
-        return resample_stream_plain(
-            ts_even, ts_odd, params, n_unpadded=n_unpadded, dt=dt, renorm=renorm
-        )
-    if ts_even.device.type != "cuda":
-        raise ValueError(f"unsupported device {ts_even.device}")
-    if not 0 < params.shape[0] <= kernels.MAX_GRID_T:
-        raise ValueError(f"template batch of {params.shape[0]} outside [1, {kernels.MAX_GRID_T}]")
-    if n_unpadded % 2:
-        raise ValueError("the resampler requires an even n_unpadded")
-    dev = ts_even.device
+def resample_stream(ts, params, *, n_unpadded: int, dt: float, renorm=None):
+    """Kernel A over the time series ``ts`` and the template batch
+    ``params`` (:func:`stream_params`); see :func:`resample_stream_plain`
+    for the outputs."""
+    if ts.device.type == "cpu":
+        return resample_stream_plain(ts, params, n_unpadded=n_unpadded, dt=dt, renorm=renorm)
+    if ts.device.type != "cuda":
+        raise ValueError(f"unsupported device {ts.device}")
+    if params.shape[0] < 1:
+        raise ValueError("empty template batch")
+    if n_unpadded % 2 or n_unpadded <= 0:
+        raise ValueError("the resampler requires an even, positive n_unpadded")
+    dev = ts.device
     T = params.shape[0]
     half = n_unpadded // 2
-    _check_cuda("ts_even", ts_even, torch.float32, (half,), dev)
-    _check_cuda("ts_odd", ts_odd, torch.float32, (half,), dev)
+    _check_cuda("ts", ts, torch.float32, (n_unpadded,), dev)
     _check_cuda("params", params, torch.float32, (T, 4), dev)
     lib = kernels.library("resample")
-    if lib.erp_resample_block() != STREAM_BLOCK:
-        raise RuntimeError("kernel A block size disagrees with STREAM_BLOCK")
     if dev.index not in _tables_ready:
+        if lib.erp_resample_unit() != UNIT:
+            raise RuntimeError("kernel A unit size disagrees with UNIT")
         two_pi = np.array([TWO_PI, TWO_PI_INV], dtype=np.float32)
         kernels.check(
             lib.erp_resample_init(dev.index, SIN64.ctypes.data, COS64.ctypes.data, two_pi.ctypes.data),
             "resample table upload",
         )
         _tables_ready.add(dev.index)
-    n_blocks = -(-half // STREAM_BLOCK)
+    n_units = -(-half // UNIT)
     raw = torch.empty((T, 2, half), dtype=torch.float32, device=dev)
-    lf = torch.empty((T, 2, n_blocks), dtype=torch.int32, device=dev)
+    stats = torch.empty((2, T), dtype=torch.int32, device=dev)  # n_steps, mean bits
+    units = torch.empty((2, T, 2, n_units), dtype=torch.int32, device=dev)  # sum bits, last
+    n_steps, mean = stats[0], stats[1].view(torch.float32)
     rc = lib.erp_resample_stream(
         dev.index, kernels.stream_handle(dev),
-        ts_even.data_ptr(), ts_odd.data_ptr(), params.data_ptr(),
-        raw.data_ptr(), lf.data_ptr(),
+        ts.data_ptr(), params.data_ptr(),
+        raw.data_ptr(), n_steps.data_ptr(), mean.data_ptr(),
+        units[0].data_ptr(), units[1].data_ptr(),
         T, half, n_unpadded, float(np.float32(dt)), _step_inv(dt),
         float(np.float32(renorm if renorm is not None else 1.0)), int(renorm is not None),
     )
@@ -126,26 +163,7 @@ def resample_stream(ts_even, ts_odd, params, *, n_unpadded: int, dt: float, reno
     # the single-template launch stands for the reference package's
     # parity-stream kernel and is counted as its own entry
     kernels.launch_counts["resample_t1" if T == 1 else "resample"] += 1
-    return raw, lf
-
-
-def batch_stats(raw: torch.Tensor, lf: torch.Tensor, *, n_unpadded: int):
-    """Per-template ``(n_steps int32[T], mean float32[T])`` from kernel A's
-    outputs: the trailing-run start over both parities, and the mean of
-    the samples below it (a reduction of its own order, so the mean agrees
-    with the reference package's to a tolerance, not bitwise)."""
-    half = n_unpadded // 2
-    lf_glob = lf.amax(dim=2)  # (T, 2)
-    n_steps = torch.maximum(2 * lf_glob[:, 0], 2 * lf_glob[:, 1] + 1).to(torch.int32)
-    m2 = torch.arange(half, dtype=torch.int32, device=raw.device) * 2
-    mask_e = m2[None, :] < n_steps[:, None]
-    mask_o = (m2 + 1)[None, :] < n_steps[:, None]
-    zero = torch.zeros((), dtype=raw.dtype, device=raw.device)
-    total = torch.where(mask_e, raw[:, 0], zero).sum(dim=1) + torch.where(
-        mask_o, raw[:, 1], zero
-    ).sum(dim=1)
-    mean = total / n_steps.to(torch.float32)
-    return n_steps, mean
+    return raw, n_steps, mean
 
 
 def fftprep_plain(raw, n_steps, mean, *, nsamples: int) -> torch.Tensor:
@@ -184,24 +202,24 @@ def fftprep(raw, n_steps, mean, *, nsamples: int) -> torch.Tensor:
 
 
 def fftprep_series(
-    ts_even, ts_odd, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None
+    ts, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None
 ) -> torch.Tensor:
-    """Kernel A, the stats, kernel B: the interleaved padded series
-    float32[T, nsamples] of every template, ready for the real FFT."""
-    params = stream_params(tau, omega, psi0, s0, device=ts_even.device)
-    raw, lf = resample_stream(ts_even, ts_odd, params, n_unpadded=n_unpadded, dt=dt, renorm=renorm)
-    n_steps, mean = batch_stats(raw, lf, n_unpadded=n_unpadded)
+    """Kernel A (samples and statistics), then kernel B: the interleaved
+    padded series float32[T, nsamples] of every template, ready for the
+    real FFT."""
+    params = stream_params(tau, omega, psi0, s0, device=ts.device)
+    raw, n_steps, mean = resample_stream(ts, params, n_unpadded=n_unpadded, dt=dt, renorm=renorm)
     return fftprep(raw, n_steps, mean, nsamples=nsamples)
 
 
 def resample_fftprep_batch(
-    ts_even, ts_odd, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None
+    ts, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None
 ):
     """(even, odd) float32[T, nsamples//2] parity views of
     :func:`fftprep_series`: the counterpart of
     ``resample_fftprep_pallas_batch``."""
     x = fftprep_series(
-        ts_even, ts_odd, tau, omega, psi0, s0,
+        ts, tau, omega, psi0, s0,
         nsamples=nsamples, n_unpadded=n_unpadded, dt=dt, renorm=renorm,
     )
     return x[:, 0::2], x[:, 1::2]
@@ -214,12 +232,12 @@ resample_split_batch = resample_fftprep_batch
 
 
 def resample_split(
-    ts_even, ts_odd, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None
+    ts, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None
 ):
     """One template: (even, odd) float32[nsamples//2], the T=1 launch of
     :func:`resample_split_batch` (counterpart of ``resample_split_pallas``)."""
     ev, od = resample_split_batch(
-        ts_even, ts_odd, tau, omega, psi0, s0,
+        ts, tau, omega, psi0, s0,
         nsamples=nsamples, n_unpadded=n_unpadded, dt=dt, renorm=renorm,
     )
     return ev[0], od[0]

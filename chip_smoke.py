@@ -11,10 +11,13 @@ Phases:
 3. hold each kernel against its plain PyTorch version on the card at the
    production width (a 2^22-sample workunit at 65.476 us, padding 3,
    f0 400 Hz, a batch of 32 templates of ``tests/golden/bank200.txt``):
-   the resampler (and its single-template launch), FFT-prep, the fold of
-   float power and the fold of the complex spectrum must agree bitwise;
-   each is timed beside its plain version and its bound, and rfft, the
-   eager power epilogue and a whole batch step are timed alone;
+   the resampler with its statistics (gathered samples, n_steps and mean,
+   at 32 templates and in its single-template launch), FFT-prep, the fold
+   of float power and the fold of the complex spectrum must agree
+   bitwise; each is timed beside its plain version and its bound (bytes,
+   float32 instructions and conversions, each at its own rate), and a
+   copy of the first port's eager statistics, rfft, the eager power
+   epilogue and a whole batch step are timed alone;
 4. run the search end to end through the command line on a seeded
    synthetic 4-bit workunit with a binary-pulsar signal injected at one
    bank template, with the kernel launch counts reset just before, and
@@ -49,10 +52,21 @@ INJECT = 57  # bank200 row whose orbit the synthetic signal follows
 SEED = 20261016
 DEVICE = "cuda"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
-# tensor cores
+# H100 SXM peaks: HBM bandwidth (NVIDIA data sheet); float32 instructions
+# outside the tensor cores, 132 SMs x 128 lanes x 1.98 GHz (the data
+# sheet's 67 TFLOP/s counts a fused multiply-add as two, and every kernel
+# here is built with -fmad=false, so each multiply and add is one
+# instruction); conversions between float and int at 16 a clock per SM
+# (CUDA Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0)
 PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
+PEAK_F32_INSTR_S = 132 * 128 * 1.98e9
+PEAK_CVT_S = 132 * 16 * 1.98e9
+# kernel A's float32 instructions a sample, counted from csrc/resample.cu's
+# interior path: the phase and LUT argument 6, the LUT index by the 2^23
+# add 2, the Taylor sine 9, del_t 3, the nearest index 3, the add into its
+# lane's sum 1; it has no conversions there (one a lane per run of 8)
+RESAMPLE_F32_PER_SAMPLE = 24
 
 KERNEL_ROWS = {
     "resample": ("boinc_app_eah_brp_tpu/ops/pallas_resample.py:352", "resample.cu"),
@@ -89,10 +103,40 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / PEAK_BYTES_S
-    t_ops = ops / PEAK_F32_S
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+def bound(bytes_moved: float, f32_instr: float = 0.0, conversions: float = 0.0) -> dict:
+    """The least time for the work: the largest of its bytes at the memory
+    rate, its float32 instructions and its conversions at their rates."""
+    t = {
+        "bytes": bytes_moved / PEAK_BYTES_S * 1e3,
+        "fp32": f32_instr / PEAK_F32_INSTR_S * 1e3,
+        "conversions": conversions / PEAK_CVT_S * 1e3,
+    }
+    by = max(t, key=t.get)
+    return dict(
+        bound_ms=t[by],
+        bound_by="bytes" if by == "bytes" else "operations",
+        limit=by,
+        **{f"{k}_ms": v for k, v in t.items()},
+    )
+
+
+def eager_stats(raw, n_steps, lf):
+    """A copy of the eager statistics that ran between kernels A and B
+    before A computed them (``ops/resample.py::batch_stats`` up to
+    553471c): the trailing-run maxima, two masked passes over the samples,
+    their sums and the division.  Timed as a yardstick only, on kernel A's
+    outputs here, with a zeroed ``lf`` of the old kernel's shape."""
+    import torch
+
+    half = raw.shape[2]
+    lf_glob = lf.amax(dim=2)
+    n = torch.maximum(2 * lf_glob[:, 0], 2 * lf_glob[:, 1] + 1).to(torch.int32)
+    m2 = torch.arange(half, dtype=torch.int32, device=raw.device) * 2
+    zero = torch.zeros((), dtype=raw.dtype, device=raw.device)
+    total = torch.where(m2[None, :] < n_steps[:, None], raw[:, 0], zero).sum(dim=1) + torch.where(
+        (m2 + 1)[None, :] < n_steps[:, None], raw[:, 1], zero
+    ).sum(dim=1)
+    return n, total / n_steps.to(torch.float32)
 
 
 def production_geometry():
@@ -122,7 +166,6 @@ def check_kernels(torch, dev, geom, bank) -> dict:
     n, nsamples, half = geom.n_unpadded, geom.nsamples, geom.n_unpadded // 2
     rng = np.random.default_rng(SEED)
     ts = torch.from_numpy(rng.normal(0.0, 1.0, n).astype(np.float32)).to(dev)
-    ev, od = ts[0::2].contiguous(), ts[1::2].contiguous()
     params = resample.stream_params(
         *search.bank_params_host(bank.P[:BATCH], bank.tau[:BATCH], bank.psi0[:BATCH], geom.dt), device=dev
     )
@@ -130,42 +173,28 @@ def check_kernels(torch, dev, geom, bank) -> dict:
     kw = dict(n_unpadded=n, dt=geom.dt)
     out = {}
 
-    # A: the resampler
-    raw, lf = resample.resample_stream(ev, od, params, **kw)
-    raw_p, lf_p = resample.resample_stream_plain(ev, od, params, **kw)
-    torch.cuda.synchronize()
-    check(torch.equal(raw, raw_p), "resample kernel != plain version (gathered samples)")
-    check(torch.equal(lf, lf_p), "resample kernel != plain version (trailing-run blocks)")
-    n_steps, mean = resample.batch_stats(raw, lf, n_unpadded=n)
-    n_steps_p, _ = resample.batch_stats(raw_p, lf_p, n_unpadded=n)
-    check(torch.equal(n_steps, n_steps_p), "resample kernel != plain version (n_steps)")
-    nblk = lf.shape[2]
-    out["resample"] = dict(
-        max_abs_err=float((raw - raw_p).abs().max()),
-        ms=time_ms(torch, lambda: resample.resample_stream(ev, od, params, **kw), 20),
-        plain_ms=time_ms(torch, lambda: resample.resample_stream_plain(ev, od, params, **kw), 3),
-        library_ms=None,
-    )
-    out["resample"]["bound_ms"], out["resample"]["bound_by"] = bound(
-        n * 4 + T * 16 + T * n * 4 + T * 2 * nblk * 4, T * n * 22
-    )
-    del raw_p, lf_p
-
-    # A1: the single-template launch of the same kernel
-    one = params[17:18].contiguous()
-    r1, l1 = resample.resample_stream(ev, od, one, **kw)
-    r1p, l1p = resample.resample_stream_plain(ev, od, one, **kw)
-    torch.cuda.synchronize()
-    check(torch.equal(r1, r1p) and torch.equal(l1, l1p), "single-template resample != plain version")
-    out["resample_t1"] = dict(
-        max_abs_err=float((r1 - r1p).abs().max()),
-        ms=time_ms(torch, lambda: resample.resample_stream(ev, od, one, **kw), 50),
-        plain_ms=time_ms(torch, lambda: resample.resample_stream_plain(ev, od, one, **kw), 3),
-        library_ms=None,
-    )
-    out["resample_t1"]["bound_ms"], out["resample_t1"]["bound_by"] = bound(
-        n * 4 + 16 + n * 4 + 2 * nblk * 4, n * 22
-    )
+    # A: the resampler with its statistics (n_steps, mean), at T = 32 and
+    # in its single-template launch A1
+    for name, p_ in (("resample", params), ("resample_t1", params[17:18].contiguous())):
+        t_ = p_.shape[0]
+        got = resample.resample_stream(ts, p_, **kw)
+        want = resample.resample_stream_plain(ts, p_, **kw)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("gathered samples", "n_steps", "mean"), got, want):
+            check(torch.equal(a, b), f"{name} kernel != plain version ({what})")
+        out[name] = dict(
+            max_abs_err=max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want)),
+            ms=time_ms(torch, lambda: resample.resample_stream(ts, p_, **kw), 20 if t_ > 1 else 50),
+            plain_ms=time_ms(torch, lambda: resample.resample_stream_plain(ts, p_, **kw), 3),
+            library_ms=None,
+            **bound(n * 4 + t_ * 16 + t_ * n * 4 + t_ * 8, t_ * n * RESAMPLE_F32_PER_SAMPLE),
+        )
+        del got, want
+    raw, n_steps, mean = resample.resample_stream(ts, params, **kw)
+    # a copy of the first port's eager statistics, timed alone on these outputs
+    lf = torch.zeros((T, 2, -(-(n // 2) // 256)), dtype=torch.int32, device=dev)
+    stats_eager_ms = time_ms(torch, lambda: eager_stats(raw, n_steps, lf), 10)
+    del lf
 
     # B: FFT-prep
     x = resample.fftprep(raw, n_steps, mean, nsamples=nsamples)
@@ -181,15 +210,14 @@ def check_kernels(torch, dev, geom, bank) -> dict:
         ms=time_ms(torch, lambda: resample.fftprep(raw, n_steps, mean, nsamples=nsamples), 20),
         plain_ms=time_ms(torch, lambda: resample.fftprep_plain(raw, n_steps, mean, nsamples=nsamples), 3),
         library_ms=time_ms(torch, lambda: torch.where(mask, src, mean[:, None]), 20),
-    )
-    out["fftprep"]["bound_ms"], out["fftprep"]["bound_by"] = bound(
-        T * n * 4 + T * 8 + T * nsamples * 4, 0
+        **bound(T * n * 4 + T * 8 + T * nsamples * 4),
     )
     del x_p, src, mask, i
 
     # rfft and the eager power epilogue, each alone
     F = torch.fft.rfft(x)
     stages = dict(
+        stats_eager_ms=stats_eager_ms,
         rfft_ms=time_ms(torch, lambda: torch.fft.rfft(x), 5),
         power_ms=time_ms(torch, lambda: power_from_rfft(F, nsamples=nsamples), 5),
     )
@@ -213,9 +241,7 @@ def check_kernels(torch, dev, geom, bank) -> dict:
         ms=time_ms(torch, lambda: harmonic.sumspec_batch(ps, **fold_kw), 20),
         plain_ms=time_ms(torch, lambda: harmonic.sumspec_batch_plain(ps, **fold_kw), 2),
         library_ms=None,
-    )
-    out["fold"]["bound_ms"], out["fold"]["bound_by"] = bound(
-        T * read * 4 + T * 5 * W * 4, fold_ops
+        **bound(T * read * 4 + T * 5 * W * 4, fold_ops),
     )
     del ps, sums, sums_p
 
@@ -231,18 +257,16 @@ def check_kernels(torch, dev, geom, bank) -> dict:
         ms=time_ms(torch, lambda: harmonic.sumspec_spectrum(F, **sk), 20),
         plain_ms=time_ms(torch, lambda: harmonic.sumspec_spectrum_plain(F, **sk), 2),
         library_ms=None,
-    )
-    out["fold_spectrum"]["bound_ms"], out["fold_spectrum"]["bound_by"] = bound(
-        T * read * 8 + T * 5 * W * 4, fold_ops + T * read * 4
+        **bound(T * read * 8 + T * 5 * W * 4, fold_ops + T * read * 4),
     )
     del F, sums, sums_p
 
-    # one whole batch step (A, stats, B, rfft, power + C, merge)
+    # one whole batch step (A with its statistics, B, rfft, power + C, merge)
     bank_dev = search.upload_bank(
         search.bank_params_host(bank.P, bank.tau, bank.psi0, geom.dt), BATCH, dev
     )
     step = search.BankStep(geom, bank_dev, BATCH, state=search.init_state(geom, dev))
-    stages["batch_step_ms"] = time_ms(torch, lambda: step(ev, od, 0, len(bank)), 3)
+    stages["batch_step_ms"] = time_ms(torch, lambda: step(ts, 0, len(bank)), 3)
     out["stages"] = stages
     return out
 
@@ -426,6 +450,8 @@ def main() -> int:
         return 1
 
     print(json.dumps({"stages": measured.pop("stages")}))
+    detail = ("limit", "bytes_ms", "fp32_ms", "conversions_ms")
+    print(json.dumps({"bounds": {k: {d: m[d] for d in detail} for k, m in measured.items()}}))
     rows = []
     for name, (replaces, src) in KERNEL_ROWS.items():
         m = measured[name]

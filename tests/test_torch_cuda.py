@@ -38,20 +38,48 @@ def _params(rows, dev):
     return resample.stream_params(*search.bank_params_host(b[:, 0], b[:, 1], b[:, 2], DT), device=dev)
 
 
-@pytest.mark.parametrize("n,renorm", [(1 << 16, None), (70002, 3.25)])
-def test_resample_and_fftprep_match_plain(dev, n, renorm):
+def _edge_rows(n, dev):
+    """Null templates (tau 0) whose integer S0 = K puts n_steps = n-2-K just
+    below, on and just above the start of a unit, in both parities (so the
+    cut crosses a unit, or falls on its edge)."""
+    e = 2 * (n // 2 // resample.UNIT // 2) * resample.UNIT
+    K = np.array([n - 2 - c for c in (e - 2, e - 1, e, e + 1, e + 2)], dtype=np.float32)
+    return resample.stream_params(np.zeros(5), np.ones(5), np.zeros(5), K, device=dev)
+
+
+def _off_table_rows(dev):
+    """Templates whose LUT argument leaves [0, 2^23): a negative phase at
+    the start, and a phase past 2^23 / 64 LUT periods at the end (the
+    kernel's conversion path)."""
+    return resample.stream_params([0.2, 0.1], [1e-3, 3e5], [-3.0, 0.5], [0.0, 0.0], device=dev)
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("renorm", [None, 3.25])
+# past 2^23 samples the kernel takes its wide path (conversions, no 2^23
+# add); past 2^24 the interleaved index is no longer exact in float32 and
+# both sides round it the same way
+@pytest.mark.parametrize("n", [1 << 16, 70002, (1 << 23) + 2, (1 << 24) + 6])
+def test_resample_and_fftprep_match_plain(dev, n, renorm, T):
+    """Kernel A's raw, n_steps and mean bitwise against the plain version,
+    for bank templates (whose cut lies inside a unit), for cuts placed
+    around a unit edge and for LUT arguments outside [0, 2^23); then
+    kernel B on its outputs."""
     ts = torch.from_numpy(np.random.default_rng(n).normal(0, 1, n).astype(np.float32)).to(dev)
-    ev, od = ts[0::2].contiguous(), ts[1::2].contiguous()
-    params = _params([0, 5, 17, 57, 199], dev)
-    before = kernels.launch_counts["resample"]
-    raw, lf = resample.resample_stream(ev, od, params, n_unpadded=n, dt=DT, renorm=renorm)
-    assert kernels.launch_counts["resample"] == before + 1
-    raw_p, lf_p = resample.resample_stream_plain(ev, od, params, n_unpadded=n, dt=DT, renorm=renorm)
-    assert torch.equal(raw, raw_p) and torch.equal(lf, lf_p)
-    n_steps, mean = resample.batch_stats(raw, lf, n_unpadded=n)
-    nsamples = 3 * n
-    x = resample.fftprep(raw, n_steps, mean, nsamples=nsamples)
-    assert torch.equal(x, resample.fftprep_plain(raw, n_steps, mean, nsamples=nsamples))
+    rows = [_params([0, 5, 17, 57, 199], dev), _edge_rows(n, dev), _off_table_rows(dev)]
+    for params in rows:
+        params = params[:T].contiguous()
+        key = "resample_t1" if T == 1 else "resample"
+        before = kernels.launch_counts[key]
+        raw, n_steps, mean = resample.resample_stream(ts, params, n_unpadded=n, dt=DT, renorm=renorm)
+        assert kernels.launch_counts[key] == before + 1
+        raw_p, n_steps_p, mean_p = resample.resample_stream_plain(ts, params, n_unpadded=n, dt=DT, renorm=renorm)
+        assert torch.equal(raw, raw_p)
+        assert torch.equal(n_steps, n_steps_p)
+        assert torch.equal(mean, mean_p)
+        nsamples = 3 * n
+        x = resample.fftprep(raw, n_steps, mean, nsamples=nsamples)
+        assert torch.equal(x, resample.fftprep_plain(raw, n_steps, mean, nsamples=nsamples))
 
 
 @pytest.mark.parametrize("L,fund_hi,harm_hi", [(98305, 5149, 82388), (5001, 301, 4817)])

@@ -10,8 +10,11 @@ CPU they are bitwise equal except at samples where XLA contracts
 on the other side of a rounding tie: every such mismatch must be one where
 the contracted and the uncontracted index differ (``torch_parity.contraction_ties``).  The pad mean is a float32 sum of up to 1.6e4
 positive samples taken in another order (XLA on the CPU accumulates
-serially, with an error bound of ~n*eps; PyTorch sums pairwise): it is
-held to rtol 1e-4, about 8x the largest difference seen (1.3e-5).
+serially, with an error bound of ~n*eps; the port in kernel A's fixed
+order of lane runs and halving trees): it is held to rtol 1e-4, about 8x
+the largest difference seen (1.3e-5).  The fixed order itself is held to
+rtol 1e-6 against a float64 sum, and bitwise against a replay of the
+kernel's own scheme of unit sums, cut unit and tree.
 """
 
 import os
@@ -53,8 +56,10 @@ def _bank(rows):
 
 
 def _series(n, seed=0):
+    """The time series (the port's input) and its two parity streams (the
+    JAX package's)."""
     ts = synthetic_timeseries(n, f_signal=33.0, P_orb=1462.99, tau=0.19, psi0=1.75, seed=seed)
-    return ts[0::2].copy(), ts[1::2].copy()
+    return ts, ts[0::2].copy(), ts[1::2].copy()
 
 
 def _kw(n, padding):
@@ -98,13 +103,11 @@ def test_sincos_matches_blocked_lut():
 def test_stream_and_stats_match_pallas(n, padding, renorm):
     """Kernel A's plain version == the Pallas batched stream launch: raw
     gathered streams and n_steps bitwise, mean to MEAN_RTOL."""
-    ev, od = _series(n)
+    ts, ev, od = _series(n)
     params = _bank([0, 1, 2, 7, 150])
-    raw, lf = port.resample_stream(
-        torch.from_numpy(ev), torch.from_numpy(od), port.stream_params(*params),
-        n_unpadded=n, dt=DT, renorm=renorm,
+    raw, n_steps, mean = port.resample_stream(
+        torch.from_numpy(ts), port.stream_params(*params), n_unpadded=n, dt=DT, renorm=renorm,
     )
-    n_steps, mean = port.batch_stats(raw, lf, n_unpadded=n)
     T = len(params[0])
     out, jlf, n_blocks = _launch_stream_batch(
         jnp.asarray(ev), jnp.asarray(od), *(jnp.asarray(p) for p in params),
@@ -136,33 +139,29 @@ def _assert_padded_match(got, want, n_steps, mean, ties):
             np.testing.assert_array_equal(g[~head], np.full((~head).sum(), mean[t]))
 
 
-def _port_stats(ev, od, params, n):
-    raw, lf = port.resample_stream(
-        torch.from_numpy(ev), torch.from_numpy(od), port.stream_params(*params), n_unpadded=n, dt=DT
+def _port_stats(ts, params, n):
+    _, n_steps, mean = port.resample_stream(
+        torch.from_numpy(ts), port.stream_params(*params), n_unpadded=n, dt=DT
     )
-    n_steps, mean = port.batch_stats(raw, lf, n_unpadded=n)
     return n_steps.numpy(), mean.numpy()
 
 
 @pytest.mark.parametrize("entry", ["split", "fftprep"])
 def test_batch_entries_match_pallas(entry):
     n = 1 << 14
-    ev, od = _series(n, seed=1)
+    ts, ev, od = _series(n, seed=1)
     params = _bank([0, 3, 42, 199])
     if entry == "split":
         port_fn, jax_fn = port.resample_split_batch, resample_split_pallas_batch
     else:
         port_fn, jax_fn = port.resample_fftprep_batch, resample_fftprep_pallas_batch
-    got = port_fn(
-        torch.from_numpy(ev), torch.from_numpy(od), *(torch.from_numpy(p) for p in params),
-        **_kw(n, 1.5),
-    )
+    got = port_fn(torch.from_numpy(ts), *(torch.from_numpy(p) for p in params), **_kw(n, 1.5))
     want = jax_fn(
         jnp.asarray(ev), jnp.asarray(od), *(jnp.asarray(p) for p in params),
         interpret=True, **_jax_kw(n, 1.5),
     )
     assert got[0].shape == tuple(want[0].shape)
-    _assert_padded_match(got, want, *_port_stats(ev, od, params, n), contraction_ties(params, n))
+    _assert_padded_match(got, want, *_port_stats(ts, params, n), contraction_ties(params, n))
 
 
 @pytest.mark.parametrize("rows", [[0, 1, 2], [17, 60, 199]])
@@ -171,15 +170,12 @@ def test_stream_matches_oracle(rows):
     reference resampler: gathered head and n_steps bitwise, the serial
     float32 mean to MEAN_RTOL."""
     n = 1 << 14
-    ev, od = _series(n, seed=6)
-    ts = np.empty(n, dtype=np.float32)
-    ts[0::2], ts[1::2] = ev, od
+    ts = _series(n, seed=6)[0]
     b = np.loadtxt(BANK200)[rows]
     params = bank_params_host(b[:, 0], b[:, 1], b[:, 2], DT)
-    raw, lf = port.resample_stream(
-        torch.from_numpy(ev), torch.from_numpy(od), port.stream_params(*params), n_unpadded=n, dt=DT
+    raw, n_steps, mean = port.resample_stream(
+        torch.from_numpy(ts), port.stream_params(*params), n_unpadded=n, dt=DT
     )
-    n_steps, mean = port.batch_stats(raw, lf, n_unpadded=n)
     for t, (P, tau, psi) in enumerate(b):
         rp = ResampleParams.from_template(P, tau, psi, DT, 2 * n, n)
         want, w_steps, w_mean = oracle_resample(ts, rp)
@@ -193,11 +189,10 @@ def test_fftprep_equals_split_path():
     """Kernel B's series == kernel A + a mean pad written out here, bit for
     bit (the same select between the same sample and mean bits)."""
     n = 1 << 13
-    ev, od = (torch.from_numpy(a) for a in _series(n, seed=2))
+    ts = torch.from_numpy(_series(n, seed=2)[0])
     params = [torch.from_numpy(p) for p in _bank([1, 5, 9])]
     kw = _kw(n, 3.0)
-    raw, lf = port.resample_stream(ev, od, port.stream_params(*params), n_unpadded=n, dt=kw["dt"])
-    n_steps, mean = port.batch_stats(raw, lf, n_unpadded=n)
+    raw, n_steps, mean = port.resample_stream(ts, port.stream_params(*params), n_unpadded=n, dt=kw["dt"])
     half, half_out = n // 2, kw["nsamples"] // 2
     m2 = torch.arange(half, dtype=torch.int32) * 2
     tail = mean[:, None].expand(len(mean), half_out - half)
@@ -205,7 +200,7 @@ def test_fftprep_equals_split_path():
         torch.cat([torch.where(m2 + p < n_steps[:, None], raw[:, p], mean[:, None]), tail], dim=1)
         for p in (0, 1)
     ]
-    got = port.resample_split_batch(ev, od, *params, **kw)
+    got = port.resample_split_batch(ts, *params, **kw)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 
@@ -213,30 +208,24 @@ def test_fftprep_equals_split_path():
 def test_single_template_matches_pallas():
     """The T=1 form (kernel A1's counterpart)."""
     n = 1 << 14
-    ev, od = _series(n, seed=4)
+    ts, ev, od = _series(n, seed=4)
     params = _bank([17])
-    got = port.resample_split(
-        torch.from_numpy(ev), torch.from_numpy(od), *(torch.from_numpy(p[0:1]) for p in params),
-        **_kw(n, 1.5),
-    )
+    got = port.resample_split(torch.from_numpy(ts), *(torch.from_numpy(p[0:1]) for p in params), **_kw(n, 1.5))
     want = resample_split_pallas(
         jnp.asarray(ev), jnp.asarray(od), *(jnp.float32(p[0]) for p in params),
         interpret=True, **_jax_kw(n, 1.5),
     )
     _assert_padded_match(
         [g[None] for g in got], [np.asarray(w)[None] for w in want],
-        *_port_stats(ev, od, params, n), contraction_ties(params, n),
+        *_port_stats(ts, params, n), contraction_ties(params, n),
     )
 
 
 def test_batch_matches_vmapped_xla():
     n = 1 << 13
-    ev, od = _series(n, seed=5)
+    ts, ev, od = _series(n, seed=5)
     params = _bank([0, 11, 120])
-    got = port.resample_split_batch(
-        torch.from_numpy(ev), torch.from_numpy(od), *(torch.from_numpy(p) for p in params),
-        **_kw(n, 1.5),
-    )
+    got = port.resample_split_batch(torch.from_numpy(ts), *(torch.from_numpy(p) for p in params), **_kw(n, 1.5))
     kw = _jax_kw(n, 1.5)
     we, wo = jax.vmap(
         lambda a, b, c, d: xla_resample_split(
@@ -244,12 +233,96 @@ def test_batch_matches_vmapped_xla():
         )
     )(*(jnp.asarray(p) for p in params))
     _assert_padded_match(
-        got, (we, wo), *_port_stats(ev, od, params, n), contraction_ties(params, n)
+        got, (we, wo), *_port_stats(ts, params, n), contraction_ties(params, n)
     )
 
 
 def test_plain_stream_needs_cpu_tensor():
     """A wrapper takes its plain version only for a CPU tensor."""
-    ev = torch.zeros(8, device="meta")
+    ts = torch.zeros(16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        port.resample_stream(ev, ev, torch.zeros(1, 4, device="meta"), n_unpadded=16, dt=DT)
+        port.resample_stream(ts, torch.zeros(1, 4, device="meta"), n_unpadded=16, dt=DT)
+
+
+def _halve_np(x):
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _unit_sums_np(x):
+    """float32 sums of whole units of port.UNIT outputs in kernel A's order:
+    lane j sums outputs j, j+32, ... left to right."""
+    lanes = x.reshape(-1, port.PER_LANE, 32).swapaxes(-1, -2)
+    acc = lanes[..., 0]
+    for k in range(1, port.PER_LANE):
+        acc = acc + lanes[..., k]
+    return _halve_np(acc)
+
+
+def _kernel_stats_np(raw, n_steps):
+    """numpy float32 replay of csrc/resample.cu's statistics: unit sums of
+    every sample, the units below the cut taken whole, the one unit the cut
+    crosses re-summed with the mask, a halving tree over the units."""
+    T, _, half = raw.shape
+    n_units = -(-half // port.UNIT)
+    n_pow2 = 1 << (n_units - 1).bit_length()
+    out = np.empty(T, dtype=np.float32)
+    for t in range(T):
+        sums = []
+        for p in (0, 1):
+            x = np.zeros(n_units * port.UNIT, dtype=np.float32)
+            x[:half] = raw[t, p]
+            whole = _unit_sums_np(x)
+            m_cut = 0 if n_steps[t] - p <= 0 else (int(n_steps[t]) - p + 1) >> 1
+            u_cut = m_cut // port.UNIT
+            tree = np.zeros(n_pow2, dtype=np.float32)
+            tree[: min(u_cut, n_units)] = whole[: min(u_cut, n_units)]
+            if u_cut < n_units:
+                seg = x[u_cut * port.UNIT : (u_cut + 1) * port.UNIT].copy()
+                seg[np.arange(u_cut * port.UNIT, (u_cut + 1) * port.UNIT) >= m_cut] = 0.0
+                tree[u_cut] = _unit_sums_np(seg)[0]
+            sums.append(_halve_np(tree))
+        out[t] = sums[0] + sums[1]
+    return out
+
+
+def _cuts_at_unit_edge(edge_unit):
+    """n_steps values whose cut falls just below, on and just above the
+    start of unit ``edge_unit``, in both parities."""
+    e = 2 * edge_unit * port.UNIT
+    return np.array([e - 2, e - 1, e, e + 1, e + 2, e + 3], dtype=np.int32)
+
+
+@pytest.mark.parametrize("half", [1 << 13, 5001])
+def test_masked_sum_fixed_order(half):
+    """The plain version's fixed-order masked sum: against a numpy float64
+    masked sum to rtol 1e-6, and bitwise against a replay of the kernel's
+    unit-sum / cut-unit / tree scheme, for cuts around unit edges (the
+    ragged last unit too) at both parities."""
+    rng = np.random.default_rng(half)
+    edges = [1, half // port.UNIT // 2, half // port.UNIT]
+    n_steps = np.concatenate([_cuts_at_unit_edge(u) for u in edges] + [np.array([2 * half - 1, 1, 0, -1])])
+    n_steps = np.clip(n_steps, -1, 2 * half - 1).astype(np.int32)
+    raw = rng.normal(4.0, 1.0, (len(n_steps), 2, half)).astype(np.float32)
+    got = port.masked_sum_plain(torch.from_numpy(raw), torch.from_numpy(n_steps)).numpy()
+    i = 2 * np.arange(half)[None, :] + np.arange(2)[:, None]
+    want = np.array([raw[t].astype(np.float64)[i < n].sum() for t, n in enumerate(n_steps)])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got, _kernel_stats_np(raw, n_steps))
+
+
+@pytest.mark.parametrize("n", [1 << 14, 10002])
+def test_null_template_n_steps(n):
+    """tau = 0 resamples to n_steps = n - 2 (the C shrink loop decrements
+    once even for del_t == 0); an integer S0 = K moves the cut to n-2-K."""
+    ts = _series(n, seed=3)[0]
+    K = np.array([0.0, 3.0, 2 * port.UNIT - n % (2 * port.UNIT) + 1.0], dtype=np.float32)
+    params = port.stream_params(np.zeros(3), np.ones(3), np.zeros(3), K)
+    raw, n_steps, mean = port.resample_stream(torch.from_numpy(ts), params, n_unpadded=n, dt=DT)
+    np.testing.assert_array_equal(n_steps.numpy(), (n - 2 - K).astype(np.int32))
+    ts = ts.astype(np.float64)
+    want = [ts[int(k) : int(k) + int(s)].sum() / s for k, s in zip(K, n_steps.numpy())]
+    np.testing.assert_allclose(mean.numpy(), want, rtol=1e-6)
+

@@ -82,7 +82,7 @@ def test_bank_step_matches_jax_resident_step(monkeypatch):
         state=search.state_from_jax(np.asarray(M), np.asarray(T), device="cpu"),
     )
     M, T = jstep(ts_args, *jbank, jnp.int32(B), jnp.int32(len(P)), M, T)
-    pM, pT = step(torch.from_numpy(ts[0::2].copy()), torch.from_numpy(ts[1::2].copy()), B, len(P))
+    pM, pT = step(torch.from_numpy(ts), B, len(P))
     np.testing.assert_allclose(pM.numpy(), np.asarray(M), rtol=M_RTOL)
     np.testing.assert_array_equal(pT.numpy(), np.asarray(T))
     assert set(np.unique(pT.numpy())) <= set(range(len(P)))
@@ -102,7 +102,7 @@ def test_ties_go_to_the_earliest_template():
     # a batch holding template 0 twice resolves every tie to its first slot
     bank = search.upload_bank(search.bank_params_host(P[[0, 0]], tau[[0, 0]], psi0[[0, 0]], DT), 2, "cpu")
     step = search.BankStep(geom, bank, 2, state=search.init_state(geom, "cpu"))
-    M2, T2 = step(ts[0::2].contiguous(), ts[1::2].contiguous(), 0, 2)
+    M2, T2 = step(ts, 0, 2)
     assert int(T2.max()) == 0 and float(M2.max()) > 0.0
 
 

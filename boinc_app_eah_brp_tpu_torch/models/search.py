@@ -27,7 +27,7 @@ from torch import nn
 from ..device import resolve_device
 from ..oracle.pipeline import DerivedParams
 from ..oracle.sincos import libm_sinf_array
-from ..ops.harmonic import state_width, sumspec_spectrum, to_natural_order
+from ..ops.harmonic import from_natural_order, state_width, sumspec_spectrum, to_natural_order
 from ..ops.resample import fftprep_series
 
 # below any real summed power: padded batch slots are masked to this before
@@ -52,6 +52,12 @@ class SearchGeometry:
     lut_step: float = 1e-3
     # LUT periods covering the phase span psi0 + omega*t_obs
     lut_tiles: int = 1024
+    # pad with the reference's serial float32 mean (ops/resample.py::
+    # serial_mean) instead of kernel A's fixed-order one.  On unwhitened
+    # data the float32 accumulator saturates (~2e-3 relative at 4M
+    # samples) and the pad moves low-bin powers by percent; whitened series
+    # have zero mean and skip it.  The driver sets it to ``not cfg.white``.
+    exact_mean: bool = False
 
     @classmethod
     def from_derived(
@@ -60,6 +66,7 @@ class SearchGeometry:
         max_slope: float = 0.008,
         lut_step: float = 1e-3,
         lut_tiles: int = 1024,
+        exact_mean: bool = False,
     ) -> "SearchGeometry":
         return cls(
             nsamples=d.nsamples,
@@ -72,6 +79,7 @@ class SearchGeometry:
             max_slope=max_slope,
             lut_step=lut_step,
             lut_tiles=lut_tiles,
+            exact_mean=exact_mean,
         )
 
 
@@ -207,6 +215,11 @@ def state_to_natural(arr, geom: SearchGeometry) -> np.ndarray:
     return to_natural_order(arr, geom.fund_hi)
 
 
+def state_from_natural(arr: np.ndarray, geom: SearchGeometry) -> np.ndarray:
+    """Natural bin order (5, fund_hi) -> phase-major (5, W) on the host."""
+    return from_natural_order(np.asarray(arr), geom.fund_hi)
+
+
 def state_from_jax(M, T, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """The reference package's (M, T) state (arrays of any kind numpy
     accepts, same phase-major layout) as the port's tensors on ``device``."""
@@ -227,9 +240,10 @@ def bank_from_jax(params, device="cuda") -> torch.Tensor:
 
 class BankStep(nn.Module):
     """One batch of the search: slice the resident bank at ``t_offset``,
-    resample (kernel A), FFT-prep (kernel B), rfft, power + fold (kernel C
-    on the complex spectrum), and merge the batch into the (M, T) state in
-    place.
+    resample (kernel A), on unwhitened runs (``geom.exact_mean``) the
+    serial mean of A's samples, FFT-prep (kernel B), rfft, power + fold
+    (kernel C on the complex spectrum), and merge the batch into the
+    (M, T) state in place.
 
     ``bank`` is the float32[capacity, 4] resident bank (:func:`upload_bank`
     or :func:`bank_from_jax`) with capacity >= n_total + batch_size."""
@@ -253,7 +267,7 @@ class BankStep(nn.Module):
         p = self.bank[t_offset : t_offset + B]
         x = fftprep_series(
             ts, p[:, 0], p[:, 1], p[:, 2], p[:, 3],
-            nsamples=g.nsamples, n_unpadded=g.n_unpadded, dt=g.dt,
+            nsamples=g.nsamples, n_unpadded=g.n_unpadded, dt=g.dt, exact_mean=g.exact_mean,
         )
         F = torch.fft.rfft(x)
         del x
@@ -277,15 +291,29 @@ def run_bank(
     geom: SearchGeometry,
     batch_size: int = 16,
     state=None,
+    start_template: int = 0,
+    stop_template: int | None = None,
+    progress_cb=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Search the whole bank over the time series ``ts`` (float32[n_unpadded],
-    on the device the search runs on); returns the (M, T) state."""
+    """Search templates ``[start_template, stop_template)`` of the bank
+    over the time series ``ts`` (float32[n_unpadded], on the device the
+    search runs on), merging into ``state`` (updated in place; zeroed when
+    None); returns the (M, T) state.  T holds global template indices.
+
+    ``progress_cb(done, total, M, T)`` runs after each batch with the live
+    state; it must read what it needs before it returns, since the next
+    batch overwrites the state in place.  A ``False`` from it stops the
+    loop after that batch."""
     validate_bank_bounds(geom, bank_P, bank_tau, bank_psi0)
     dev = ts.device
     n = len(bank_P)
+    n_stop = n if stop_template is None else min(n, int(stop_template))
     bank = upload_bank(bank_params_host(bank_P, bank_tau, bank_psi0, geom.dt), batch_size, dev)
     step = BankStep(geom, bank, batch_size, state=state)
     ts = ts.contiguous()
-    for start in range(0, n, batch_size):
-        step(ts, start, n)
+    for start in range(start_template, n_stop, batch_size):
+        # templates past n_stop are masked like the padding of a last batch
+        step(ts, start, n_stop)
+        if progress_cb is not None and progress_cb(min(start + batch_size, n_stop), n, step.M, step.T) is False:
+            break
     return step.M, step.T

@@ -13,6 +13,8 @@ a wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that it went through the kernels.  One source may serve several
 entries: ``resample.cu`` the batched and the single-template resampler,
 ``fold.cu`` the fold of float power and of the complex spectrum.
+``serial_mean.cu`` is the reference's serial float32 padding mean of
+unwhitened runs.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-SOURCES = ("resample", "fftprep", "fold")
-KERNELS = ("resample", "resample_t1", "fftprep", "fold", "fold_spectrum")
+SOURCES = ("resample", "fftprep", "fold", "serial_mean")
+KERNELS = ("resample", "resample_t1", "fftprep", "fold", "fold_spectrum", "serial_mean")
 MAX_GRID_T = 65535  # templates per FFT-prep launch: the batch is a grid dimension
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,6 +59,9 @@ _SIGNATURES = {
         "erp_fold_cols": [],
         "erp_fold": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I],
         "erp_fold_spectrum": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F],
+    },
+    "serial_mean": {
+        "erp_serial_mean": [_I, _P, _P, _P, _P, _I, _I],
     },
 }
 

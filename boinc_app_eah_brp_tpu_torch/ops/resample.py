@@ -1,7 +1,7 @@
 """Orbital resampling of the time series for a batch of templates.
 
 Counterpart of the reference package's ``ops/resample.py`` and
-``ops/pallas_resample.py``.  Two kernels carry it on the card:
+``ops/pallas_resample.py``.  Three kernels carry it on the card:
 
 * kernel A (``csrc/resample.cu``): per template and output sample, the
   LUT-sine phase -> ``del_t`` -> clipped nearest index -> gathered sample,
@@ -9,7 +9,10 @@ Counterpart of the reference package's ``ops/resample.py`` and
   trailing run and the mean of the samples below it;
 * kernel B (``csrc/fftprep.cu``): the gathered samples below ``n_steps``
   and the template's pad mean above, written as the interleaved padded
-  series that the real FFT reads.
+  series that the real FFT reads;
+* on unwhitened runs, the serial mean (``csrc/serial_mean.cu``): the
+  reference's pad mean, a strictly sequential float32 sum of kernel A's
+  samples, which kernel B then pads with instead of A's fixed-order mean.
 
 Each kernel has its plain PyTorch version here; a wrapper runs the plain
 version for CPU tensors and launches the kernel for CUDA tensors (or
@@ -25,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..oracle.resample import serial_mean_f32
 from . import kernels
 from .sincos import COS64, SIN64, TWO_PI, TWO_PI_INV, sincos_lut_unwrapped
 
@@ -201,26 +205,74 @@ def fftprep(raw, n_steps, mean, *, nsamples: int) -> torch.Tensor:
     return out
 
 
+def serial_mean_plain(raw: torch.Tensor, n_steps: torch.Tensor) -> torch.Tensor:
+    """Plain version of the serial-mean kernel: float32[T], per template
+    the samples ``raw[t, i & 1, i >> 1]`` for ``i < n_steps[t]`` added
+    strictly in order in float32, divided by ``n_steps[t]`` (0.0 where
+    ``n_steps <= 0``).  It is the oracle's own chain
+    (``oracle/resample.py::serial_mean_f32``, ``np.add.accumulate`` with a
+    float32 accumulator) run on the host, whatever device ``raw`` is on.
+    Neither ``torch.cumsum`` nor ``torch.sum`` is this function: on the
+    CPU both accumulate float32 data in double (on 2^22 samples of
+    N(5, 1) they give the float64 sum, hundreds above the serial float32
+    one; ``tests/test_torch_resample.py`` shows it)."""
+    x = raw.detach().cpu().numpy()
+    ns = n_steps.cpu().numpy()
+    out = np.array(
+        [serial_mean_f32(x[t].T.reshape(-1), int(ns[t])) for t in range(x.shape[0])],
+        dtype=np.float32,
+    )
+    return torch.from_numpy(out).to(raw.device)
+
+
+def serial_mean(raw: torch.Tensor, n_steps: torch.Tensor) -> torch.Tensor:
+    """The serial-mean kernel over kernel A's outputs; see
+    :func:`serial_mean_plain`."""
+    if raw.device.type == "cpu":
+        return serial_mean_plain(raw, n_steps)
+    if raw.device.type != "cuda":
+        raise ValueError(f"unsupported device {raw.device}")
+    dev = raw.device
+    T, _, half = raw.shape
+    if T < 1:
+        raise ValueError("empty template batch")
+    _check_cuda("raw", raw, torch.float32, (T, 2, half), dev)
+    _check_cuda("n_steps", n_steps, torch.int32, (T,), dev)
+    mean = torch.empty(T, dtype=torch.float32, device=dev)
+    rc = kernels.library("serial_mean").erp_serial_mean(
+        dev.index, kernels.stream_handle(dev), raw.data_ptr(), n_steps.data_ptr(), mean.data_ptr(), T, half
+    )
+    kernels.check(rc, "serial mean kernel launch")
+    kernels.launch_counts["serial_mean"] += 1
+    return mean
+
+
 def fftprep_series(
-    ts, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None
+    ts, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None,
+    exact_mean: bool = False,
 ) -> torch.Tensor:
     """Kernel A (samples and statistics), then kernel B: the interleaved
     padded series float32[T, nsamples] of every template, ready for the
-    real FFT."""
+    real FFT.  With ``exact_mean`` (unwhitened runs) the pad is the
+    reference's serial float32 mean (:func:`serial_mean`) of A's samples
+    instead of A's fixed-order mean."""
     params = stream_params(tau, omega, psi0, s0, device=ts.device)
     raw, n_steps, mean = resample_stream(ts, params, n_unpadded=n_unpadded, dt=dt, renorm=renorm)
+    if exact_mean:
+        mean = serial_mean(raw, n_steps)
     return fftprep(raw, n_steps, mean, nsamples=nsamples)
 
 
 def resample_fftprep_batch(
-    ts, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None
+    ts, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None,
+    exact_mean: bool = False,
 ):
     """(even, odd) float32[T, nsamples//2] parity views of
     :func:`fftprep_series`: the counterpart of
     ``resample_fftprep_pallas_batch``."""
     x = fftprep_series(
         ts, tau, omega, psi0, s0,
-        nsamples=nsamples, n_unpadded=n_unpadded, dt=dt, renorm=renorm,
+        nsamples=nsamples, n_unpadded=n_unpadded, dt=dt, renorm=renorm, exact_mean=exact_mean,
     )
     return x[:, 0::2], x[:, 1::2]
 

@@ -1,0 +1,239 @@
+"""Host-oracle rescoring of the winning candidates.
+
+After the (M, T) -> toplist conversion, every template among the emitted
+winners runs once through the numpy oracle (``oracle/resample.py``'s
+reference chain, numpy's FFT and a point evaluation of the harmonic sums)
+and the toplist entries of those templates take the oracle's powers.  The
+candidate file then carries the reference's powers whatever FFT library
+and float contraction the device used, and it is the same file the JAX
+package writes by default.
+
+Cost: one oracle pass per unique winning template, on a thread pool
+(numpy releases the interpreter lock in the FFT and the large elementwise
+operations).  :class:`IncrementalRescorer` overlaps that work with the
+search: each committed checkpoint already builds the current toplist, so
+its winners are scored in the background while the card searches on, and
+the end-of-run pass only scores what won after the last checkpoint.  The
+scores are the same either way: a cached value is reused only for the
+exact (template, level, bin) it was computed for.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from .harmonic import harmonic_power_at
+from .pipeline import DerivedParams
+from .resample import ResampleParams, resample
+from .spectrum import power_spectrum
+
+
+def _template_key(P, tau, psi) -> tuple:
+    return (np.float32(P), np.float32(tau), np.float32(psi))
+
+
+def _winning_pairs(candidates_all: np.ndarray, emitted: np.ndarray):
+    """(wanted, entry_key): ``wanted`` maps each unique winning template to
+    the set of (k, f0) level/bin pairs its toplist entries need;
+    ``entry_key[i]`` is (template, k, f0) for the entries of
+    ``candidates_all`` to patch and None for the others."""
+    live = emitted[emitted["n_harm"] > 0]
+    wanted: dict[tuple, set] = {_template_key(r["P_b"], r["tau"], r["Psi"]): set() for r in live}
+    entry_key: list = []
+    for i in range(len(candidates_all)):
+        n_harm = int(candidates_all["n_harm"][i])
+        tpl = _template_key(candidates_all["P_b"][i], candidates_all["tau"][i], candidates_all["Psi"][i])
+        if n_harm <= 0 or tpl not in wanted:
+            entry_key.append(None)
+            continue
+        k = n_harm.bit_length() - 1
+        f0 = int(candidates_all["f0"][i])
+        wanted[tpl].add((k, f0))
+        entry_key.append((tpl, k, f0))
+    return wanted, entry_key
+
+
+def _score_template(ts: np.ndarray, derived: DerivedParams, tpl: tuple, pairs) -> dict:
+    """One oracle pass for ``tpl``, evaluated at the requested (k, f0)."""
+    P, tau, psi0 = tpl
+    params = ResampleParams.from_template(P, tau, psi0, derived.dt, derived.nsamples, derived.n_unpadded)
+    resampled, _, _ = resample(ts, params)
+    ps = power_spectrum(resampled, 1.0 / derived.nsamples)
+    return {
+        (k, f0): harmonic_power_at(
+            ps, f0, k, derived.window_2, derived.fundamental_idx_hi, derived.harmonic_idx_hi
+        )
+        for (k, f0) in pairs
+    }
+
+
+def unique_winner_count(emitted: np.ndarray) -> int:
+    """Distinct winning templates among the live emitted rows."""
+    live = emitted[emitted["n_harm"] > 0]
+    return len({_template_key(r["P_b"], r["tau"], r["Psi"]) for r in live})
+
+
+def rescore_winners(
+    ts: np.ndarray,
+    candidates_all: np.ndarray,
+    emitted: np.ndarray,
+    derived: DerivedParams,
+    max_workers: int | None = None,
+    cache: dict | None = None,
+) -> tuple[np.ndarray, int]:
+    """A copy of the 500-entry toplist with oracle powers for every
+    template among the ``emitted`` winners, and the number of templates
+    that ran an oracle pass.  ``cache`` (``{template: {(k, f0): power}}``,
+    from :class:`IncrementalRescorer`) saves the pass of every template
+    whose pairs it already holds.  The caller finalizes the patched
+    toplist again, so the statistics, sort and dedup see the new powers."""
+    if len(emitted) == 0:
+        return candidates_all, 0
+    wanted, entry_key = _winning_pairs(candidates_all, emitted)
+    if not wanted:
+        return candidates_all, 0
+    ts = np.asarray(ts, dtype=np.float32)
+    cache = cache or {}
+
+    scored: dict[tuple, dict] = {}
+    todo: dict[tuple, set] = {}
+    for tpl, pairs in wanted.items():
+        have = cache.get(tpl, {})
+        scored[tpl] = {p: have[p] for p in pairs if p in have}
+        missing = pairs - scored[tpl].keys()
+        if missing:
+            todo[tpl] = missing
+
+    def one(tpl):
+        return tpl, _score_template(ts, derived, tpl, todo[tpl])
+
+    workers = max_workers or min(8, os.cpu_count() or 1, len(todo) or 1)
+    if workers > 1 and len(todo) > 1:
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            fresh = dict(pool.map(one, sorted(todo)))
+    else:
+        fresh = dict(one(t) for t in sorted(todo))
+    for tpl, pairs in fresh.items():
+        scored[tpl].update(pairs)
+
+    out = candidates_all.copy()
+    for i, key in enumerate(entry_key):
+        if key is not None:
+            tpl, k, f0 = key
+            out["power"][i] = scored[tpl][(k, f0)]
+    return out, len(fresh)
+
+
+class IncrementalRescorer:
+    """Oracle rescoring that overlaps the search.
+
+    The session hands :meth:`observe_async` the toplist each committed
+    checkpoint builds from its host copy of (M, T).  A feed worker
+    finalizes it and submits every winning template and pair not yet
+    scored to a pool.  The host series is fetched by the first worker
+    that needs it (``get_ts``).  :meth:`finalize` drains both and returns
+    the score cache for ``rescore_winners(cache=...)``."""
+
+    def __init__(self, get_ts, derived: DerivedParams, t_obs: float, max_workers: int | None = None):
+        self._get_ts = get_ts
+        self._derived = derived
+        self._t_obs = float(t_obs)
+        self._ts: np.ndarray | None = None
+        self._ts_lock = threading.Lock()
+        self._scored: dict[tuple, dict] = {}
+        self._scored_lock = threading.Lock()
+        self._pending: dict[tuple, set] = {}
+        self._futures: list = []
+        workers = max_workers or max(1, min(4, (os.cpu_count() or 1) - 1))
+        self._pool: ThreadPoolExecutor | None = ThreadPoolExecutor(max_workers=workers)
+        # one feed worker: observes run one at a time (``_pending`` needs no
+        # lock) and the toplist build stays off the search thread
+        self._feed: ThreadPoolExecutor | None = ThreadPoolExecutor(max_workers=1)
+        self.observed = 0
+        self.submitted = 0
+        self.failed = 0
+
+    def _series(self) -> np.ndarray:
+        with self._ts_lock:
+            if self._ts is None:
+                self._ts = np.asarray(self._get_ts(), dtype=np.float32)
+            return self._ts
+
+    def _run(self, tpl: tuple, pairs: frozenset) -> None:
+        scores = _score_template(self._series(), self._derived, tpl, pairs)
+        with self._scored_lock:
+            self._scored.setdefault(tpl, {}).update(scores)
+
+    def observe(self, candidates_all: np.ndarray) -> None:
+        """Submit the unscored winners of the current toplist; returns at
+        once."""
+        pool = self._pool
+        if pool is None:
+            return
+        from .toplist import finalize_candidates
+
+        self.observed += 1
+        emitted = finalize_candidates(candidates_all, self._t_obs)
+        if len(emitted) == 0:
+            return
+        wanted, _ = _winning_pairs(candidates_all, emitted)
+        for tpl, pairs in wanted.items():
+            with self._scored_lock:
+                have = set(self._scored.get(tpl, {}))
+            missing = pairs - have - self._pending.get(tpl, set())
+            if not missing:
+                continue
+            self._pending.setdefault(tpl, set()).update(missing)
+            self.submitted += 1
+            try:
+                self._futures.append(pool.submit(self._run, tpl, frozenset(missing)))
+            except RuntimeError:
+                # finalize() or abort() shut the pool down meanwhile; the
+                # end-of-run rescore computes whatever is missing
+                return
+
+    def observe_async(self, build) -> None:
+        """Feed the rescorer without blocking the search: ``build()`` (the
+        toplist from host copies of the state, which its closure must
+        hold: the next batch overwrites the device state in place) runs
+        on the feed worker, then flows into :meth:`observe`."""
+        feed = self._feed
+        if feed is None:
+            return
+        try:
+            self._futures.append(feed.submit(lambda: self.observe(build())))
+        except RuntimeError:
+            pass  # shut down meanwhile; nothing to feed
+
+    def finalize(self) -> dict:
+        """Drain the feed worker and the pool; returns the score cache.
+        A failed worker only shrinks the cache (``rescore_winners``
+        computes what is missing); ``failed`` counts them."""
+        feed, self._feed = self._feed, None
+        if feed is not None:
+            feed.shutdown(wait=True)  # queued observes submit scoring work
+        pool, self._pool = self._pool, None
+        if pool is None:
+            return self._scored
+        pool.shutdown(wait=True)
+        self.failed += sum(1 for f in self._futures if f.exception() is not None)
+        return self._scored
+
+    def series_if_fetched(self) -> np.ndarray | None:
+        """The host series a worker already fetched, or None."""
+        with self._ts_lock:
+            return self._ts
+
+    def abort(self) -> None:
+        """Quit or error: drop queued work without waiting.  Safe to call
+        more than once and after :meth:`finalize`."""
+        feed, self._feed = self._feed, None
+        if feed is not None:
+            feed.shutdown(wait=False, cancel_futures=True)
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)

@@ -1,12 +1,16 @@
-"""Command line of the port: the reference's flags that this slice honours
-(``demod_binary.c:217-445``), with the same range checks and exit codes,
-plus ``--batch`` and ``--device``.  Reference flags the port does not
-honour yet are refused with a message that says so."""
+"""Command line of the port: the reference's flags
+(``demod_binary.c:217-445``) and the JAX package's extensions that the
+port honours, with the same range checks and exit codes, so BOINC
+``app_info.xml`` command lines work unchanged.  ``--device`` takes a torch
+device (``cuda``, ``cuda:N`` or ``cpu``); ``-D N`` is ``cuda:N``.  The
+JAX package's flags for layers not ported yet are refused, with the
+reason."""
 
 from __future__ import annotations
 
 import sys
 
+from . import logging as erplog
 from .driver import DriverArgs, run_search
 from .errors import RADPUL_EFILE, RADPUL_EMEM, RADPUL_EMISC, RADPUL_EVAL
 
@@ -17,32 +21,58 @@ Usage: {prog} [options], options are:
  -i, --input_file\t\tstring\tThe name of the input file.
  -o, --output_file\t\tstring\tThe name of the candidate output file.
  -t, --template_bank\t\tstring\tThe name of the random template bank.
+ -c, --checkpoint_file\t\tstring\tThe name of the checkpoint file.
  -l, --zaplist_file\t\tstring\tThe name of the zaplist file.
  -f, --f0\t\t\tfloat\tThe maximum signal frequency (in Hz)
  -A, --false_alarm\t\tfloat\tFalse alarm probability.
  -P, --padding\t\t\tfloat\tThe frequency over-resolution factor.
- -W, --whitening\t\tboolean\tSwitch for power spectrum whitening and line zapping (required).
+ -W, --whitening\t\tboolean\tSwitch for power spectrum whitening and line zapping.
  -B, --box\t\t\tint\tWindow width for the running median in frequeny bins.
+ -D\t\t\t\tinteger\tThe CUDA device ID to be used.
+ -z, --debug\t\t\tboolean\tRun program in debug mode.
  --batch\t\t\tint\tTemplates per device batch (default 16).
  --device\t\t\tstring\tTorch device: cuda (default), cuda:N or cpu.
+ --no-rescore\t\tboolean\tSkip host-oracle rescoring of emitted candidates.
+ --status-file\t\tstring\tProgress sink when run under the native wrapper.
+ --control-file\t\tstring\tQuit/abort source when run under the native wrapper.
+ --shmem\t\t\tstring\tScreensaver shared-memory segment path.
 """
 
-# reference flags this slice refuses, with what they would need
+# the JAX package's flags for layers the port does not have yet, and why
 _NOT_YET = {
-    "-c": "checkpointing",
-    "--checkpoint_file": "checkpointing",
-    "-D": "device ordinals (use --device cuda:N)",
-    "-z": "debug mode",
-    "--debug": "debug mode",
-    "--rescore": "oracle rescoring",
-    "--mesh": "multi-device search",
-    "--exact-sin": "the exact-sine resampler",
-    "--status-file": "the BOINC wrapper protocol",
-    "--control-file": "the BOINC wrapper protocol",
-    "--shmem": "the screensaver shared memory",
-    "--supervised": "supervised restarts",
-    "--profile-dir": "profiler traces",
-    "--metrics-file": "the metrics stream",
+    "--mesh": "multi-device search: the port searches on one card per process",
+    "--exact-sin": "the exact-sine resampler: the port's kernel A computes the reference's LUT sine only",
+    "--supervised": "supervised restarts: they need the watchdog, which is not ported",
+    "--profile-dir": "profiler traces: the tracing layer is not ported",
+    "--metrics-file": "the metrics stream: the metrics layer is not ported",
+}
+
+_NUMBERS = {
+    "-P": ("padding", float, 1.0, 10.0, "padding factor"),
+    "--padding": ("padding", float, 1.0, 10.0, "padding factor"),
+    "-B": ("window", int, 2, 250000, "window size for running median"),
+    "--box": ("window", int, 2, 250000, "window size for running median"),
+    "-f": ("f0", float, 0.0, 16.0e3, "upper limit for search frequency"),
+    "--f0": ("f0", float, 0.0, 16.0e3, "upper limit for search frequency"),
+    "-A": ("fA", float, 0.0, 1.0, "false alarm rate"),
+    "--false_alarm": ("fA", float, 0.0, 1.0, "false alarm rate"),
+    "--batch": ("batch_size", int, 1, 1 << 16, "batch size"),
+}
+# options that take a path; a missing value is a file error
+_FILES = {
+    "-i": "inputfile", "--input_file": "inputfile",
+    "-o": "outputfile", "--output_file": "outputfile",
+    "-t": "templatebank", "--template_bank": "templatebank",
+    "-c": "checkpointfile", "--checkpoint_file": "checkpointfile",
+    "-l": "zaplistfile", "--zaplist_file": "zaplistfile",
+    "--status-file": "status_file",
+    "--control-file": "control_file",
+    "--shmem": "shmem",
+}
+_SWITCHES = {
+    "-W": ("white", True), "--whitening": ("white", True),
+    "-z": ("debug", True), "--debug": ("debug", True),
+    "--no-rescore": ("rescore", False),
 }
 
 
@@ -51,10 +81,10 @@ def _number(flag: str, raw: str, conv, lo, hi, what: str):
     try:
         value = conv(raw)
     except ValueError:
-        sys.stderr.write(f'Couldn\'t parse value "{raw}" for option "{flag}".\n')
+        erplog.error('Couldn\'t parse value "%s" for option "%s".\n', raw, flag)
         return None
     if value < lo or value > hi:
-        sys.stderr.write(f"Nonsense value: {what} {value:g} outside [{lo:g}, {hi:g}].\n")
+        erplog.error("Nonsense value: %s %g outside [%g, %g].\n", what, value, lo, hi)
         return None
     return value
 
@@ -62,62 +92,51 @@ def _number(flag: str, raw: str, conv, lo, hi, what: str):
 def parse_args(argv: list[str]) -> DriverArgs | int:
     """Returns DriverArgs, or an int exit code on error/help."""
     kw: dict = {}
-    numbers = {
-        "-P": ("padding", float, 1.0, 10.0, "padding factor"),
-        "--padding": ("padding", float, 1.0, 10.0, "padding factor"),
-        "-B": ("window", int, 2, 250000, "window size for running median"),
-        "--box": ("window", int, 2, 250000, "window size for running median"),
-        "-f": ("f0", float, 0.0, 16.0e3, "upper limit for search frequency"),
-        "--f0": ("f0", float, 0.0, 16.0e3, "upper limit for search frequency"),
-        "-A": ("fA", float, 0.0, 1.0, "false alarm rate"),
-        "--false_alarm": ("fA", float, 0.0, 1.0, "false alarm rate"),
-        "--batch": ("batch_size", int, 1, 1 << 16, "batch size"),
-    }
-    files = {
-        "-i": "inputfile", "--input_file": "inputfile",
-        "-o": "outputfile", "--output_file": "outputfile",
-        "-t": "templatebank", "--template_bank": "templatebank",
-        "-l": "zaplistfile", "--zaplist_file": "zaplistfile",
-    }
     i = 0
     while i < len(argv):
         a = argv[i]
         if a in ("-h", "--help"):
             print(_USAGE.format(prog="python -m boinc_app_eah_brp_tpu_torch"))
             return RADPUL_EMISC
-        if a in ("-W", "--whitening"):
-            kw["white"] = True
+        if a in _SWITCHES:
+            key, value = _SWITCHES[a]
+            kw[key] = value
+            if key == "debug":
+                erplog.debug("Running program in debugging mode.\n")
             i += 1
             continue
         if a in _NOT_YET:
-            sys.stderr.write(
-                f'Option "{a}" ({_NOT_YET[a]}) is not supported by the PyTorch port yet.\n'
-            )
+            erplog.error('Option "%s" is not supported by the PyTorch port yet: %s.\n', a, _NOT_YET[a])
             return RADPUL_EMISC
-        if a not in numbers and a not in files and a != "--device":
-            sys.stderr.write(f'\nUnknown option "{a}". Use \'--help\'.\n\n')
+        if a not in _NUMBERS and a not in _FILES and a not in ("-D", "--device"):
+            erplog.error('\nUnknown option "%s". Use \'--help\'.\n\n', a)
             return RADPUL_EMISC
         if i + 1 >= len(argv):
-            sys.stderr.write(f'Missing value for option "{a}".\n')
-            return RADPUL_EFILE if a in files else RADPUL_EVAL
+            erplog.error('Missing value for option "%s".\n', a)
+            return RADPUL_EFILE if a in _FILES else RADPUL_EVAL
         raw = argv[i + 1]
         i += 2
-        if a in files:
-            if files[a] == "inputfile" and ".binary" not in raw and ".bin4" not in raw:
-                sys.stderr.write(f"Unknown file format (extension) for input file: {raw}\n")
+        if a in _FILES:
+            if _FILES[a] == "inputfile" and ".binary" not in raw and ".bin4" not in raw:
+                erplog.error("Unknown file format (extension) for input file: %s\n", raw)
                 return RADPUL_EFILE
-            kw[files[a]] = raw
+            kw[_FILES[a]] = raw
+        elif a == "-D":
+            if not raw.isdigit():
+                erplog.error("Invalid CUDA device ID encountered: %s\n", raw)
+                return RADPUL_EVAL
+            kw["device"] = f"cuda:{int(raw)}"
         elif a == "--device":
             kw["device"] = raw
         else:
-            key, conv, lo, hi, what = numbers[a]
+            key, conv, lo, hi, what = _NUMBERS[a]
             value = _number(a, raw, conv, lo, hi, what)
             if value is None:
                 return RADPUL_EVAL
             kw[key] = value
     for req in ("inputfile", "outputfile", "templatebank"):
         if req not in kw:
-            sys.stderr.write(f"Missing required option for {req}.\n")
+            erplog.error("Missing required option for %s.\n", req)
             return RADPUL_EVAL
     return DriverArgs(**kw)
 
@@ -128,14 +147,17 @@ def main(argv: list[str] | None = None) -> int:
         return parsed
     import torch
 
+    # Exit-code contract with the native wrapper (native/erp_wrapper.cpp):
+    # 1 (RADPUL_EMEM) means out of memory and earns a temporary-exit
+    # retry, so no other failure may leak CPython's generic status 1
     try:
         return run_search(parsed)
     except (MemoryError, torch.cuda.OutOfMemoryError) as e:
-        sys.stderr.write(f"Out of memory: {e}\n")
+        erplog.error("Out of memory: %s\n", e)
         return RADPUL_EMEM
-    except Exception as e:  # never leak CPython's generic status 1 (= out of memory)
+    except Exception as e:
         import traceback
 
         traceback.print_exc()
-        sys.stderr.write(f"Unhandled error: {e}\n")
+        erplog.error("Unhandled error: %s\n", e)
         return RADPUL_EMISC

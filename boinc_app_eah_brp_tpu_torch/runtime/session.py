@@ -1,0 +1,387 @@
+"""One workunit's search, from the checkpoint it resumes to its result file.
+
+:meth:`Session.prepare` parses the bank, finds a resumable checkpoint,
+reads the workunit, builds the geometry, whitens (``-W``) or uploads the
+raw series, and seeds the checkpoint's candidates into (M, T) as virtual
+templates past the bank.  :meth:`Session.execute` runs the batched search
+with the BOINC progress callback (checkpoint cadence, screensaver,
+suspend, quit), writes the final checkpoint, turns (M, T) into the
+toplist, rescores the winners through the host oracle and writes the
+result file.  Counterpart of the JAX package's ``runtime/session.py`` on
+one device.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..io import (
+    N_CAND,
+    ResultFile,
+    ResultHeader,
+    TemplateBank,
+    empty_candidates,
+    read_template_bank,
+    read_workunit,
+    read_zaplist,
+    write_result_file,
+)
+from ..io.checkpoint import Checkpoint, load_resumable_checkpoint, topology_record, write_checkpoint
+from ..io.formats import N_BINS_SS
+from ..oracle.pipeline import DerivedParams, SearchConfig
+from ..oracle.stats import base_thresholds
+from ..oracle.toplist import finalize_candidates, update_toplist_from_maxima
+from . import logging as erplog
+from .boinc import BoincAdapter
+from .errors import RADPUL_EFILE, RadpulError
+
+EXEC_NAME = "eah_brp_tpu_torch"
+
+
+def sky_position_radians(header) -> tuple[float, float]:
+    """HHMMSS.S / DDMMSS.S -> radians (``demod_binary.c:746-771``)."""
+    ra = float(header["RA"])
+    hrs = math.floor(ra / 10000.0)
+    mins = math.floor((ra - 10000.0 * hrs) / 100.0)
+    sec = ra - 10000.0 * hrs - 100.0 * mins
+    rac = math.pi * (hrs / 12.0 + mins / 720.0 + sec / 43200.0)
+
+    dec = float(header["DEC"])
+    sign = -1.0 if dec < 0.0 else 1.0
+    dec = abs(dec)
+    hrs = math.floor(dec / 10000.0)
+    mins = math.floor((dec - 10000.0 * hrs) / 100.0)
+    sec = dec - 10000.0 * hrs - 100.0 * mins
+    decr = sign * math.pi * (hrs / 180.0 + mins / 10800.0 + sec / 648000.0)
+    return rac, decr
+
+
+def binned_spectrum(sumspec4: np.ndarray, fund_hi: int) -> bytes:
+    """40-bin screensaver downsample of the 4-harmonic spectrum
+    (``demod_binary.c:1383-1393``)."""
+    powerscale = 100.0 / 255.0
+    stepscale = float(N_BINS_SS) / float(fund_hi)
+    bins = (stepscale * np.arange(len(sumspec4))).astype(np.int32)
+    # bins is nondecreasing: one segmented max per screensaver bin
+    boundaries = np.searchsorted(bins, np.arange(N_BINS_SS), side="left")
+    valid = boundaries < len(sumspec4)
+    seg_max = np.zeros(N_BINS_SS, dtype=np.float32)
+    if valid.any():
+        seg_max[valid] = np.maximum.reduceat(sumspec4, boundaries[valid])
+    return np.minimum(seg_max / powerscale, 255.0).astype(np.uint8).tobytes()
+
+
+def _dump_header(h) -> None:
+    """Debug header dump (``demod_binary.c:706-737``)."""
+    erplog.info("Header contents:\n")
+    for label, key in [
+        ("Original WAPP file: %s", "originalfile"),
+        ("Sample time in microseconds: %g", "tsample"),
+        ("Observation time in seconds: %.8g", "tobs"),
+        ("Time stamp (MJD): %.17g", "timestamp"),
+        ("Center freq in MHz: %.10g", "fcenter"),
+        ("RA (J2000): %.12g", "RA"),
+        ("DEC (J2000): %.12g", "DEC"),
+        ("Number of samples: %d", "nsamples"),
+        ("Trial dispersion measure: %g cm^-3 pc", "DM"),
+        ("Scale factor: %g", "scale"),
+    ]:
+        value = h[key]
+        if value.dtype.kind == "S":
+            value = bytes(value).split(b"\x00", 1)[0].decode("latin-1")
+        elif "%d" in label:
+            value = int(value)
+        else:
+            value = float(value)
+        erplog.log_message(erplog.Level.INFO, False, label + "\n", value)
+
+
+def _dump_thresholds(fA: float, fft_size: int) -> None:
+    """Debug threshold dump (``demod_binary.c:1155-1166``)."""
+    from ..oracle.stats import chisq_Qinv, single_bin_prob
+
+    prob = float(single_bin_prob(fA, fft_size))
+    erplog.info("Derived global search parameters:\n")
+    erplog.log_message(erplog.Level.INFO, False, "f_A probability = %g\n", fA)
+    erplog.log_message(erplog.Level.INFO, False, "single bin prob(P_noise > P_thr) = %g\n", prob)
+    for label, nu in [("thr1", 2), ("thr2", 4), ("thr4", 8), ("thr8", 16), ("thr16", 32)]:
+        erplog.log_message(erplog.Level.INFO, False, "%s = %g\n", label, 0.5 * chisq_Qinv(prob, nu))
+
+
+class Session:
+    """One workunit's search.  ``args`` is a ``runtime/driver.DriverArgs``
+    whose ``device`` is already chosen; ``adapter`` defaults to a fresh
+    :class:`BoincAdapter`; ``init_data`` (``runtime/initdata.py``) gives
+    the result file its provenance."""
+
+    def __init__(self, args, adapter: BoincAdapter | None = None, init_data=None):
+        self.args = args
+        self.adapter = adapter or BoincAdapter()
+        self.init_data = init_data
+        self.prepared = False
+
+    def prepare(self) -> "Session":
+        from ..models.search import (
+            SearchGeometry,
+            init_state,
+            lut_step_for_bank,
+            lut_tiles_for_bank,
+            max_slope_for_bank,
+            normalize_psi0,
+            state_from_natural,
+            state_to_natural,
+        )
+
+        args = self.args
+        self.dev = resolve_device(args.device)
+
+        # template bank: the full parse is its validation (demod_binary.c:507-544)
+        bank = read_template_bank(args.templatebank)
+        template_total = len(bank)
+        erplog.debug("Total amount of templates: %d\n", template_total)
+        psi0_n = normalize_psi0(bank.psi0)
+        if not np.array_equal(psi0_n, bank.psi0):
+            erplog.info("Template bank psi0 values outside [0, 2pi) folded into range.\n")
+            bank = TemplateBank(bank.P, bank.tau, psi0_n)
+        self.bank = bank
+        self.template_total = template_total
+
+        # checkpoint resume (demod_binary.c:546-652), newest good generation
+        resumed = (
+            load_resumable_checkpoint(
+                args.checkpointfile, template_total, args.inputfile,
+                bank_path=args.templatebank, process_count=1,
+            )
+            if args.checkpointfile
+            else None
+        )
+        seed_cands = None
+        self.start_template = 0
+        if resumed is not None:
+            cp = resumed[0]
+            if cp.n_template == template_total:
+                erplog.info("Thank you but this work unit has already been processed completely...\n")
+            else:
+                erplog.info("Continuing work on %s at template no. %d\n", cp.originalfile, cp.n_template)
+            self.start_template = cp.n_template
+            seed_cands = cp.candidates
+        else:
+            erplog.info("Checkpoint file unavailable: %s\n", args.checkpointfile)
+            erplog.log_message(erplog.Level.INFO, False, "Starting from scratch...\n")
+
+        wu = read_workunit(args.inputfile)
+        if args.debug:
+            _dump_header(wu.header)
+        cfg = SearchConfig(f0=args.f0, padding=args.padding, fA=args.fA, window=args.window, white=args.white)
+        derived = DerivedParams.derive(wu.nsamples, float(wu.header["tsample"]), cfg)
+        geom = SearchGeometry.from_derived(
+            derived,
+            max_slope=max_slope_for_bank(bank.P, bank.tau),
+            lut_step=lut_step_for_bank(bank.P, derived.dt),
+            lut_tiles=lut_tiles_for_bank(bank.P, bank.psi0, derived.n_unpadded, derived.dt),
+            # unwhitened data: the reference's serial float32 pad mean, on
+            # the card (ops/resample.py::serial_mean)
+            exact_mean=not cfg.white,
+        )
+
+        # whitening + RFI zapping (demod_binary.c:856-1079), or the raw series
+        if args.white:
+            from ..ops.whiten import whiten_and_zap
+
+            if not args.zaplistfile:
+                raise RadpulError(RADPUL_EFILE, "Whitening requires a zaplist file (-l).")
+            self.ts = whiten_and_zap(wu.samples, derived, cfg, read_zaplist(args.zaplistfile), device=self.dev)
+        else:
+            self.ts = torch.from_numpy(np.ascontiguousarray(wu.samples, dtype=np.float32)).to(self.dev)
+        self.wu, self.cfg, self.derived, self.geom = wu, cfg, derived, geom
+        self.base_thr = base_thresholds(cfg.fA, derived.fft_size)
+        if args.debug:
+            _dump_thresholds(cfg.fA, derived.fft_size)
+
+        # the checkpoint's candidates re-enter (M, T) as virtual templates
+        # past the bank, so the toplist conversion treats them uniformly
+        params_P = bank.P.astype(np.float32)
+        params_tau = bank.tau.astype(np.float32)
+        params_psi = bank.psi0.astype(np.float32)
+        M, T = init_state(geom, self.dev)
+        if seed_cands is not None:
+            params_P = np.concatenate([params_P, seed_cands["P_b"].astype(np.float32)])
+            params_tau = np.concatenate([params_tau, seed_cands["tau"].astype(np.float32)])
+            params_psi = np.concatenate([params_psi, seed_cands["Psi"].astype(np.float32)])
+            Mn, Tn = state_to_natural(M, geom), state_to_natural(T, geom)
+            for idx in range(N_CAND):
+                n_harm = int(seed_cands["n_harm"][idx])
+                if n_harm == 0:
+                    continue
+                k = n_harm.bit_length() - 1
+                f0_bin = int(seed_cands["f0"][idx])
+                power = np.float32(seed_cands["power"][idx])
+                if f0_bin < geom.fund_hi and power > Mn[k, f0_bin]:
+                    Mn[k, f0_bin] = power
+                    Tn[k, f0_bin] = template_total + idx
+            M = torch.from_numpy(state_from_natural(Mn, geom)).to(self.dev)
+            T = torch.from_numpy(state_from_natural(Tn, geom)).to(self.dev)
+        self.params = (params_P, params_tau, params_psi)
+        self.state = (M, T)
+
+        rac, decr = sky_position_radians(wu.header)
+        self.search_info = {"skypos_rac": rac, "skypos_dec": decr, "dispersion_measure": float(wu.header["DM"])}
+        self.prepared = True
+        return self
+
+    def _candidates(self, M_host: np.ndarray, T_host: np.ndarray) -> np.ndarray:
+        from ..models.search import state_to_natural
+
+        return update_toplist_from_maxima(
+            empty_candidates(),
+            state_to_natural(M_host, self.geom),
+            state_to_natural(T_host, self.geom),
+            *self.params,
+            self.base_thr,
+            self.geom.window_2,
+        )
+
+    def host_series(self) -> np.ndarray:
+        """The searched series on the host, for the oracle rescoring."""
+        return self.ts.cpu().numpy()
+
+    def execute(self) -> int:
+        """Run the prepared search to its result file; returns 0 (also
+        after a quit, once the checkpoint is written) or raises one of the
+        exceptions ``runtime/errors.py::exit_code_for`` maps."""
+        if not self.prepared:
+            self.prepare()
+        from ..models.search import run_bank
+        from ..ops.harmonic import row_to_natural
+        from ..oracle.rescore import IncrementalRescorer, rescore_winners, unique_winner_count
+
+        args, adapter, bank, geom, derived = self.args, self.adapter, self.bank, self.geom, self.derived
+        template_total = self.template_total
+
+        # background rescoring of the winners seen at each checkpoint, so the
+        # end-of-run oracle pass only scores what won after the last one;
+        # not worth its threads for a small bank or on a single core
+        rescorer = None
+        if args.rescore and template_total >= 256 and (os.cpu_count() or 1) >= 2:
+            rescorer = IncrementalRescorer(self.host_series, derived, derived.t_obs)
+            erplog.debug("Rescore overlap armed (checkpoint cadence).\n")
+
+        def checkpoint_now(n_done: int, M_now, T_now) -> None:
+            if not args.checkpointfile and rescorer is None:
+                return
+            # host copies now: the next batch overwrites the device state
+            M_host, T_host = M_now.cpu().numpy(), T_now.cpu().numpy()
+            if not args.checkpointfile:
+                rescorer.observe_async(lambda: self._candidates(M_host, T_host))
+                return
+            cands = self._candidates(M_host, T_host)
+            if rescorer is not None:
+                rescorer.observe_async(lambda: cands)
+            write_checkpoint(
+                args.checkpointfile,
+                Checkpoint(n_template=n_done, originalfile=args.inputfile, candidates=cands),
+                bank=(args.templatebank, template_total),
+                topology=topology_record(),
+            )
+
+        interrupted = False
+        last_done = self.start_template
+        search_info = self.search_info
+
+        def progress_cb(done: int, total: int, M_now, T_now) -> bool:
+            nonlocal interrupted, last_done
+            last_done = done
+            # the reference reports (counter+1)/total per template
+            # (demod_binary.c:1420); a batch reports its exact fraction
+            adapter.fraction_done(done / total)
+            if adapter.time_to_checkpoint():
+                erplog.log_message(erplog.Level.DEBUG, False, "Committing checkpoint.\n")
+                checkpoint_now(done, M_now, T_now)
+                adapter.checkpoint_completed()
+                erplog.info("Checkpoint committed!\n")
+            if adapter.search_info_due():
+                # the 4-harmonic row only, and only when something listens
+                search_info["power_spectrum"] = binned_spectrum(
+                    row_to_natural(M_now[2].cpu().numpy(), 2, geom.fund_hi), geom.fund_hi
+                )
+                search_info["fraction_done"] = done / total
+                # the current template's orbit (demod_binary.c:1213-1215)
+                t_cur = min(done, template_total) - 1
+                if t_cur >= 0:
+                    search_info["orbital_radius"] = float(bank.tau[t_cur])
+                    search_info["orbital_period"] = float(bank.P[t_cur])
+                    search_info["orbital_phase"] = float(bank.psi0[t_cur])
+                adapter.update_shmem(search_info)
+            # a client-requested suspension parks here, between batches,
+            # with the state resident on the card
+            adapter.wait_while_suspended()
+            if adapter.quit_requested():
+                interrupted = True
+                return False
+            return True
+
+        erplog.info(
+            "Search on %s: %d templates from no. %d, batch %d.\n",
+            self.dev, template_total, self.start_template, args.batch_size,
+        )
+        try:
+            state = run_bank(
+                self.ts, bank.P, bank.tau, bank.psi0, geom,
+                batch_size=args.batch_size, state=self.state,
+                start_template=self.start_template, progress_cb=progress_cb,
+            )
+            if interrupted:
+                erplog.warn("Quit requested! Exiting prematurely...\n")
+                if rescorer is not None:
+                    rescorer.abort()
+                checkpoint_now(last_done, *state)
+                return 0
+
+            # final checkpoint (demod_binary.c:1495-1499), then the toplist
+            erplog.debug("Search done!\n")
+            checkpoint_now(template_total, *state)
+            cands = self._candidates(state[0].cpu().numpy(), state[1].cpu().numpy())
+            emitted = finalize_candidates(cands, derived.t_obs)
+        except BaseException:
+            # never leave the rescore pool joining background passes on the
+            # way out through an error
+            if rescorer is not None:
+                rescorer.abort()
+            raise
+
+        cache = rescorer.finalize() if rescorer is not None else None
+        if args.rescore and len(emitted):
+            t0 = time.perf_counter()
+            ts_host = rescorer.series_if_fetched() if rescorer is not None else None
+            if ts_host is None:
+                ts_host = self.host_series()
+            n_winners = unique_winner_count(emitted)
+            patched, n_eval = rescore_winners(ts_host, cands, emitted, derived, cache=cache)
+            emitted = finalize_candidates(patched, derived.t_obs)
+            erplog.info(
+                "Rescored %d of %d winning templates through the host oracle in %.1f s%s.\n",
+                n_eval, n_winners, time.perf_counter() - t0,
+                f" ({rescorer.observed} checkpoints observed, {rescorer.failed} background failures)"
+                if rescorer is not None else "",
+            )
+
+        header = ResultHeader(exec_name=EXEC_NAME)
+        if self.init_data is not None:
+            # provenance from the BOINC slot (demod_binary.c:1591-1602)
+            header.user_id = self.init_data.userid
+            header.user_name = self.init_data.user_name
+            header.host_id = self.init_data.hostid
+            header.host_cpid = self.init_data.host_cpid
+        write_result_file(args.outputfile, ResultFile(candidates=emitted, t_obs=derived.t_obs, header=header))
+        erplog.info("Data processing finished successfully!\n")
+        return 0
+
+    def run(self) -> int:
+        """prepare + execute."""
+        return self.prepare().execute()

@@ -8,28 +8,40 @@ Run from the repository root with no arguments:
 Phases:
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``boinc_app_eah_brp_tpu_torch/csrc``;
-3. hold each kernel against its plain PyTorch version on the card at the
+3. hold each kernel against its plain version on the card at the
    production width (a 2^22-sample workunit at 65.476 us, padding 3,
    f0 400 Hz, a batch of 32 templates of ``tests/golden/bank200.txt``):
    the resampler with its statistics (gathered samples, n_steps and mean,
    at 32 templates and in its single-template launch), FFT-prep, the fold
-   of float power and the fold of the complex spectrum must agree
+   of float power, the fold of the complex spectrum and the serial mean
+   (on the resampler's samples of the unwhitened workunit) must agree
    bitwise; each is timed beside its plain version and its bound (bytes,
-   float32 instructions and conversions, each at its own rate), and a
-   copy of the first port's eager statistics, rfft, the eager power
-   epilogue and a whole batch step are timed alone;
+   float32 instructions and conversions, each at its own rate; for the
+   serial mean also its chain of dependent adds), and a copy of the first
+   port's eager statistics, rfft, the eager power epilogue and a whole
+   batch step, whitened and unwhitened, are timed alone;
 4. run the search end to end through the command line on a seeded
    synthetic 4-bit workunit with a binary-pulsar signal injected at one
-   bank template, with the kernel launch counts reset just before, and
-   check the candidate file and that every kernel of the main path ran;
-5. print the kernel table as one JSON line, the run's numbers, and last
-   ``{"ok": true, "device": {...}}``.
+   bank template, whitened, with a checkpoint file and oracle rescoring,
+   with the kernel launch counts reset just before, and check the
+   candidate file and that every kernel of the main path ran; then time
+   its stages alone (rescoring and the checkpoint write among them);
+5. the same workunit unwhitened (the JAX driver's default), counts reset
+   just before: the injected template must be among the candidates and
+   the serial mean must have run beside the main path's kernels; then the
+   same run quit after 3 batches and resumed must give the same
+   candidate rows;
+6. print the kernel table as one JSON line (launches from the whitened
+   run, the serial mean's from the unwhitened one), the runs' numbers,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero; so does a machine without a CUDA card.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import glob
 import json
 import os
 import shutil
@@ -74,9 +86,16 @@ KERNEL_ROWS = {
     "fftprep": ("boinc_app_eah_brp_tpu/ops/pallas_resample.py:772", "fftprep.cu"),
     "fold": ("boinc_app_eah_brp_tpu/ops/pallas_sumspec.py:126", "fold.cu"),
     "fold_spectrum": ("boinc_app_eah_brp_tpu/ops/pallas_sumspec.py:126", "fold.cu"),
+    # no Pallas kernel: the JAX package's host pass host_exact_mean_params
+    "serial_mean": ("boinc_app_eah_brp_tpu/models/search.py:413", "serial_mean.cu"),
 }
-# the kernels the search's main path must launch
+# the kernels the search's main path must launch; the unwhitened run
+# launches these and the serial mean
 MAIN_PATH = ("resample", "fftprep", "fold_spectrum")
+UNWHITENED_PATH = MAIN_PATH + ("serial_mean",)
+# a dependent float32 add issues every 4 cycles at 1.98 GHz
+ADD_LATENCY_S = 4 / 1.98e9
+QUIT_AFTER = 3  # batches before the interrupted run quits
 
 
 class CheckFailed(Exception):
@@ -156,9 +175,10 @@ def production_geometry():
     return geom, bank
 
 
-def check_kernels(torch, dev, geom, bank) -> dict:
+def check_kernels(torch, dev, geom, bank, samples) -> dict:
     """Phase 3: every kernel against its plain version at the production
-    width; returns the per-kernel measurements and the stage times."""
+    width; ``samples`` is the unwhitened workunit, for the serial mean.
+    Returns the per-kernel measurements and the stage times."""
     from boinc_app_eah_brp_tpu_torch.models import search
     from boinc_app_eah_brp_tpu_torch.ops import harmonic, kernels, resample
     from boinc_app_eah_brp_tpu_torch.ops.spectrum import power_from_rfft
@@ -190,6 +210,24 @@ def check_kernels(torch, dev, geom, bank) -> dict:
             **bound(n * 4 + t_ * 16 + t_ * n * 4 + t_ * 8, t_ * n * RESAMPLE_F32_PER_SAMPLE),
         )
         del got, want
+    # the serial mean, on the resampler's samples of the unwhitened workunit
+    ts_u = torch.from_numpy(samples).to(dev)
+    raw_u, ns_u, _ = resample.resample_stream(ts_u, params, **kw)
+    got = resample.serial_mean(raw_u, ns_u)
+    want = resample.serial_mean_plain(raw_u, ns_u)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)), "serial_mean kernel != plain version")
+    summed = float(ns_u.clamp(min=0).sum())
+    out["serial_mean"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        ms=time_ms(torch, lambda: resample.serial_mean(raw_u, ns_u), 5),
+        plain_ms=time_ms(torch, lambda: resample.serial_mean_plain(raw_u, ns_u), 1),
+        library_ms=None,
+        chain_ms=float(ns_u.max()) * ADD_LATENCY_S * 1e3,
+        **bound(summed * 4 + T * 8, summed),
+    )
+    del raw_u, got, want
+
     raw, n_steps, mean = resample.resample_stream(ts, params, **kw)
     # a copy of the first port's eager statistics, timed alone on these outputs
     lf = torch.zeros((T, 2, -(-(n // 2) // 256)), dtype=torch.int32, device=dev)
@@ -267,6 +305,10 @@ def check_kernels(torch, dev, geom, bank) -> dict:
     )
     step = search.BankStep(geom, bank_dev, BATCH, state=search.init_state(geom, dev))
     stages["batch_step_ms"] = time_ms(torch, lambda: step(ts, 0, len(bank)), 3)
+    # and of the unwhitened workunit, with the serial mean
+    geom_u = dataclasses.replace(geom, exact_mean=True)
+    step = search.BankStep(geom_u, bank_dev, BATCH, state=search.init_state(geom_u, dev))
+    stages["batch_step_unwhitened_ms"] = time_ms(torch, lambda: step(ts_u, 0, len(bank)), 3)
     out["stages"] = stages
     return out
 
@@ -291,21 +333,45 @@ def synthetic_workunit(path: str, geom, bank) -> tuple[float, float]:
     return float(np.float32(P)), float(np.float32(tau))
 
 
-def run_main_path(torch, geom, bank, workdir: str) -> dict:
-    """Phase 4: the search through the command line, counts reset just
-    before and read just after."""
+def _remove_checkpoints(cp: str) -> None:
+    """A fresh start: every generation of checkpoint ``cp`` and its sidecars."""
+    for path in glob.glob(glob.escape(cp) + "*"):
+        os.remove(path)
+
+
+def _candidate_rows(cand: str) -> np.ndarray:
     from boinc_app_eah_brp_tpu_torch.io import parse_result_file
+
+    text = open(cand).read()
+    check(text.endswith("%DONE%\n"), f"{cand} does not end with %DONE%")
+    lines = [ln for ln in text.splitlines() if ln and not ln.startswith("%")]
+    check(len(lines) > 0 and all(len(ln.split()) == 7 for ln in lines), f"malformed candidate lines in {cand}")
+    return parse_result_file(cand).lines
+
+
+def _injected_rank(rows, P_inj: float, tau_inj: float) -> int | None:
+    """1-based rank of the first candidate on the injected template."""
+    for k, r in enumerate(rows):
+        if abs(r[1] - P_inj) < 1e-6 * P_inj and abs(r[2] - tau_inj) < 1e-6:
+            return k + 1
+    return None
+
+
+def run_main_path(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_inj: float) -> dict:
+    """Phase 4: the whitened search through the command line with a
+    checkpoint file and rescoring, counts reset just before and read just
+    after; then its stages alone."""
+    from boinc_app_eah_brp_tpu_torch.io.checkpoint import Checkpoint, read_checkpoint, write_checkpoint
     from boinc_app_eah_brp_tpu_torch.ops import kernels
     from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
 
-    wu = os.path.join(workdir, "smoke.bin4")
     zap = os.path.join(workdir, "smoke.zap")
     cand = os.path.join(workdir, "smoke.cand")
-    P_inj, tau_inj = synthetic_workunit(wu, geom, bank)
+    cp = os.path.join(workdir, "smoke.cpt")
     with open(zap, "w") as f:
         f.write("60.0 60.5\n180.0 180.2\n")
     argv = (
-        f"-i {wu} -o {cand} -t {BANK} -l {zap} -W -P {PADDING} -f {F0} -A {FA} "
+        f"-i {wu} -o {cand} -t {BANK} -c {cp} -l {zap} -W -P {PADDING} -f {F0} -A {FA} "
         f"-B {WINDOW} --batch {BATCH} --device {DEVICE}"
     ).split()
 
@@ -320,36 +386,35 @@ def run_main_path(torch, geom, bank, workdir: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     check(rc == 0, f"search exited with {rc}")
-    text = open(cand).read()
-    check(text.endswith("%DONE%\n"), "candidate file does not end with %DONE%")
-    rows = parse_result_file(cand).lines
-    lines = [ln for ln in text.splitlines() if ln and not ln.startswith("%")]
-    check(len(lines) > 0 and all(len(ln.split()) == 7 for ln in lines), "malformed candidate lines")
+    rows = _candidate_rows(cand)
+    check(read_checkpoint(cp).n_template == len(bank), "the final checkpoint does not cover the bank")
     top = rows[:5]
-    found = any(abs(r[1] - P_inj) < 1e-6 * P_inj and abs(r[2] - tau_inj) < 1e-6 for r in top)
     check(
-        found,
-        f"injected template (P={P_inj}, tau={tau_inj}) not among the top 5 candidates: "
-        f"{top.tolist()}",
+        _injected_rank(top, P_inj, tau_inj) is not None,
+        f"injected template (P={P_inj}, tau={tau_inj}) not among the top 5 candidates: {top.tolist()}",
     )
     for name in MAIN_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched by the search")
     check(launches["fold"] == 0, "the search folded a float power tensor")
+    check(launches["serial_mean"] == 0, "the whitened search took the serial mean")
 
-    # The same run again, now that cuFFT plans and the median library are
-    # loaded, and then its stages one at a time in the driver's order.
+    # The same run again from scratch, now that cuFFT plans and the median
+    # library are loaded, and then its stages one at a time in the
+    # driver's order.
     from boinc_app_eah_brp_tpu_torch.io import (
         ResultFile, empty_candidates, read_template_bank, read_workunit, read_zaplist,
         write_result_file,
     )
     from boinc_app_eah_brp_tpu_torch.models.search import run_bank, state_to_natural
     from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+    from boinc_app_eah_brp_tpu_torch.oracle.rescore import rescore_winners, unique_winner_count
     from boinc_app_eah_brp_tpu_torch.oracle.stats import base_thresholds
     from boinc_app_eah_brp_tpu_torch.oracle.toplist import (
         finalize_candidates, update_toplist_from_maxima,
     )
     from boinc_app_eah_brp_tpu_torch.ops.whiten import whiten_and_zap
 
+    _remove_checkpoints(cp)
     t0 = time.perf_counter()
     check(cli_main(argv) == 0, "second search run failed")
     torch.cuda.synchronize()
@@ -374,16 +439,28 @@ def run_main_path(torch, geom, bank, workdir: str) -> dict:
     M, T = timed(
         "search_loop_s", lambda: run_bank(ts, bank.P, bank.tau, bank.psi0, geom, batch_size=BATCH)
     )
+    def toplist():
+        cands = update_toplist_from_maxima(
+            empty_candidates(), state_to_natural(M, geom), state_to_natural(T, geom),
+            bank.P.astype(np.float32), bank.tau.astype(np.float32),
+            bank.psi0.astype(np.float32), base_thresholds(cfg.fA, derived.fft_size),
+            geom.window_2,
+        )
+        return cands, finalize_candidates(cands, derived.t_obs)
+
+    cands, emitted = timed("toplist_s", toplist)
+    timed(
+        "checkpoint_s",
+        lambda: write_checkpoint(
+            os.path.join(workdir, "stages.cpt"),
+            Checkpoint(n_template=len(bank), originalfile=wu, candidates=cands),
+            bank=(BANK, len(bank)),
+        ),
+    )
     emitted = timed(
-        "toplist_s",
+        "rescore_s",
         lambda: finalize_candidates(
-            update_toplist_from_maxima(
-                empty_candidates(), state_to_natural(M, geom), state_to_natural(T, geom),
-                bank.P.astype(np.float32), bank.tau.astype(np.float32),
-                bank.psi0.astype(np.float32), base_thresholds(cfg.fA, derived.fft_size),
-                geom.window_2,
-            ),
-            derived.t_obs,
+            rescore_winners(ts.cpu().numpy(), cands, emitted, derived)[0], derived.t_obs
         ),
     )
     timed(
@@ -394,14 +471,85 @@ def run_main_path(torch, geom, bank, workdir: str) -> dict:
     )
     return dict(
         **stages,
+        rescored_templates=unique_winner_count(emitted),
         search_loop_templates_per_s=len(bank) / stages["search_loop_s"],
         wall_first_s=wall,
         wall_s=wall_warm,
         unattributed_s=wall_warm - sum(stages.values()),
         templates_per_s=len(bank) / wall_warm,
         peak_device_bytes=int(peak),
-        n_candidates=len(lines),
+        n_candidates=len(rows),
         top_candidate=[float(v) for v in rows[0]],
+        launches=launches,
+    )
+
+
+def run_unwhitened(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_inj: float) -> dict:
+    """Phase 5: the unwhitened search (the JAX driver's default) through
+    the command line with a checkpoint file and rescoring, counts reset
+    just before and read just after; its search loop alone; then the same
+    run quit after QUIT_AFTER batches at checkpoint period 0 and resumed,
+    which must give the same candidate rows."""
+    from boinc_app_eah_brp_tpu_torch.io import read_workunit
+    from boinc_app_eah_brp_tpu_torch.io.checkpoint import read_checkpoint
+    from boinc_app_eah_brp_tpu_torch.models.search import run_bank
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.runtime.boinc import BoincAdapter
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import parse_args
+    from boinc_app_eah_brp_tpu_torch.runtime.driver import run_search
+
+    def argv(name):
+        return (
+            f"-i {wu} -o {os.path.join(workdir, name + '.cand')} -t {BANK} -c {os.path.join(workdir, name + '.cpt')} "
+            f"-P {PADDING} -f {F0} -A {FA} -B {WINDOW} --batch {BATCH} --device {DEVICE}"
+        ).split()
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(argv("unwhitened"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    check(rc == 0, f"unwhitened search exited with {rc}")
+    rows = _candidate_rows(os.path.join(workdir, "unwhitened.cand"))
+    rank = _injected_rank(rows, P_inj, tau_inj)
+    check(rank is not None, f"injected template (P={P_inj}, tau={tau_inj}) not among the unwhitened candidates")
+    for name in UNWHITENED_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched by the unwhitened search")
+
+    ts = torch.from_numpy(read_workunit(wu).samples).to(DEVICE)
+    geom_u = dataclasses.replace(geom, exact_mean=True)
+    t0 = time.perf_counter()
+    run_bank(ts, bank.P, bank.tau, bank.psi0, geom_u, batch_size=BATCH)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+
+    class QuitAfter(BoincAdapter):
+        def __init__(self):
+            super().__init__(checkpoint_period_s=0.0)  # checkpoint every batch
+            self.batches = 0
+
+        def quit_requested(self):
+            self.batches += 1
+            return self.batches >= QUIT_AFTER
+
+    check(run_search(parse_args(argv("resumed")), QuitAfter()) == 0, "the interrupted run failed")
+    check(not os.path.exists(os.path.join(workdir, "resumed.cand")), "the interrupted run wrote a result")
+    n_done = read_checkpoint(os.path.join(workdir, "resumed.cpt")).n_template
+    check(n_done == QUIT_AFTER * BATCH, f"the interrupted run checkpointed {n_done} templates")
+    check(cli_main(argv("resumed")) == 0, "the resumed run failed")
+    resumed = _candidate_rows(os.path.join(workdir, "resumed.cand"))
+    check(np.array_equal(resumed, rows), "the resumed run's candidate rows differ from the uninterrupted run's")
+    return dict(
+        wall_s=wall,
+        search_loop_s=loop_s,
+        search_loop_templates_per_s=len(bank) / loop_s,
+        injected_rank=rank,
+        n_candidates=len(rows),
+        resumed_from=n_done,
+        resume_rows_equal=True,
         launches=launches,
     )
 
@@ -417,6 +565,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
+        from boinc_app_eah_brp_tpu_torch.io import read_workunit
         from boinc_app_eah_brp_tpu_torch.ops import kernels
     except ImportError as e:
         print(f"chip_smoke: the port package is missing beside this script ({e})", file=sys.stderr)
@@ -442,26 +591,31 @@ def main() -> int:
     os.makedirs(workdir)
     try:
         geom, bank = production_geometry()
-        measured = check_kernels(torch, dev, geom, bank)
+        wu = os.path.join(workdir, "smoke.bin4")
+        P_inj, tau_inj = synthetic_workunit(wu, geom, bank)
+        measured = check_kernels(torch, dev, geom, bank, read_workunit(wu).samples)
         torch.cuda.empty_cache()
-        run = run_main_path(torch, geom, bank, workdir)
+        run = run_main_path(torch, geom, bank, workdir, wu, P_inj, tau_inj)
+        torch.cuda.empty_cache()
+        unwhite = run_unwhitened(torch, geom, bank, workdir, wu, P_inj, tau_inj)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     print(json.dumps({"stages": measured.pop("stages")}))
-    detail = ("limit", "bytes_ms", "fp32_ms", "conversions_ms")
-    print(json.dumps({"bounds": {k: {d: m[d] for d in detail} for k, m in measured.items()}}))
+    detail = ("limit", "bytes_ms", "fp32_ms", "conversions_ms", "chain_ms")
+    print(json.dumps({"bounds": {k: {d: m[d] for d in detail if d in m} for k, m in measured.items()}}))
     rows = []
     for name, (replaces, src) in KERNEL_ROWS.items():
         m = measured[name]
+        path_run = unwhite if name == "serial_mean" else run
         rows.append(
             dict(
                 name=name,
                 route="cuda",
                 source=f"boinc_app_eah_brp_tpu_torch/csrc/{src}",
                 replaces=replaces,
-                launches=run["launches"][name],
+                launches=path_run["launches"][name],
                 max_abs_err=m["max_abs_err"],
                 ms=m["ms"],
                 plain_ms=m["plain_ms"],
@@ -471,6 +625,7 @@ def main() -> int:
             )
         )
     print(json.dumps({"main_path": {k: v for k, v in run.items() if k != "launches"}}))
+    print(json.dumps({"unwhitened": unwhite}))
     print(json.dumps({"kernels": rows}))
     print(
         json.dumps(

@@ -82,6 +82,32 @@ def test_resample_and_fftprep_match_plain(dev, n, renorm, T):
         assert torch.equal(x, resample.fftprep_plain(raw, n_steps, mean, nsamples=nsamples))
 
 
+@pytest.mark.parametrize("T", [1, 32, 33])
+@pytest.mark.parametrize("n", [1 << 16, 70002])
+def test_serial_mean_matches_plain(dev, n, T):
+    """The serial-mean kernel over kernel A's outputs of an unwhitened
+    (positive) series, bitwise against the host float32 chain."""
+    ts = torch.from_numpy(np.random.default_rng(n + T).normal(5.0, 1.0, n).astype(np.float32)).to(dev)
+    raw, n_steps, _ = resample.resample_stream(ts, _params(list(range(T)), dev), n_unpadded=n, dt=DT)
+    before = kernels.launch_counts["serial_mean"]
+    got = resample.serial_mean(raw, n_steps)
+    assert kernels.launch_counts["serial_mean"] == before + 1
+    assert torch.equal(got.view(torch.int32), resample.serial_mean_plain(raw, n_steps).view(torch.int32))
+
+
+def test_serial_mean_edges_match_plain(dev):
+    """Counts around the kernel's 4096-sample chunks, odd counts, one
+    sample, n_steps <= 0 and a count past the samples."""
+    half = 5001
+    n_steps = [4095, 4096, 4097, 8193, 7, 1, 0, -1, 2 * half - 1, 2 * half + 5]
+    raw = torch.from_numpy(
+        np.random.default_rng(half).normal(5.0, 1.0, (len(n_steps), 2, half)).astype(np.float32)
+    ).to(dev)
+    ns = torch.tensor(n_steps, dtype=torch.int32, device=dev)
+    got = resample.serial_mean(raw, ns)
+    assert torch.equal(got.view(torch.int32), resample.serial_mean_plain(raw, ns).view(torch.int32))
+
+
 @pytest.mark.parametrize("L,fund_hi,harm_hi", [(98305, 5149, 82388), (5001, 301, 4817)])
 def test_fold_matches_plain(dev, L, fund_hi, harm_hi):
     g = torch.Generator(device="cpu").manual_seed(L)

@@ -25,6 +25,10 @@ open("zap.txt", "w").write("50.0 51.0\\n")
 rc = main("-i wu.bin4 -o out.cand -t bank.dat -l zap.txt -W -B 100 --batch 2 --device cpu".split())
 assert rc == 0, rc
 assert open("out.cand").read().endswith("%DONE%\\n")
+# the JAX driver's defaults: unwhitened, a checkpoint file, oracle rescoring
+rc = main("-i wu.bin4 -o out2.cand -t bank.dat -c cp.bin -B 100 --batch 2 --device cpu".split())
+assert rc == 0, rc
+assert open("out2.cand").read().endswith("%DONE%\\n")
 assert "jax" not in sys.modules, "jax imported"
 assert not [m for m in sys.modules if m.startswith("boinc_app_eah_brp_tpu.")
             or m == "boinc_app_eah_brp_tpu"], "JAX package imported"

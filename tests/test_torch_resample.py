@@ -15,6 +15,12 @@ order of lane runs and halving trees): it is held to rtol 1e-4, about 8x
 the largest difference seen (1.3e-5).  The fixed order itself is held to
 rtol 1e-6 against a float64 sum, and bitwise against a replay of the
 kernel's own scheme of unit sums, cut unit and tree.
+
+The exact (serial) pad mean of unwhitened runs, ``serial_mean``, is
+bitwise equal to the JAX package's host pass (``host_exact_mean_params``),
+as are kernel A's n_steps beside it; one ``BankStep`` on an exact-mean
+geometry is held against JAX ``make_bank_step`` as the whitened step is in
+``test_torch_search.py`` (M to rtol 1e-5, T equal).
 """
 
 import os
@@ -25,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from boinc_app_eah_brp_tpu.models import search as jax_search
 from boinc_app_eah_brp_tpu.models.search import bank_params_host as jax_bank_params
 from boinc_app_eah_brp_tpu.ops.pallas_resample import (
     _batch_stats,
@@ -35,8 +42,12 @@ from boinc_app_eah_brp_tpu.ops.pallas_resample import (
 )
 from boinc_app_eah_brp_tpu.ops.resample import resample_split as xla_resample_split
 from boinc_app_eah_brp_tpu.ops.sincos import sincos_lut_lookup as jax_sincos
+from boinc_app_eah_brp_tpu.oracle.pipeline import DerivedParams as JaxDerived
+from boinc_app_eah_brp_tpu.oracle.pipeline import SearchConfig as JaxConfig
 from boinc_app_eah_brp_tpu.oracle.resample import ResampleParams, resample as oracle_resample
+from boinc_app_eah_brp_tpu_torch.models import search
 from boinc_app_eah_brp_tpu_torch.models.search import bank_params_host
+from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
 from boinc_app_eah_brp_tpu_torch.ops import resample as port
 from boinc_app_eah_brp_tpu_torch.ops.sincos import sincos_lut_unwrapped
 from fixtures import synthetic_timeseries
@@ -326,3 +337,102 @@ def test_null_template_n_steps(n):
     want = [ts[int(k) : int(k) + int(s)].sum() / s for k, s in zip(K, n_steps.numpy())]
     np.testing.assert_allclose(mean.numpy(), want, rtol=1e-6)
 
+
+def _exact_geoms(n, P, tau, psi0, **cfg_kw):
+    bounds = dict(
+        max_slope=search.max_slope_for_bank(P, tau),
+        lut_step=search.lut_step_for_bank(P, DT),
+        lut_tiles=search.lut_tiles_for_bank(P, psi0, n, DT),
+        exact_mean=True,
+    )
+    jd = JaxDerived.derive(n, DT * 1e6, JaxConfig(**cfg_kw))
+    d = DerivedParams.derive(n, DT * 1e6, SearchConfig(**cfg_kw))
+    return jax_search.SearchGeometry.from_derived(jd, **bounds), search.SearchGeometry.from_derived(d, **bounds)
+
+
+def test_serial_mean_matches_host_exact_mean():
+    """At 2^14 samples of an unwhitened (positive) series: kernel A's
+    n_steps and the serial mean of its samples, bitwise against the JAX
+    package's host pass."""
+    n = 1 << 14
+    rows = [0, 1, 2, 7, 57, 150, 199]
+    b = np.loadtxt(BANK200)[rows]
+    P, tau, psi0 = b[:, 0], b[:, 1], b[:, 2]
+    ts = (_series(n, seed=5)[0] + 3.0).astype(np.float32)
+    params = _bank(rows)
+    raw, n_steps, _ = port.resample_stream(torch.from_numpy(ts), port.stream_params(*params), n_unpadded=n, dt=DT)
+    got = port.serial_mean(raw, n_steps)
+    jgeom, _ = _exact_geoms(n, P, tau, psi0, padding=1.5, window=200)
+    want_n, want_mean = jax_search.host_exact_mean_params(ts, list(zip(*params)), jgeom)
+    np.testing.assert_array_equal(n_steps.numpy(), want_n)
+    assert got.numpy().tobytes() == want_mean.tobytes()
+    # the exact-mean series pads with it
+    x = port.fftprep_series(torch.from_numpy(ts), *params, **_kw(n, 1.5), exact_mean=True)
+    assert x[:, -1].numpy().tobytes() == want_mean.tobytes()
+
+
+@pytest.mark.parametrize("n_steps", [[7, 1, 2 * 37 - 1], [0, -1, 2 * 37 - 2]])
+def test_serial_mean_edges(n_steps):
+    """Odd counts (the last sample of the even row), one sample, and
+    n_steps <= 0 (0.0, the oracle's documented deviation), against the
+    float32 chain written out."""
+    raw = np.random.default_rng(len(n_steps)).normal(5.0, 1.0, (3, 2, 37)).astype(np.float32)
+    got = port.serial_mean(torch.from_numpy(raw), torch.tensor(n_steps, dtype=torch.int32)).numpy()
+    for t, n in enumerate(n_steps):
+        s = np.float32(0.0)
+        for i in range(n):
+            s = np.float32(s + raw[t, i & 1, i >> 1])
+        want = np.float32(s / np.float32(n)) if n > 0 else np.float32(0.0)
+        assert got[t].tobytes() == want.tobytes()
+
+
+def test_serial_mean_is_not_cumsum():
+    """Why the plain version is the numpy chain: torch's cumsum and sum of
+    float32 on the CPU give the double-precision sum, hundreds away from
+    the reference's serial float32 one at 2^22 samples of N(5, 1)."""
+    x = np.random.default_rng(0).normal(5.0, 1.0, 1 << 22).astype(np.float32)
+    serial = np.add.accumulate(x, dtype=np.float32)[-1]
+    exact = np.float32(x.astype(np.float64).sum())
+    xt = torch.from_numpy(x)
+    assert torch.cumsum(xt, 0)[-1].item() == exact and torch.sum(xt).item() == exact
+    assert abs(float(serial) - float(exact)) > 100.0
+    raw = torch.from_numpy(np.stack([x[0::2], x[1::2]])[None])
+    got = port.serial_mean(raw, torch.tensor([1 << 22], dtype=torch.int32))
+    assert got.numpy()[0] == np.float32(serial / np.float32(1 << 22))
+
+
+def test_exact_mean_bank_step_matches_jax_step():
+    """One BankStep on an exact-mean geometry against JAX make_bank_step
+    fed the host pass's (n_steps, mean), from the same carried-over state:
+    M to rtol 1e-5 (two FFT libraries), T equal.  Templates without a
+    contraction tie at this length.  The series has mean 1: the float32
+    FFT's error grows with the series' power at DC, and at mean 4 the two
+    libraries' M differ by up to ~2e-5 in a few small bins."""
+    n, B = 1 << 13, 3
+    b = np.loadtxt(BANK200)[[0, 1, 2, 6, 9]]
+    P, tau, psi0 = b[:, 0], b[:, 1], b[:, 2]
+    params = search.bank_params_host(P, tau, psi0, DT)
+    assert not contraction_ties(params, n).any()
+    jgeom, geom = _exact_geoms(n, P, tau, psi0, padding=1.5, window=200, f0=250.0)
+    ts = np.random.default_rng(12).normal(1.0, 1.0, n).astype(np.float32)
+    ts_args = jax_search.prepare_ts(jgeom, ts)
+    jbank = jax_search.upload_bank(jax_search.bank_params_host(P, tau, psi0, DT), B)
+    jstep = jax_search.make_bank_step(jgeom, B)
+    ns, mn = jax_search.host_exact_mean_params(ts, list(zip(*params)), jgeom)
+    ns = np.concatenate([ns, np.full(B, ns[0], np.int32)])  # masked slots, as ExactMeanPrefetch pads
+    mn = np.concatenate([mn, np.full(B, mn[0], np.float32)])
+    M, T = jax_search.init_state(jgeom)
+    M, T = jstep(ts_args, *jbank, jnp.int32(0), jnp.int32(len(P)), M, T, jnp.asarray(ns[:B]), jnp.asarray(mn[:B]))
+
+    step = search.BankStep(
+        geom,
+        search.bank_from_jax([np.asarray(a) for a in jbank], device="cpu"),
+        B,
+        state=search.state_from_jax(np.asarray(M), np.asarray(T), device="cpu"),
+    )
+    M, T = jstep(
+        ts_args, *jbank, jnp.int32(B), jnp.int32(len(P)), M, T, jnp.asarray(ns[B : 2 * B]), jnp.asarray(mn[B : 2 * B])
+    )
+    pM, pT = step(torch.from_numpy(ts), B, len(P))
+    np.testing.assert_allclose(pM.numpy(), np.asarray(M), rtol=1e-5)
+    np.testing.assert_array_equal(pT.numpy(), np.asarray(T))

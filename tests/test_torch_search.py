@@ -36,7 +36,7 @@ from boinc_app_eah_brp_tpu_torch.models import search
 from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
 from boinc_app_eah_brp_tpu_torch.runtime.cli import main, parse_args
 from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
-from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EMISC, RADPUL_EVAL
+from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EFILE, RADPUL_EMISC, RADPUL_EVAL
 from fixtures import small_bank, synthetic_timeseries
 from torch_parity import DT, contraction_ties
 
@@ -149,10 +149,10 @@ def test_cli_runs_the_slice(workdir):
 @pytest.mark.parametrize(
     "argv,code",
     [
-        ("-c cp.bin", RADPUL_EMISC),
-        ("--shmem /dev/shm/x", RADPUL_EMISC),
+        ("--mesh 2", RADPUL_EMISC),
+        ("--supervised 3", RADPUL_EMISC),
         ("--rescore", RADPUL_EMISC),
-        ("-z", RADPUL_EMISC),
+        ("--exact-sin", RADPUL_EMISC),
         ("-P 0.5", RADPUL_EVAL),
         ("--batch 0", RADPUL_EVAL),
         ("--bogus", RADPUL_EMISC),
@@ -163,13 +163,20 @@ def test_cli_refuses_what_the_slice_does_not_honour(argv, code):
     assert parse_args(base + argv.split()) == code
 
 
-def test_unwhitened_run_is_refused(workdir):
-    args = DriverArgs(
-        inputfile=workdir["wu"], outputfile=workdir["port"], templatebank=workdir["bank"],
-        device="cpu",
+def test_cli_parses_the_jax_default_surface():
+    """The JAX driver's default command line and the wrapper's flags."""
+    parsed = parse_args(
+        "-i in.bin4 -o out.cand -t bank.dat -c cp.bin -l zap.txt -A 0.08 -P 3.0 -f 400.0 -B 1000 -z "
+        "-D 1 --no-rescore --status-file st.txt --control-file ctl.txt --shmem seg".split()
     )
-    assert run_search(args) == RADPUL_EVAL
-    assert not os.path.exists(workdir["port"])
+    assert isinstance(parsed, DriverArgs)
+    assert (parsed.checkpointfile, parsed.device, parsed.debug, parsed.rescore, parsed.white) == (
+        "cp.bin", "cuda:1", True, False, False
+    )
+    assert (parsed.status_file, parsed.control_file, parsed.shmem) == ("st.txt", "ctl.txt", "seg")
+    assert parse_args("-i a.bin4 -o o -t t".split()).rescore
+    assert parse_args("-i a.bin4 -o o -t t -D x".split()) == RADPUL_EVAL
+    assert parse_args("-i a.bin4 -o o -t t -c".split()) == RADPUL_EFILE
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

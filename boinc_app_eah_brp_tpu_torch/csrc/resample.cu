@@ -1,5 +1,7 @@
 // Kernel A: the orbital resampler and its batch statistics, one call for a
-// batch of templates.
+// batch of templates.  The file also holds the exact pad mean of
+// unwhitened runs (exact_mean_kernel, after A), which makes A's samples
+// with A's own device functions.
 //
 // Replaces the Pallas kernels `_batched_stream_kernel` and
 // `_parity_stream_kernel` (boinc_app_eah_brp_tpu/ops/pallas_resample.py,
@@ -179,6 +181,61 @@ __device__ __forceinline__ int gather(const float (&i_f)[kPer], const float (&sc
   return last;
 }
 
+// The interleaved indices i = 2(m0 + k kStride) + p of a thread's kPer
+// outputs of parity p, exact float sums of integers below 2^24 (converted
+// one by one for a wide series), and their times i*dt.
+template <bool kWideSeries>
+__device__ __forceinline__ void index_times(int m0, int p, float dt, float (&i_f)[kPer], float (&tt)[kPer]) {
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    i_f[k] = (kWideSeries || k == 0) ? static_cast<float>(2 * (m0 + k * kStride) + p)
+                                     : __fadd_rn(i_f[0], static_cast<float>(2 * k * kStride));
+    tt[k] = __fmul_rn(i_f[k], dt);
+  }
+}
+
+// A bound on |del_t| wherever the LUT argument is in range (there the
+// Taylor step |d| < 0.074 and |s| < 1.01), with room for the roundings;
+// NaN fails every test it enters.
+__device__ __forceinline__ float reach_of(float tau, float s0, float step_inv) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(fabsf(tau), step_inv), 1.125f), fabsf(s0)), 4.0f);
+}
+
+// The phase of each output, as a fraction of a turn and as the LUT
+// argument y.  y is monotone in k (every step is a rounded product or sum
+// with a constant), so its ends bound the whole run.
+__device__ __forceinline__ void lut_args(const float (&tt)[kPer], float omega, float psi0,
+                                         float (&scaled)[kPer], float (&y)[kPer]) {
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const float phase = __fadd_rn(__fmul_rn(omega, tt[k]), psi0);
+    scaled[k] = __fmul_rn(c_two_pi[1], phase);
+    y[k] = __fadd_rn(__fmul_rn(scaled[k], 64.0f), 0.5f);
+  }
+}
+
+// One template's samples of parity p at a thread's kPer outputs (no
+// renorm), by the path stream_kernel takes for them (the test-free path
+// where its contract holds), so bit for bit kernel A's.  stream_kernel
+// keeps its own copy of this choice inline: calling this cost it three
+// registers.
+template <bool kWideSeries>
+__device__ __forceinline__ void samples(const float (&i_f)[kPer], const float (&tt)[kPer], float tau,
+                                        float omega, float psi0, float s0, float reach, float step_inv,
+                                        float n_last, int n_unpadded, int m0, int m_left, bool full,
+                                        uintptr_t base, float (&v)[kPer]) {
+  float scaled[kPer], y[kPer];
+  lut_args(tt, omega, psi0, scaled, y);
+  const bool interior = !kWideSeries && full && below_magic(y[0]) && below_magic(y[kPer - 1]) &&
+                        i_f[0] >= reach && __fadd_rn(i_f[kPer - 1], reach) < __fsub_rn(n_last, 1.0f);
+  if (kWideSeries)
+    gather<kWide>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
+  else if (interior)
+    gather<kInterior>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
+  else
+    gather<kEdge>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
+}
+
 template <bool kWideSeries>
 __global__ void __launch_bounds__(kThreads)
     stream_kernel(const float* __restrict__ ts, const float* __restrict__ params,
@@ -194,41 +251,22 @@ __global__ void __launch_bounds__(kThreads)
   const bool full = (kPer - 1) * kStride < m_left;
   const float n_last = static_cast<float>(n_unpadded - 1);
   const uintptr_t base = reinterpret_cast<uintptr_t>(ts) - static_cast<uintptr_t>(kMagicBits) * sizeof(float);
-  // interleaved indices i = 2(m0 + k kStride) + p, exact float sums of
-  // integers below 2^24 (converted one by one for a wide series), and
-  // their times i*dt: the same for every template
+  // the indices and times of this thread's outputs: the same for every
+  // template
   float i_f[2][kPer], tt[2][kPer];
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      i_f[p][k] = (kWideSeries || k == 0)
-                      ? static_cast<float>(2 * (m0 + k * kStride) + p)
-                      : __fadd_rn(i_f[p][0], static_cast<float>(2 * k * kStride));
-      tt[p][k] = __fmul_rn(i_f[p][k], dt);
-    }
-  }
+  for (int p = 0; p < 2; ++p) index_times<kWideSeries>(m0, p, dt, i_f[p], tt[p]);
 
   for (int t = 0; t < T; ++t) {
     const float tau = params[4 * t + 0];
     const float omega = params[4 * t + 1];
     const float psi0 = params[4 * t + 2];
     const float s0 = params[4 * t + 3];
-    // a bound on |del_t| wherever the LUT argument is in range (there the
-    // Taylor step |d| < 0.074 and |s| < 1.01), with room for the roundings;
-    // NaN fails every test below
-    const float reach = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(fabsf(tau), step_inv), 1.125f), fabsf(s0)), 4.0f);
+    const float reach = reach_of(tau, s0, step_inv);
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       float scaled[kPer], y[kPer];
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const float phase = __fadd_rn(__fmul_rn(omega, tt[p][k]), psi0);
-        scaled[k] = __fmul_rn(c_two_pi[1], phase);
-        y[k] = __fadd_rn(__fmul_rn(scaled[k], 64.0f), 0.5f);
-      }
-      // y is monotone in k (every step is a rounded product or sum with a
-      // constant), so its ends bound the whole run
+      lut_args(tt[p], omega, psi0, scaled, y);
       float v[kPer];
       const bool interior = !kWideSeries && full && below_magic(y[0]) && below_magic(y[kPer - 1]) &&
                             i_f[p][0] >= reach && __fadd_rn(i_f[p][kPer - 1], reach) < __fsub_rn(n_last, 1.0f);
@@ -355,6 +393,207 @@ __global__ void __launch_bounds__(kFinThreads)
   }
 }
 
+// ---------------------------------------------------------------------
+// The exact (serial) pad mean of unwhitened runs, for a whole bank ahead
+// of the search.
+//
+// No Pallas kernel stands behind this one: the JAX package computes it on
+// the host, per template, ahead of each batch (boinc_app_eah_brp_tpu/
+// models/search.py `host_exact_mean_params` fed by `ExactMeanPrefetch`;
+// oracle/resample.py `resample_stats`, demod_binary_resamp_cpu.c:105-121):
+//
+//   n_steps[t] = the start of the trailing run, kernel A's n_steps
+//   mean[t]    = (sum over i < n_steps[t] of the gathered sample i, added
+//                 strictly in order i = 0, 1, 2, ... in float32)
+//                / (float) n_steps[t]                  (0.0 if n_steps <= 0)
+//
+// Every add rounds on its own (__fadd_rn) and the division is IEEE
+// (__fdiv_rn): bitwise the oracle's np.add.accumulate chain.  The samples
+// are made here from ts by kernel A's own code (samples / gather above),
+// not read from A's output, so they are A's bit for bit and the means of
+// a whole bank need no batch's resample to exist yet.
+//
+// What bounds it on the card, at the production width (n = 2^22):
+// - the chain: a template is ~4.19M dependent float adds, 4 cycles each,
+//   ~8.5 ms at 1.98 GHz however many templates run beside it.  No other
+//   order of the adds rounds the same, so nothing inside a template runs
+//   in parallel;
+// - issue: each sample costs kernel A's ~24 float32 instructions (~34
+//   with addresses, the gather and its shared-memory store) plus its one
+//   add: ~1.1 warp instructions a sample, so 200 templates need ~0.9 ms
+//   of the card's issue, 6,600 templates ~28 ms;
+// - bytes: ts read once (16.8 MB), 0.005 ms.
+//
+// What the design does about it: one launch takes every template of the
+// bank.  A block holds G <= 32 templates (G chosen at launch so that the
+// blocks spread over every SM: 2 for bank200, 25 for 6,600 templates);
+// lane g of warp 0 runs template g's chain and does nothing else, its
+// operands read four at a time from shared memory into two register sets
+// that take turns, one group ahead of the adds.  Every other instruction
+// in the chain's warp, and every warp that shares its scheduler, delays
+// an add now and then; so in a launch held by its chains (at most
+// kQuietChains templates a block) the warps on warp 0's scheduler make no
+// samples.  The producer warps (kProducers, 12 of them in such a launch)
+// make the samples of the next stage (U units of both parities a
+// template, in order) into the other half of a double buffer while the
+// chains add the current one, one barrier a stage; samples at or past n_steps are stored as -0.0, which adds as the
+// identity (x + -0.0 == x for every x), so every chain runs the same
+// loop.  n_steps comes first, from a walk down from the end of the series
+// a unit at a time (both parities, kernel A's trailing-run test on every
+// output), which stops at the first unit holding a position: the trailing
+// run is at most ~|del_t| long.  So a launch of N templates takes about
+// one chain floor while N is small (bank200) and the issue bound when it
+// is large.
+
+constexpr int kProducers = 16;                      // sample-making warps of a block
+constexpr int kMeanThreads = 32 * (kProducers + 1);  // + warp 0, the chains
+constexpr int kMaxChains = 32;                      // templates of a block: one a lane of warp 0
+constexpr int kMaxStageUnits = 4;                   // units of a template in one stage
+constexpr int kRowPad = 4;  // floats after a row: lanes' float4 reads meet no bank conflict
+constexpr int kGroup = 8;   // float4 operands a chain reads ahead of its adds
+// a launch of at most this many templates a block is held by its chains:
+// the warps that share warp 0's scheduler (warp % 4 == 0) then make no
+// samples, so the chains' adds issue undisturbed
+constexpr int kQuietChains = 8;
+
+// The row of template g in a buffer half holds the 2 * kUnit * U samples
+// of one stage, in order.
+template <bool kWideSeries>
+__global__ void __launch_bounds__(kMeanThreads)
+    exact_mean_kernel(const float* __restrict__ ts, const float* __restrict__ params,
+                      int* __restrict__ n_steps_out, float* __restrict__ mean_out, int N, int G,
+                      int U, int half, int n_units, int n_unpadded, float dt, float step_inv) {
+  extern __shared__ __align__(16) float buf[];  // [2][G][row]
+  __shared__ float s_par[kMaxChains][4];
+  __shared__ int s_n[kMaxChains];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t0 = blockIdx.x * G;
+  const int g_here = min(G, N - t0);
+  const int stage = 2 * kUnit * U;  // samples of a template in one stage
+  const int row = stage + kRowPad;
+  const float n_last = static_cast<float>(n_unpadded - 1);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(ts) - static_cast<uintptr_t>(kMagicBits) * sizeof(float);
+
+  if (threadIdx.x < 4 * g_here) s_par[threadIdx.x >> 2][threadIdx.x & 3] = params[4 * t0 + threadIdx.x];
+  __syncthreads();
+
+  // n_steps = max(2 lf_0, 2 lf_1 + 1), lf_p the largest output of parity p
+  // whose i - del_t < n-1: producer warp w walks templates w, w + kProducers, ...
+  if (warp > 0) {
+    for (int g = warp - 1; g < g_here; g += kProducers) {
+      const float tau = s_par[g][0], omega = s_par[g][1], psi0 = s_par[g][2], s0 = s_par[g][3];
+      int lf[2] = {-1, -1};
+      for (int u = n_units - 1; u >= 0 && (lf[0] < 0 || lf[1] < 0); --u) {
+        const int m0 = u * kUnit + lane;
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          if (lf[p] >= 0) continue;  // warp-uniform
+          float i_f[kPer], tt[kPer], scaled[kPer], y[kPer], v[kPer];
+          index_times<kWideSeries>(m0, p, dt, i_f, tt);
+          lut_args(tt, omega, psi0, scaled, y);
+          int last = kWideSeries
+                         ? gather<kWide>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, half - m0, base, v)
+                         : gather<kEdge>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, half - m0, base, v);
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+          lf[p] = last;
+        }
+      }
+      if (lane == 0) s_n[g] = max(2 * lf[0], 2 * lf[1] + 1);
+    }
+  }
+  __syncthreads();
+
+  int n_max = 0;
+  for (int g = 0; g < g_here; ++g) n_max = max(n_max, s_n[g]);
+  const int n_stages = (n_max + stage - 1) / stage;  // block-uniform
+
+  // producer number prod of n_prod (-1: none)
+  const bool quiet = G <= kQuietChains;
+  const int n_prod = quiet ? kProducers - kProducers / 4 : kProducers;
+  const int prod = !quiet ? warp - 1 : warp % 4 == 0 ? -1 : warp - 1 - warp / 4;
+  // the samples of stage s of every template, into buffer half dst; an
+  // item is one unit (both parities) of one template
+  const auto produce = [&](int s, float* dst) {
+    if (prod < 0) return;
+    for (int item = prod; item < g_here * U; item += n_prod) {
+      const int g = item / U;
+      const int j = item - g * U;
+      const float tau = s_par[g][0], omega = s_par[g][1], psi0 = s_par[g][2], s0 = s_par[g][3];
+      const float reach = reach_of(tau, s0, step_inv);
+      const int n = s_n[g];
+      const int m0 = (s * U + j) * kUnit + lane;
+      const int m_left = half - m0;
+      const bool full = (kPer - 1) * kStride < m_left;
+      float v[2][kPer];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        float i_f[kPer], tt[kPer];
+        index_times<kWideSeries>(m0, p, dt, i_f, tt);
+        samples<kWideSeries>(i_f, tt, tau, omega, psi0, s0, reach, step_inv, n_last, n_unpadded, m0, m_left,
+                             full, base, v[p]);
+      }
+      float* r = dst + g * row + j * 2 * kUnit;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int i = 2 * (m0 + k * kStride);  // the even sample's index
+        *reinterpret_cast<float2*>(r + 2 * (lane + k * kStride)) =
+            make_float2(i < n ? v[0][k] : -0.0f, i + 1 < n ? v[1][k] : -0.0f);
+      }
+    }
+  };
+
+  float* const half_buf[2] = {buf, buf + G * row};
+  if (n_stages > 0) {
+    if (warp > 0) produce(0, half_buf[0]);
+    __syncthreads();
+  }
+  // -0.0 + x == x for every x, so the first add gives sample 0 exactly, as
+  // the accumulate's first element is
+  float acc = -0.0f;
+  for (int s = 0; s < n_stages; ++s) {
+    if (warp > 0) {
+      if (s + 1 < n_stages) produce(s + 1, half_buf[(s + 1) & 1]);
+    } else if (lane < g_here) {
+      // operands a group of kGroup float4 ahead of the adds, in two
+      // register sets that take turns (no copies between them)
+      const float4* q = reinterpret_cast<const float4*>(half_buf[s & 1] + lane * row);
+      const int n4 = stage / 4;  // a multiple of 2 * kGroup
+      float4 a[kGroup], b[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) a[j] = q[j];
+      for (int k = 0; k < n4; k += 2 * kGroup) {
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) b[j] = q[k + kGroup + j];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          acc = __fadd_rn(acc, a[j].x);
+          acc = __fadd_rn(acc, a[j].y);
+          acc = __fadd_rn(acc, a[j].z);
+          acc = __fadd_rn(acc, a[j].w);
+        }
+        const int ka = min(k + 2 * kGroup, n4 - kGroup);  // the last turn reads its group again
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) a[j] = q[ka + j];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          acc = __fadd_rn(acc, b[j].x);
+          acc = __fadd_rn(acc, b[j].y);
+          acc = __fadd_rn(acc, b[j].z);
+          acc = __fadd_rn(acc, b[j].w);
+        }
+      }
+    }
+    __syncthreads();  // the next stage is in; this one may be overwritten
+  }
+  if (warp == 0 && lane < g_here) {
+    const int n = s_n[lane];
+    n_steps_out[t0 + lane] = n;
+    mean_out[t0 + lane] = n > 0 ? __fdiv_rn(acc, static_cast<float>(n)) : 0.0f;
+  }
+}
+
 }  // namespace
 
 extern "C" int erp_resample_unit() { return kUnit; }
@@ -399,5 +638,32 @@ extern "C" int erp_resample_stream(int device, void* stream, const float* ts,
   if (e != cudaSuccess) return static_cast<int>(e);
   stats_kernel<<<T, kFinThreads, 0, s>>>(out, unit_sum, unit_last, n_steps, mean, half,
                                          n_units, n_pow2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ts: the interleaved series float32[n_unpadded]; params: float32[N, 4]
+// rows (tau, omega, psi0, s0); n_steps: int32[N] and mean: float32[N]
+// (out).  Needs erp_resample_init on this device first.
+extern "C" int erp_exact_mean(int device, void* stream, const float* ts, const float* params,
+                              int* n_steps, float* mean, int N, int n_unpadded, float dt,
+                              float step_inv) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int sms = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // as few templates a block as fill every SM, in as few rounds of at
+  // most kMaxChains templates an SM as N needs
+  const int rounds = (N + sms * kMaxChains - 1) / (sms * kMaxChains);
+  const int G = (N + sms * rounds - 1) / (sms * rounds);
+  const int U = max(1, min(kMaxStageUnits, kMaxChains / G));
+  const int half = n_unpadded / 2;
+  const int n_units = (half + kUnit - 1) / kUnit;
+  const size_t smem = 2 * static_cast<size_t>(G) * (2 * kUnit * U + kRowPad) * sizeof(float);
+  const auto kernel = n_unpadded > kMaxNarrow ? exact_mean_kernel<true> : exact_mean_kernel<false>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<(N + G - 1) / G, kMeanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      ts, params, n_steps, mean, N, G, U, half, n_units, n_unpadded, dt, step_inv);
   return static_cast<int>(cudaGetLastError());
 }

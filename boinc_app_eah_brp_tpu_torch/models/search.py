@@ -28,7 +28,7 @@ from ..device import resolve_device
 from ..oracle.pipeline import DerivedParams
 from ..oracle.sincos import libm_sinf_array
 from ..ops.harmonic import from_natural_order, state_width, sumspec_spectrum, to_natural_order
-from ..ops.resample import fftprep_series
+from ..ops.resample import exact_mean_params, fftprep_series
 
 # below any real summed power: padded batch slots are masked to this before
 # the batch reduction so they can never claim a bin
@@ -53,7 +53,7 @@ class SearchGeometry:
     # LUT periods covering the phase span psi0 + omega*t_obs
     lut_tiles: int = 1024
     # pad with the reference's serial float32 mean (ops/resample.py::
-    # serial_mean) instead of kernel A's fixed-order one.  On unwhitened
+    # exact_mean_params) instead of kernel A's fixed-order one.  On unwhitened
     # data the float32 accumulator saturates (~2e-3 relative at 4M
     # samples) and the pad moves low-bin powers by percent; whitened series
     # have zero mean and skip it.  The driver sets it to ``not cfg.white``.
@@ -240,19 +240,23 @@ def bank_from_jax(params, device="cuda") -> torch.Tensor:
 
 class BankStep(nn.Module):
     """One batch of the search: slice the resident bank at ``t_offset``,
-    resample (kernel A), on unwhitened runs (``geom.exact_mean``) the
-    serial mean of A's samples, FFT-prep (kernel B), rfft, power + fold
-    (kernel C on the complex spectrum), and merge the batch into the
-    (M, T) state in place.
+    resample (kernel A), FFT-prep (kernel B), rfft, power + fold (kernel C
+    on the complex spectrum), and merge the batch into the (M, T) state in
+    place.
 
     ``bank`` is the float32[capacity, 4] resident bank (:func:`upload_bank`
-    or :func:`bank_from_jax`) with capacity >= n_total + batch_size."""
+    or :func:`bank_from_jax`) with capacity >= n_total + batch_size.
+    ``mean`` (float32[capacity], optional) is the resident pad mean of
+    every template, computed ahead (:func:`run_bank`); without it an
+    unwhitened step (``geom.exact_mean``) computes its batch's exact means
+    itself."""
 
-    def __init__(self, geom: SearchGeometry, bank: torch.Tensor, batch_size: int, state=None):
+    def __init__(self, geom: SearchGeometry, bank: torch.Tensor, batch_size: int, state=None, mean=None):
         super().__init__()
         self.geom = geom
         self.batch_size = int(batch_size)
         self.register_buffer("bank", bank)
+        self.register_buffer("mean", mean)
         if state is None:
             state = init_state(geom, bank.device)
         self.register_buffer("M", state[0])
@@ -268,6 +272,7 @@ class BankStep(nn.Module):
         x = fftprep_series(
             ts, p[:, 0], p[:, 1], p[:, 2], p[:, 3],
             nsamples=g.nsamples, n_unpadded=g.n_unpadded, dt=g.dt, exact_mean=g.exact_mean,
+            mean=None if self.mean is None else self.mean[t_offset : t_offset + B],
         )
         F = torch.fft.rfft(x)
         del x
@@ -303,14 +308,25 @@ def run_bank(
     ``progress_cb(done, total, M, T)`` runs after each batch with the live
     state; it must read what it needs before it returns, since the next
     batch overwrites the state in place.  A ``False`` from it stops the
-    loop after that batch."""
+    loop after that batch.
+
+    On unwhitened runs (``geom.exact_mean``) the exact pad means of the
+    templates still to search are computed first, in one launch, and stay
+    resident beside the bank; the padded slots past ``n_stop`` keep 0.0
+    (they are masked)."""
     validate_bank_bounds(geom, bank_P, bank_tau, bank_psi0)
     dev = ts.device
     n = len(bank_P)
     n_stop = n if stop_template is None else min(n, int(stop_template))
     bank = upload_bank(bank_params_host(bank_P, bank_tau, bank_psi0, geom.dt), batch_size, dev)
-    step = BankStep(geom, bank, batch_size, state=state)
     ts = ts.contiguous()
+    mean = None
+    if geom.exact_mean and start_template < n_stop:
+        mean = torch.zeros(bank.shape[0], dtype=torch.float32, device=dev)
+        mean[start_template:n_stop] = exact_mean_params(
+            ts, bank[start_template:n_stop], n_unpadded=geom.n_unpadded, dt=geom.dt
+        )[1]
+    step = BankStep(geom, bank, batch_size, state=state, mean=mean)
     for start in range(start_template, n_stop, batch_size):
         # templates past n_stop are masked like the padding of a last batch
         step(ts, start, n_stop)

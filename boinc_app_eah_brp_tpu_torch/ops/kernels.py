@@ -11,10 +11,11 @@ and :func:`check` raises when it is not 0.
 ``launch_counts`` holds one plain integer per kernel entry (``KERNELS``):
 a wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that it went through the kernels.  One source may serve several
-entries: ``resample.cu`` the batched and the single-template resampler,
-``fold.cu`` the fold of float power and of the complex spectrum.
-``serial_mean.cu`` is the reference's serial float32 padding mean of
-unwhitened runs.
+entries: ``resample.cu`` the batched and the single-template resampler
+and the reference's serial float32 pad mean of unwhitened runs (entry
+``serial_mean``: every template's mean of a bank in one launch, from
+kernel A's device functions), ``fold.cu`` the fold of float power and of
+the complex spectrum.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-SOURCES = ("resample", "fftprep", "fold", "serial_mean")
+SOURCES = ("resample", "fftprep", "fold")
 KERNELS = ("resample", "resample_t1", "fftprep", "fold", "fold_spectrum", "serial_mean")
 MAX_GRID_T = 65535  # templates per FFT-prep launch: the batch is a grid dimension
 NVCC_FLAGS = (
@@ -51,6 +52,7 @@ _SIGNATURES = {
         "erp_resample_unit": [],
         "erp_resample_init": [_I, _P, _P, _P],
         "erp_resample_stream": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I],
+        "erp_exact_mean": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _F],
     },
     "fftprep": {
         "erp_fftprep": [_I, _P, _P, _P, _P, _P, _I, _I, _I],
@@ -59,9 +61,6 @@ _SIGNATURES = {
         "erp_fold_cols": [],
         "erp_fold": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I],
         "erp_fold_spectrum": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F],
-    },
-    "serial_mean": {
-        "erp_serial_mean": [_I, _P, _P, _P, _P, _I, _I],
     },
 }
 

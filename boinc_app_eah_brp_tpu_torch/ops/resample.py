@@ -10,9 +10,12 @@ Counterpart of the reference package's ``ops/resample.py`` and
 * kernel B (``csrc/fftprep.cu``): the gathered samples below ``n_steps``
   and the template's pad mean above, written as the interleaved padded
   series that the real FFT reads;
-* on unwhitened runs, the serial mean (``csrc/serial_mean.cu``): the
-  reference's pad mean, a strictly sequential float32 sum of kernel A's
-  samples, which kernel B then pads with instead of A's fixed-order mean.
+* on unwhitened runs, the exact mean (``csrc/resample.cu``, entry
+  ``erp_exact_mean``, counted as ``serial_mean``): per template of a whole
+  bank, ahead of the search, n_steps and the reference's pad mean, a
+  strictly sequential float32 sum of A's samples (made again from ``ts``
+  with A's own device functions), which kernel B then pads with instead
+  of A's fixed-order mean.
 
 Each kernel has its plain PyTorch version here; a wrapper runs the plain
 version for CPU tensors and launches the kernel for CUDA tensors (or
@@ -28,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..oracle.resample import serial_mean_f32
+from ..oracle.resample import ResampleParams, resample_stats, serial_mean_f32
 from . import kernels
 from .sincos import COS64, SIN64, TWO_PI, TWO_PI_INV, sincos_lut_unwrapped
 
@@ -123,6 +126,21 @@ def resample_stream_plain(ts, params, *, n_unpadded: int, dt: float, renorm=None
     return raw.contiguous(), n_steps, mean
 
 
+def _resample_library(dev: torch.device):
+    """``resample.cu``'s library, its LUT tables uploaded to ``dev``."""
+    lib = kernels.library("resample")
+    if dev.index not in _tables_ready:
+        if lib.erp_resample_unit() != UNIT:
+            raise RuntimeError("kernel A unit size disagrees with UNIT")
+        two_pi = np.array([TWO_PI, TWO_PI_INV], dtype=np.float32)
+        kernels.check(
+            lib.erp_resample_init(dev.index, SIN64.ctypes.data, COS64.ctypes.data, two_pi.ctypes.data),
+            "resample table upload",
+        )
+        _tables_ready.add(dev.index)
+    return lib
+
+
 def resample_stream(ts, params, *, n_unpadded: int, dt: float, renorm=None):
     """Kernel A over the time series ``ts`` and the template batch
     ``params`` (:func:`stream_params`); see :func:`resample_stream_plain`
@@ -140,16 +158,7 @@ def resample_stream(ts, params, *, n_unpadded: int, dt: float, renorm=None):
     half = n_unpadded // 2
     _check_cuda("ts", ts, torch.float32, (n_unpadded,), dev)
     _check_cuda("params", params, torch.float32, (T, 4), dev)
-    lib = kernels.library("resample")
-    if dev.index not in _tables_ready:
-        if lib.erp_resample_unit() != UNIT:
-            raise RuntimeError("kernel A unit size disagrees with UNIT")
-        two_pi = np.array([TWO_PI, TWO_PI_INV], dtype=np.float32)
-        kernels.check(
-            lib.erp_resample_init(dev.index, SIN64.ctypes.data, COS64.ctypes.data, two_pi.ctypes.data),
-            "resample table upload",
-        )
-        _tables_ready.add(dev.index)
+    lib = _resample_library(dev)
     n_units = -(-half // UNIT)
     raw = torch.empty((T, 2, half), dtype=torch.float32, device=dev)
     stats = torch.empty((2, T), dtype=torch.int32, device=dev)  # n_steps, mean bits
@@ -206,10 +215,11 @@ def fftprep(raw, n_steps, mean, *, nsamples: int) -> torch.Tensor:
 
 
 def serial_mean_plain(raw: torch.Tensor, n_steps: torch.Tensor) -> torch.Tensor:
-    """Plain version of the serial-mean kernel: float32[T], per template
+    """The serial mean of kernel A's outputs: float32[T], per template
     the samples ``raw[t, i & 1, i >> 1]`` for ``i < n_steps[t]`` added
     strictly in order in float32, divided by ``n_steps[t]`` (0.0 where
-    ``n_steps <= 0``).  It is the oracle's own chain
+    ``n_steps <= 0``): the exact mean of :func:`exact_mean_params`, taken
+    from samples already made.  It is the oracle's own chain
     (``oracle/resample.py::serial_mean_f32``, ``np.add.accumulate`` with a
     float32 accumulator) run on the host, whatever device ``raw`` is on.
     Neither ``torch.cumsum`` nor ``torch.sum`` is this function: on the
@@ -225,42 +235,74 @@ def serial_mean_plain(raw: torch.Tensor, n_steps: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(out).to(raw.device)
 
 
-def serial_mean(raw: torch.Tensor, n_steps: torch.Tensor) -> torch.Tensor:
-    """The serial-mean kernel over kernel A's outputs; see
-    :func:`serial_mean_plain`."""
-    if raw.device.type == "cpu":
-        return serial_mean_plain(raw, n_steps)
-    if raw.device.type != "cuda":
-        raise ValueError(f"unsupported device {raw.device}")
-    dev = raw.device
-    T, _, half = raw.shape
-    if T < 1:
+def exact_mean_params_plain(ts, params, *, n_unpadded: int, dt: float):
+    """Plain version of the exact-mean kernel: ``(n_steps int32[N], mean
+    float32[N])`` of the templates ``params`` (:func:`stream_params`
+    rows), each the oracle's ``resample_stats`` on the host
+    (``oracle/resample.py``: the LUT-sine ``del_t``, the reference's
+    shrink loop, the nearest-index gather and the serial float32 mean, 0.0
+    where ``n_steps <= 0``), whatever device ``ts`` is on.  It is the
+    reference package's host pass ``host_exact_mean_params``."""
+    x = ts.detach().cpu().numpy().astype(np.float32, copy=False)
+    rows = params.detach().cpu().numpy().astype(np.float32, copy=False)
+    dt32 = np.float32(dt)
+    n_steps = np.empty(len(rows), dtype=np.int32)
+    mean = np.empty(len(rows), dtype=np.float32)
+    for t, (tau, omega, psi0, s0) in enumerate(rows):
+        rp = ResampleParams(
+            nsamples=n_unpadded, nsamples_unpadded=n_unpadded, fft_size=n_unpadded // 2 + 1,
+            tau=tau, omega=omega, psi0=psi0, dt=dt32, step_inv=np.float32(1.0) / dt32, s0=s0,
+        )
+        n_steps[t], mean[t] = resample_stats(x, rp)
+    return torch.from_numpy(n_steps).to(ts.device), torch.from_numpy(mean).to(ts.device)
+
+
+def exact_mean_params(ts, params, *, n_unpadded: int, dt: float):
+    """The exact-mean kernel: ``(n_steps, mean)`` of every template of
+    ``params`` in one launch, over the series ``ts`` (unwhitened runs
+    search it as it is: no renorm); see :func:`exact_mean_params_plain`.
+    ``n_steps`` equals kernel A's."""
+    if ts.device.type == "cpu":
+        return exact_mean_params_plain(ts, params, n_unpadded=n_unpadded, dt=dt)
+    if ts.device.type != "cuda":
+        raise ValueError(f"unsupported device {ts.device}")
+    dev = ts.device
+    N = params.shape[0]
+    if N < 1:
         raise ValueError("empty template batch")
-    _check_cuda("raw", raw, torch.float32, (T, 2, half), dev)
-    _check_cuda("n_steps", n_steps, torch.int32, (T,), dev)
-    mean = torch.empty(T, dtype=torch.float32, device=dev)
-    rc = kernels.library("serial_mean").erp_serial_mean(
-        dev.index, kernels.stream_handle(dev), raw.data_ptr(), n_steps.data_ptr(), mean.data_ptr(), T, half
+    if n_unpadded % 2 or n_unpadded <= 0:
+        raise ValueError("the resampler requires an even, positive n_unpadded")
+    _check_cuda("ts", ts, torch.float32, (n_unpadded,), dev)
+    _check_cuda("params", params, torch.float32, (N, 4), dev)
+    lib = _resample_library(dev)
+    out = torch.empty((2, N), dtype=torch.int32, device=dev)  # n_steps, mean bits
+    n_steps, mean = out[0], out[1].view(torch.float32)
+    rc = lib.erp_exact_mean(
+        dev.index, kernels.stream_handle(dev), ts.data_ptr(), params.data_ptr(),
+        n_steps.data_ptr(), mean.data_ptr(), N, n_unpadded, float(np.float32(dt)), _step_inv(dt),
     )
-    kernels.check(rc, "serial mean kernel launch")
+    kernels.check(rc, "exact mean kernel launch")
     kernels.launch_counts["serial_mean"] += 1
-    return mean
+    return n_steps, mean
 
 
 def fftprep_series(
     ts, tau, omega, psi0, s0, *, nsamples: int, n_unpadded: int, dt: float, renorm=None,
-    exact_mean: bool = False,
+    exact_mean: bool = False, mean=None,
 ) -> torch.Tensor:
     """Kernel A (samples and statistics), then kernel B: the interleaved
     padded series float32[T, nsamples] of every template, ready for the
-    real FFT.  With ``exact_mean`` (unwhitened runs) the pad is the
-    reference's serial float32 mean (:func:`serial_mean`) of A's samples
-    instead of A's fixed-order mean."""
+    real FFT.  The pad is ``mean`` (float32[T]) where given, else with
+    ``exact_mean`` (unwhitened runs) the reference's serial float32 mean
+    of A's samples (:func:`exact_mean_params` over this batch), else A's
+    fixed-order mean."""
     params = stream_params(tau, omega, psi0, s0, device=ts.device)
-    raw, n_steps, mean = resample_stream(ts, params, n_unpadded=n_unpadded, dt=dt, renorm=renorm)
-    if exact_mean:
-        mean = serial_mean(raw, n_steps)
-    return fftprep(raw, n_steps, mean, nsamples=nsamples)
+    raw, n_steps, a_mean = resample_stream(ts, params, n_unpadded=n_unpadded, dt=dt, renorm=renorm)
+    if mean is None and exact_mean:
+        if renorm is not None:
+            raise ValueError("the exact mean is of the unwhitened series: it takes no renorm")
+        mean = exact_mean_params(ts, params, n_unpadded=n_unpadded, dt=dt)[1]
+    return fftprep(raw, n_steps, a_mean if mean is None else mean, nsamples=nsamples)
 
 
 def resample_fftprep_batch(

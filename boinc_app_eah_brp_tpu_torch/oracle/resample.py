@@ -107,8 +107,9 @@ def _gather_head(ts: np.ndarray, params: ResampleParams) -> tuple[np.ndarray, in
     """(gathered[:n_steps], n_steps): the resampled head before padding."""
     del_t = compute_del_t(params)
     n_steps = compute_n_steps(del_t, params.nsamples_unpadded)
-    i_f = np.arange(n_steps, dtype=np.float32)
-    nearest_idx = (i_f - del_t[:n_steps] + np.float32(0.5)).astype(np.int32)
+    head = max(n_steps, 0)  # -1 when every sample lies in the trailing run
+    i_f = np.arange(head, dtype=np.float32)
+    nearest_idx = (i_f - del_t[:head] + np.float32(0.5)).astype(np.int32)
     # the reference would read out of bounds below 0 (undefined); clamp
     nearest_idx = np.clip(nearest_idx, 0, params.nsamples_unpadded - 1)
     return ts[nearest_idx], n_steps

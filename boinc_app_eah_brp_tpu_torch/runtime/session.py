@@ -186,7 +186,8 @@ class Session:
             lut_step=lut_step_for_bank(bank.P, derived.dt),
             lut_tiles=lut_tiles_for_bank(bank.P, bank.psi0, derived.n_unpadded, derived.dt),
             # unwhitened data: the reference's serial float32 pad mean, on
-            # the card (ops/resample.py::serial_mean)
+            # the card for the whole bank ahead (ops/resample.py::
+            # exact_mean_params, from models/search.py::run_bank)
             exact_mean=not cfg.white,
         )
 

@@ -13,13 +13,17 @@ Phases:
    f0 400 Hz, a batch of 32 templates of ``tests/golden/bank200.txt``):
    the resampler with its statistics (gathered samples, n_steps and mean,
    at 32 templates and in its single-template launch), FFT-prep, the fold
-   of float power, the fold of the complex spectrum and the serial mean
-   (on the resampler's samples of the unwhitened workunit) must agree
-   bitwise; each is timed beside its plain version and its bound (bytes,
-   float32 instructions and conversions, each at its own rate; for the
-   serial mean also its chain of dependent adds), and a copy of the first
-   port's eager statistics, rfft, the eager power epilogue and a whole
-   batch step, whitened and unwhitened, are timed alone;
+   of float power and the fold of the complex spectrum must agree bitwise;
+   the exact (serial) mean of the unwhitened workunit, all 200 templates
+   in one launch, must agree bitwise with the host oracle, give kernel A's
+   n_steps, give the serial mean of A's samples of one batch, and give the
+   same results for the bank tiled TILE times; each is timed beside its
+   plain version and its bound (bytes, float32 instructions and
+   conversions, each at its own rate; for the exact mean also its chain
+   of dependent adds, and its time at the tiled bank), and a copy of the
+   first port's eager statistics, rfft, the eager power epilogue and a
+   whole batch step, whitened and unwhitened (its means computed ahead),
+   are timed alone;
 4. run the search end to end through the command line on a seeded
    synthetic 4-bit workunit with a binary-pulsar signal injected at one
    bank template, whitened, with a checkpoint file and oracle rescoring,
@@ -28,9 +32,9 @@ Phases:
    its stages alone (rescoring and the checkpoint write among them);
 5. the same workunit unwhitened (the JAX driver's default), counts reset
    just before: the injected template must be among the candidates and
-   the serial mean must have run beside the main path's kernels; then the
-   same run quit after 3 batches and resumed must give the same
-   candidate rows;
+   the exact mean must have run once, ahead of the main path's kernels;
+   then the same run quit after 3 batches and resumed must give the same
+   candidate rows, each of the two runs launching the exact mean once;
 6. print the kernel table as one JSON line (launches from the whitened
    run, the serial mean's from the unwhitened one), the runs' numbers,
    and last ``{"ok": true, "device": {...}}``.
@@ -87,7 +91,7 @@ KERNEL_ROWS = {
     "fold": ("boinc_app_eah_brp_tpu/ops/pallas_sumspec.py:126", "fold.cu"),
     "fold_spectrum": ("boinc_app_eah_brp_tpu/ops/pallas_sumspec.py:126", "fold.cu"),
     # no Pallas kernel: the JAX package's host pass host_exact_mean_params
-    "serial_mean": ("boinc_app_eah_brp_tpu/models/search.py:413", "serial_mean.cu"),
+    "serial_mean": ("boinc_app_eah_brp_tpu/models/search.py:413", "resample.cu"),
 }
 # the kernels the search's main path must launch; the unwhitened run
 # launches these and the serial mean
@@ -96,6 +100,7 @@ UNWHITENED_PATH = MAIN_PATH + ("serial_mean",)
 # a dependent float32 add issues every 4 cycles at 1.98 GHz
 ADD_LATENCY_S = 4 / 1.98e9
 QUIT_AFTER = 3  # batches before the interrupted run quits
+TILE = 33  # the exact mean is also run on bank200 tiled this often: 6,600 templates
 
 
 class CheckFailed(Exception):
@@ -137,6 +142,16 @@ def bound(bytes_moved: float, f32_instr: float = 0.0, conversions: float = 0.0) 
         limit=by,
         **{f"{k}_ms": v for k, v in t.items()},
     )
+
+
+def chain_bound(b: dict, n_steps) -> dict:
+    """``b`` (:func:`bound`) with the chain floor of the exact mean: its
+    longest template's dependent adds, one after another; ``limit`` names
+    the chain where it is the longest of the three."""
+    b["chain_ms"] = float(n_steps.max()) * ADD_LATENCY_S * 1e3
+    if b["chain_ms"] > b["bound_ms"]:
+        b["limit"] = "chain"
+    return b
 
 
 def eager_stats(raw, n_steps, lf):
@@ -210,23 +225,54 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
             **bound(n * 4 + t_ * 16 + t_ * n * 4 + t_ * 8, t_ * n * RESAMPLE_F32_PER_SAMPLE),
         )
         del got, want
-    # the serial mean, on the resampler's samples of the unwhitened workunit
+    # the exact mean of the unwhitened workunit, the whole bank in one
+    # launch as the main path takes it
     ts_u = torch.from_numpy(samples).to(dev)
-    raw_u, ns_u, _ = resample.resample_stream(ts_u, params, **kw)
-    got = resample.serial_mean(raw_u, ns_u)
-    want = resample.serial_mean_plain(raw_u, ns_u)
-    torch.cuda.synchronize()
-    check(torch.equal(got.view(torch.int32), want.view(torch.int32)), "serial_mean kernel != plain version")
-    summed = float(ns_u.clamp(min=0).sum())
-    out["serial_mean"] = dict(
-        max_abs_err=float((got - want).abs().max()),
-        ms=time_ms(torch, lambda: resample.serial_mean(raw_u, ns_u), 5),
-        plain_ms=time_ms(torch, lambda: resample.serial_mean_plain(raw_u, ns_u), 1),
-        library_ms=None,
-        chain_ms=float(ns_u.max()) * ADD_LATENCY_S * 1e3,
-        **bound(summed * 4 + T * 8, summed),
+    N = len(bank)
+    bank_params = resample.stream_params(
+        *search.bank_params_host(bank.P, bank.tau, bank.psi0, geom.dt), device=dev
     )
-    del raw_u, got, want
+    before = kernels.launch_counts["serial_mean"]
+    ns_u, mean_u = resample.exact_mean_params(ts_u, bank_params, **kw)
+    check(kernels.launch_counts["serial_mean"] == before + 1, "the exact mean did not launch once")
+    t0 = time.perf_counter()
+    ns_p, mean_p = resample.exact_mean_params_plain(ts_u, bank_params, **kw)
+    exact_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(ns_u, ns_p), "exact mean kernel != plain version (n_steps)")
+    check(torch.equal(mean_u.view(torch.int32), mean_p.view(torch.int32)), "exact mean kernel != plain version (mean)")
+    ns_a = torch.cat([
+        resample.resample_stream(ts_u, bank_params[s : s + BATCH].contiguous(), **kw)[1]
+        for s in range(0, N, BATCH)
+    ])
+    check(torch.equal(ns_u, ns_a), "exact mean n_steps != kernel A's")
+    raw_u, ns_b, _ = resample.resample_stream(ts_u, params, **kw)
+    check(
+        torch.equal(resample.serial_mean_plain(raw_u, ns_b).view(torch.int32), mean_u[:T].view(torch.int32)),
+        "exact mean != the serial mean of kernel A's samples",
+    )
+    del raw_u
+    tiled = bank_params.repeat(TILE, 1)
+    ns_t, mean_t = resample.exact_mean_params(ts_u, tiled, **kw)
+    check(
+        torch.equal(ns_t, ns_u.repeat(TILE)) and torch.equal(mean_t.view(torch.int32), mean_u.repeat(TILE).view(torch.int32)),
+        f"the exact mean of bank200 tiled {TILE} times differs from bank200's",
+    )
+    summed = float(ns_u.clamp(min=0).sum())
+
+    def exact_bound(copies: int) -> dict:
+        # ts read once, each row's parameters read and (n_steps, mean) written
+        return chain_bound(bound(n * 4 + copies * N * 24, copies * summed * RESAMPLE_F32_PER_SAMPLE), ns_u)
+
+    out["serial_mean"] = dict(
+        max_abs_err=float((mean_u - mean_p).abs().max()),
+        ms=time_ms(torch, lambda: resample.exact_mean_params(ts_u, bank_params, **kw), 5),
+        plain_ms=exact_plain_ms,
+        library_ms=None,
+        **exact_bound(1),
+    )
+    out[f"serial_mean_x{TILE}"] = exact_bound(TILE)
+    tiled_ms = time_ms(torch, lambda: resample.exact_mean_params(ts_u, tiled, **kw), 2)
+    del tiled, ns_t, mean_t
 
     raw, n_steps, mean = resample.resample_stream(ts, params, **kw)
     # a copy of the first port's eager statistics, timed alone on these outputs
@@ -305,10 +351,16 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
     )
     step = search.BankStep(geom, bank_dev, BATCH, state=search.init_state(geom, dev))
     stages["batch_step_ms"] = time_ms(torch, lambda: step(ts, 0, len(bank)), 3)
-    # and of the unwhitened workunit, with the serial mean
+    # and of the unwhitened workunit, its exact means computed ahead and
+    # resident beside the bank, as run_bank holds them
     geom_u = dataclasses.replace(geom, exact_mean=True)
-    step = search.BankStep(geom_u, bank_dev, BATCH, state=search.init_state(geom_u, dev))
+    mean_dev = torch.zeros(bank_dev.shape[0], dtype=torch.float32, device=dev)
+    mean_dev[:N] = mean_u
+    step = search.BankStep(geom_u, bank_dev, BATCH, state=search.init_state(geom_u, dev), mean=mean_dev)
+    before = kernels.launch_counts["serial_mean"]
     stages["batch_step_unwhitened_ms"] = time_ms(torch, lambda: step(ts_u, 0, len(bank)), 3)
+    check(kernels.launch_counts["serial_mean"] == before, "an unwhitened step with resident means took the exact mean")
+    stages[f"serial_mean_x{TILE}_ms"] = tiled_ms
     out["stages"] = stages
     return out
 
@@ -518,6 +570,7 @@ def run_unwhitened(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_i
     check(rank is not None, f"injected template (P={P_inj}, tau={tau_inj}) not among the unwhitened candidates")
     for name in UNWHITENED_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched by the unwhitened search")
+    check(launches["serial_mean"] == 1, f"the unwhitened search took the exact mean {launches['serial_mean']} times")
 
     ts = torch.from_numpy(read_workunit(wu).samples).to(DEVICE)
     geom_u = dataclasses.replace(geom, exact_mean=True)
@@ -535,11 +588,15 @@ def run_unwhitened(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_i
             self.batches += 1
             return self.batches >= QUIT_AFTER
 
+    kernels.reset_launch_counts()
     check(run_search(parse_args(argv("resumed")), QuitAfter()) == 0, "the interrupted run failed")
+    check(kernels.launch_counts["serial_mean"] == 1, "the interrupted run did not take the exact mean once")
     check(not os.path.exists(os.path.join(workdir, "resumed.cand")), "the interrupted run wrote a result")
     n_done = read_checkpoint(os.path.join(workdir, "resumed.cpt")).n_template
     check(n_done == QUIT_AFTER * BATCH, f"the interrupted run checkpointed {n_done} templates")
+    kernels.reset_launch_counts()
     check(cli_main(argv("resumed")) == 0, "the resumed run failed")
+    check(kernels.launch_counts["serial_mean"] == 1, "the resumed run did not take the exact mean once")
     resumed = _candidate_rows(os.path.join(workdir, "resumed.cand"))
     check(np.array_equal(resumed, rows), "the resumed run's candidate rows differ from the uninterrupted run's")
     return dict(
@@ -603,7 +660,7 @@ def main() -> int:
         return 1
 
     print(json.dumps({"stages": measured.pop("stages")}))
-    detail = ("limit", "bytes_ms", "fp32_ms", "conversions_ms", "chain_ms")
+    detail = ("limit", "bound_ms", "bytes_ms", "fp32_ms", "conversions_ms", "chain_ms")
     print(json.dumps({"bounds": {k: {d: m[d] for d in detail if d in m} for k, m in measured.items()}}))
     rows = []
     for name, (replaces, src) in KERNEL_ROWS.items():

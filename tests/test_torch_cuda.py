@@ -82,30 +82,70 @@ def test_resample_and_fftprep_match_plain(dev, n, renorm, T):
         assert torch.equal(x, resample.fftprep_plain(raw, n_steps, mean, nsamples=nsamples))
 
 
-@pytest.mark.parametrize("T", [1, 32, 33])
-@pytest.mark.parametrize("n", [1 << 16, 70002])
-def test_serial_mean_matches_plain(dev, n, T):
-    """The serial-mean kernel over kernel A's outputs of an unwhitened
-    (positive) series, bitwise against the host float32 chain."""
-    ts = torch.from_numpy(np.random.default_rng(n + T).normal(5.0, 1.0, n).astype(np.float32)).to(dev)
-    raw, n_steps, _ = resample.resample_stream(ts, _params(list(range(T)), dev), n_unpadded=n, dt=DT)
+def _positive_series(n, seed, dev):
+    """An unwhitened (positive) series, as the exact mean is taken of."""
+    return torch.from_numpy(np.random.default_rng(seed).normal(5.0, 1.0, n).astype(np.float32)).to(dev)
+
+
+def _assert_exact_mean_equal(got, want):
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    assert torch.equal(got[1].cpu().view(torch.int32), want[1].cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("N", [1, 33, 200])
+@pytest.mark.parametrize("n", [1 << 16, 70002, 1 << 18])
+def test_exact_mean_matches_plain(dev, n, N):
+    """The exact-mean kernel over bank200 templates, in one launch:
+    n_steps and mean bitwise against the host oracle, n_steps equal to
+    kernel A's."""
+    ts = _positive_series(n, n + N, dev)
+    params = _params(list(range(N)), dev)
     before = kernels.launch_counts["serial_mean"]
-    got = resample.serial_mean(raw, n_steps)
+    got = resample.exact_mean_params(ts, params, n_unpadded=n, dt=DT)
     assert kernels.launch_counts["serial_mean"] == before + 1
-    assert torch.equal(got.view(torch.int32), resample.serial_mean_plain(raw, n_steps).view(torch.int32))
+    _assert_exact_mean_equal(got, resample.exact_mean_params_plain(ts, params, n_unpadded=n, dt=DT))
+    assert torch.equal(got[0], resample.resample_stream(ts, params, n_unpadded=n, dt=DT)[1])
 
 
-def test_serial_mean_edges_match_plain(dev):
-    """Counts around the kernel's 4096-sample chunks, odd counts, one
-    sample, n_steps <= 0 and a count past the samples."""
-    half = 5001
-    n_steps = [4095, 4096, 4097, 8193, 7, 1, 0, -1, 2 * half - 1, 2 * half + 5]
-    raw = torch.from_numpy(
-        np.random.default_rng(half).normal(5.0, 1.0, (len(n_steps), 2, half)).astype(np.float32)
-    ).to(dev)
-    ns = torch.tensor(n_steps, dtype=torch.int32, device=dev)
-    got = resample.serial_mean(raw, ns)
-    assert torch.equal(got.view(torch.int32), resample.serial_mean_plain(raw, ns).view(torch.int32))
+def _exact_edge_rows(n, dev):
+    """Null templates whose integer S0 = K puts n_steps = n-2-K at -1, 0,
+    odd counts, around the edges of a unit (512 samples) and of the
+    longest stage (2048), and in the middle of a unit; then bank
+    templates."""
+    counts = [-1, 0, 1, 7, 511, 512, 513, 2047, 2048, 2049, 512 * 50 + 301, n - 2]
+    K = np.array([n - 2 - c for c in counts], dtype=np.float32)
+    null = resample.stream_params(np.zeros(len(K)), np.ones(len(K)), np.zeros(len(K)), K, device=dev)
+    return torch.cat([null, _params(list(range(0, 200, 10)), dev)])
+
+
+# N sets the templates a block holds: 1, 2 (four units a stage), 16 (two)
+# and 17 (one), on 132 SMs
+@pytest.mark.parametrize("N", [32, 200, 2112, 4300])
+def test_exact_mean_edges_match_plain(dev, N):
+    """Edge counts beside bank templates in the same blocks, the rows
+    tiled to N: each row bitwise its plain version, n_steps equal to
+    kernel A's."""
+    n = 70002
+    ts = _positive_series(n, N, dev)
+    rows = _exact_edge_rows(n, dev)
+    reps = -(-N // rows.shape[0])
+    params = rows.repeat(reps, 1)[:N].contiguous()
+    got = resample.exact_mean_params(ts, params, n_unpadded=n, dt=DT)
+    want = [w.repeat(reps)[:N] for w in resample.exact_mean_params_plain(ts, rows, n_unpadded=n, dt=DT)]
+    _assert_exact_mean_equal(got, want)
+    assert torch.equal(got[0][: rows.shape[0]], resample.resample_stream(ts, rows, n_unpadded=n, dt=DT)[1])
+
+
+def test_exact_mean_wide_series(dev):
+    """Past 2^23 samples the kernel makes its samples by kernel A's wide
+    path (conversions, no 2^23 add)."""
+    n = (1 << 23) + 2
+    ts = _positive_series(n, 3, dev)
+    null = resample.stream_params(np.zeros(2), np.ones(2), np.zeros(2), [0.0, 5.0], device=dev)
+    params = torch.cat([_params([0, 57, 199], dev), null])
+    got = resample.exact_mean_params(ts, params, n_unpadded=n, dt=DT)
+    _assert_exact_mean_equal(got, resample.exact_mean_params_plain(ts, params, n_unpadded=n, dt=DT))
+    assert torch.equal(got[0], resample.resample_stream(ts, params, n_unpadded=n, dt=DT)[1])
 
 
 @pytest.mark.parametrize("L,fund_hi,harm_hi", [(98305, 5149, 82388), (5001, 301, 4817)])
@@ -134,9 +174,12 @@ def test_fold_spectrum_matches_plain(dev, T, L, fund_hi, harm_hi):
     assert torch.equal(got, want)
 
 
-def test_bank_step_card_matches_cpu(dev):
-    """One search batch on the card against the same batch on the CPU:
-    spectra from cuFFT and PyTorch's CPU FFT, so M to rtol 1e-4."""
+@pytest.mark.parametrize("exact_mean", [False, True])
+def test_bank_step_card_matches_cpu(dev, exact_mean):
+    """A search of a few batches on the card against the same search on
+    the CPU: spectra from cuFFT and PyTorch's CPU FFT, so M to rtol 1e-4.
+    Unwhitened (``exact_mean``, a series of mean 1), the run launches the
+    exact mean once, ahead of its batches."""
     n = 1 << 16
     b = np.loadtxt(BANK200)[:6]
     P, tau, psi0 = b[:, 0], b[:, 1], b[:, 2]
@@ -148,11 +191,15 @@ def test_bank_step_card_matches_cpu(dev):
         max_slope=search.max_slope_for_bank(P, tau),
         lut_step=search.lut_step_for_bank(P, DT),
         lut_tiles=search.lut_tiles_for_bank(P, psi0, n, DT),
+        exact_mean=exact_mean,
     )
-    ts = np.random.default_rng(1).normal(0, 1, n).astype(np.float32)
+    ts = np.random.default_rng(1).normal(float(exact_mean), 1, n).astype(np.float32)
     out = {}
     for device in ("cpu", dev):
+        before = kernels.launch_counts["serial_mean"]
         M, T = search.run_bank(torch.from_numpy(ts).to(device), P, tau, psi0, geom, batch_size=4)
+        if device != "cpu":
+            assert kernels.launch_counts["serial_mean"] == before + int(exact_mean)
         out[str(device)] = (M.cpu().numpy(), T.cpu().numpy())
     (Mc, Tc), (Mg, Tg) = out["cpu"], out[str(dev)]
     np.testing.assert_allclose(Mg, Mc, rtol=1e-4, atol=1e-6)

@@ -16,11 +16,12 @@ the largest difference seen (1.3e-5).  The fixed order itself is held to
 rtol 1e-6 against a float64 sum, and bitwise against a replay of the
 kernel's own scheme of unit sums, cut unit and tree.
 
-The exact (serial) pad mean of unwhitened runs, ``serial_mean``, is
-bitwise equal to the JAX package's host pass (``host_exact_mean_params``),
-as are kernel A's n_steps beside it; one ``BankStep`` on an exact-mean
-geometry is held against JAX ``make_bank_step`` as the whitened step is in
-``test_torch_search.py`` (M to rtol 1e-5, T equal).
+The exact (serial) pad mean of unwhitened runs, ``exact_mean_params``
+(and ``serial_mean_plain`` of kernel A's samples), is bitwise equal to the
+JAX package's host pass (``host_exact_mean_params``), as are its n_steps
+and kernel A's; one ``BankStep`` on an exact-mean geometry is held against
+JAX ``make_bank_step`` as the whitened step is in ``test_torch_search.py``
+(M to rtol 1e-5, T equal).
 """
 
 import os
@@ -350,25 +351,93 @@ def _exact_geoms(n, P, tau, psi0, **cfg_kw):
     return jax_search.SearchGeometry.from_derived(jd, **bounds), search.SearchGeometry.from_derived(d, **bounds)
 
 
-def test_serial_mean_matches_host_exact_mean():
-    """At 2^14 samples of an unwhitened (positive) series: kernel A's
-    n_steps and the serial mean of its samples, bitwise against the JAX
-    package's host pass."""
-    n = 1 << 14
-    rows = [0, 1, 2, 7, 57, 150, 199]
-    b = np.loadtxt(BANK200)[rows]
+EXACT_ROWS = [0, 1, 2, 7, 57, 150, 199]
+
+
+def _exact_problem(n=1 << 14):
+    """bank200 rows and 2^14 samples of an unwhitened (positive) series,
+    with the JAX package's host pass over them."""
+    b = np.loadtxt(BANK200)[EXACT_ROWS]
     P, tau, psi0 = b[:, 0], b[:, 1], b[:, 2]
     ts = (_series(n, seed=5)[0] + 3.0).astype(np.float32)
-    params = _bank(rows)
-    raw, n_steps, _ = port.resample_stream(torch.from_numpy(ts), port.stream_params(*params), n_unpadded=n, dt=DT)
-    got = port.serial_mean(raw, n_steps)
+    params = _bank(EXACT_ROWS)
     jgeom, _ = _exact_geoms(n, P, tau, psi0, padding=1.5, window=200)
-    want_n, want_mean = jax_search.host_exact_mean_params(ts, list(zip(*params)), jgeom)
+    return ts, params, jax_search.host_exact_mean_params(ts, list(zip(*params)), jgeom)
+
+
+def test_serial_mean_matches_host_exact_mean():
+    """Kernel A's n_steps and the serial mean of its samples, bitwise
+    against the JAX package's host pass."""
+    n = 1 << 14
+    ts, params, (want_n, want_mean) = _exact_problem(n)
+    raw, n_steps, _ = port.resample_stream(torch.from_numpy(ts), port.stream_params(*params), n_unpadded=n, dt=DT)
+    got = port.serial_mean_plain(raw, n_steps)
     np.testing.assert_array_equal(n_steps.numpy(), want_n)
     assert got.numpy().tobytes() == want_mean.tobytes()
     # the exact-mean series pads with it
     x = port.fftprep_series(torch.from_numpy(ts), *params, **_kw(n, 1.5), exact_mean=True)
     assert x[:, -1].numpy().tobytes() == want_mean.tobytes()
+
+
+def test_exact_mean_params_match_host_exact_mean():
+    """The exact-mean entry (its plain version on the CPU) made from the
+    series alone: n_steps and mean bitwise against the JAX package's host
+    pass, n_steps equal to kernel A's; an explicit ``mean`` replaces A's
+    in the padded series."""
+    n = 1 << 14
+    ts, params, (want_n, want_mean) = _exact_problem(n)
+    tsr, rows = torch.from_numpy(ts), port.stream_params(*params)
+    n_steps, mean = port.exact_mean_params(tsr, rows, n_unpadded=n, dt=DT)
+    assert n_steps.dtype == torch.int32 and mean.dtype == torch.float32
+    np.testing.assert_array_equal(n_steps.numpy(), want_n)
+    assert mean.numpy().tobytes() == want_mean.tobytes()
+    np.testing.assert_array_equal(n_steps.numpy(), port.resample_stream(tsr, rows, n_unpadded=n, dt=DT)[1].numpy())
+    x = port.fftprep_series(tsr, *params, **_kw(n, 1.5), mean=mean)
+    assert x[:, -1].numpy().tobytes() == want_mean.tobytes()
+
+
+def _serial_chain(x):
+    """The reference's float32 mean written out: one add at a time."""
+    s = np.float32(0.0)
+    for v in x:
+        s = np.float32(s + v)
+    return np.float32(s / np.float32(len(x))) if len(x) else np.float32(0.0)
+
+
+@pytest.mark.parametrize("n", [1 << 14, 10002])
+def test_exact_mean_null_template_and_cut(n):
+    """tau = 0 gathers ts[i + K] for an integer S0 = K, up to n_steps = n-2-K:
+    the null template (K = 0) and S0s that move the cut, against the
+    float32 chain written out."""
+    ts = (_series(n, seed=7)[0] + 3.0).astype(np.float32)
+    K = np.array([0.0, 3.0, 2 * port.UNIT - n % (2 * port.UNIT) + 1.0], dtype=np.float32)
+    params = port.stream_params(np.zeros(3), np.ones(3), np.zeros(3), K)
+    n_steps, mean = port.exact_mean_params(torch.from_numpy(ts), params, n_unpadded=n, dt=DT)
+    np.testing.assert_array_equal(n_steps.numpy(), (n - 2 - K).astype(np.int32))
+    for t, (k, s) in enumerate(zip(K.astype(int), n_steps.numpy())):
+        assert mean.numpy()[t].tobytes() == _serial_chain(ts[k : k + s]).tobytes()
+
+
+def test_exact_mean_nonpositive_n_steps():
+    """S0 at or past the end leaves no sample before the trailing run:
+    n_steps 0 or -1, and the mean 0.0 (the oracle's documented deviation
+    from the reference's division by zero)."""
+    n = 1 << 12
+    ts = (_series(n, seed=8)[0] + 3.0).astype(np.float32)
+    K = np.array([n - 2, n - 1, n + 40], dtype=np.float32)
+    params = port.stream_params(np.zeros(3), np.ones(3), np.zeros(3), K)
+    n_steps, mean = port.exact_mean_params(torch.from_numpy(ts), params, n_unpadded=n, dt=DT)
+    np.testing.assert_array_equal(n_steps.numpy(), [0, -1, -1])
+    assert mean.numpy().tobytes() == np.zeros(3, np.float32).tobytes()
+
+
+def test_exact_mean_refuses_renorm():
+    """The exact mean is of the unwhitened series, which is never
+    renormalised."""
+    n = 1 << 10
+    ts = torch.from_numpy((_series(n, seed=9)[0] + 3.0).astype(np.float32))
+    with pytest.raises(ValueError, match="renorm"):
+        port.fftprep_series(ts, *_bank([0]), **_kw(n, 1.5), renorm=2.0, exact_mean=True)
 
 
 @pytest.mark.parametrize("n_steps", [[7, 1, 2 * 37 - 1], [0, -1, 2 * 37 - 2]])
@@ -377,7 +446,7 @@ def test_serial_mean_edges(n_steps):
     n_steps <= 0 (0.0, the oracle's documented deviation), against the
     float32 chain written out."""
     raw = np.random.default_rng(len(n_steps)).normal(5.0, 1.0, (3, 2, 37)).astype(np.float32)
-    got = port.serial_mean(torch.from_numpy(raw), torch.tensor(n_steps, dtype=torch.int32)).numpy()
+    got = port.serial_mean_plain(torch.from_numpy(raw), torch.tensor(n_steps, dtype=torch.int32)).numpy()
     for t, n in enumerate(n_steps):
         s = np.float32(0.0)
         for i in range(n):
@@ -397,7 +466,7 @@ def test_serial_mean_is_not_cumsum():
     assert torch.cumsum(xt, 0)[-1].item() == exact and torch.sum(xt).item() == exact
     assert abs(float(serial) - float(exact)) > 100.0
     raw = torch.from_numpy(np.stack([x[0::2], x[1::2]])[None])
-    got = port.serial_mean(raw, torch.tensor([1 << 22], dtype=torch.int32))
+    got = port.serial_mean_plain(raw, torch.tensor([1 << 22], dtype=torch.int32))
     assert got.numpy()[0] == np.float32(serial / np.float32(1 << 22))
 
 

@@ -13,6 +13,7 @@ Tolerances:
   validator's tolerance (``io/validate.py::compare_candidate_rows``).
 """
 
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -33,6 +34,7 @@ from boinc_app_eah_brp_tpu_torch.io import (
     write_workunit,
 )
 from boinc_app_eah_brp_tpu_torch.models import search
+from boinc_app_eah_brp_tpu_torch.ops import resample
 from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
 from boinc_app_eah_brp_tpu_torch.runtime.cli import main, parse_args
 from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
@@ -104,6 +106,41 @@ def test_ties_go_to_the_earliest_template():
     step = search.BankStep(geom, bank, 2, state=search.init_state(geom, "cpu"))
     M2, T2 = step(ts, 0, 2)
     assert int(T2.max()) == 0 and float(M2.max()) > 0.0
+
+
+@pytest.mark.parametrize("start", [0, 4])
+def test_unwhitened_run_bank_matches_per_batch_steps(monkeypatch, start):
+    """An unwhitened run_bank computes the exact means of the templates
+    still to search once, ahead, and gives the same (M, T) as BankStep
+    computing each batch's means itself, from the start and from a resume
+    offset carrying the state of the templates before it; the last batch
+    is partial."""
+    n, B = 1 << 12, 3
+    b = np.loadtxt(BANK200)[[0, 1, 2, 6, 9, 30, 77]]
+    P, tau, psi0 = b[:, 0], b[:, 1], b[:, 2]
+    _, geom = _geoms(n, dict(padding=1.5, window=200, f0=250.0), P, tau, psi0)
+    geom = dataclasses.replace(geom, exact_mean=True)
+    ts = torch.from_numpy(np.random.default_rng(13).normal(4.0, 1.0, n).astype(np.float32))
+    before = search.run_bank(ts, P, tau, psi0, geom, batch_size=B, stop_template=start)
+    calls = []
+
+    def spy(ts_, params, **kw):
+        calls.append(params.shape[0])
+        return resample.exact_mean_params(ts_, params, **kw)
+
+    monkeypatch.setattr(search, "exact_mean_params", spy)
+    M, T = search.run_bank(
+        ts, P, tau, psi0, geom, batch_size=B, state=tuple(x.clone() for x in before), start_template=start
+    )
+    assert calls == [len(P) - start]
+
+    bank = search.upload_bank(search.bank_params_host(P, tau, psi0, DT), B, "cpu")
+    step = search.BankStep(geom, bank, B, state=tuple(x.clone() for x in before))
+    assert step.mean is None
+    for t in range(start, len(P), B):
+        step(ts, t, len(P))
+    assert torch.equal(M, step.M) and torch.equal(T, step.T)
+    assert int(T.max()) == len(P) - 1 and float(M.min()) >= 0.0
 
 
 @pytest.fixture

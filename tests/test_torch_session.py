@@ -5,8 +5,8 @@ package.
 
 Tolerances:
 * unwhitened runs: candidate rows equal.  Both pad with the reference's
-  serial float32 mean (the port's ``serial_mean`` plain version, the JAX
-  package's host pass), and the rescored powers come from the same numpy
+  serial float32 mean (the port's ``exact_mean_params`` plain version, the
+  JAX package's host pass), and the rescored powers come from the same numpy
   oracle on the same raw samples.  The fixture bank has no contraction tie
   at this length (``torch_parity``), where XLA on the CPU would gather
   another sample;

@@ -58,11 +58,16 @@ class Checkpoint:
             raise CheckpointError("candidates must be CP_cand[500]")
 
 
-def topology_record(process_count: int = 1) -> dict:
+def topology_record(process_count: int = 1, quarantined: list[tuple[int, int]] | None = None) -> dict:
     """The audit sidecar's record of how many processes wrote the
     checkpoint: the port runs in one process; a checkpoint of a run with
-    more is refused on resume unless ``ERP_RESUME_REBALANCE=1``."""
-    return {"process_count": int(process_count)}
+    more is refused on resume unless ``ERP_RESUME_REBALANCE=1``.
+    ``quarantined`` names the template ranges the hang doctor skipped
+    (``runtime/watchdog.py``), the same gap record as the result header."""
+    doc = {"process_count": int(process_count)}
+    if quarantined:
+        doc["quarantined"] = [[int(a), int(b)] for a, b in quarantined]
+    return doc
 
 
 def _rebalance_allowed() -> bool:
@@ -169,7 +174,11 @@ def write_checkpoint(path: str, cp: Checkpoint, bank=None, topology=None) -> Non
 
     ``bank``: the template bank's identity for the sidecar, a ``(path,
     n_templates)`` tuple or a dict with those keys.  ``topology``: see
-    :func:`topology_record`."""
+    :func:`topology_record`.  An injected ``ckpt_write`` fault
+    (``runtime/faultinject.py``) fires before anything is touched."""
+    from ..runtime import faultinject, tracing
+
+    faultinject.fault_point("ckpt_write", path=path, n_template=cp.n_template)
     header = np.zeros((), dtype=CP_HEADER_DTYPE)
     header["n_template"] = cp.n_template
     header["originalfile"] = cp.originalfile.encode("latin-1")
@@ -177,15 +186,16 @@ def write_checkpoint(path: str, cp: Checkpoint, bank=None, topology=None) -> Non
     # the rotation moves gen0's sidecar to gen1: read it first to keep the
     # sidecar's sequence number counting up across the write
     prev_audit = _read_audit(path)
-    _rotate_generations(path)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(payload)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    _fsync_dir(path)
-    _write_audit(path, cp, payload, bank, prev=prev_audit, topology=topology)
+    with tracing.span("ckpt-write", n_template=int(cp.n_template)):
+        _rotate_generations(path)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        _fsync_dir(path)
+        _write_audit(path, cp, payload, bank, prev=prev_audit, topology=topology)
 
 
 def _bank_identity(bank) -> dict | None:

@@ -106,7 +106,12 @@ def _fsync_dir(path: str) -> None:
 def write_result_file(path: str, result: ResultFile) -> None:
     """Durable atomic write (tmp + fsync + rename): the result file is
     what the BOINC validator judges, so a kill mid-write must leave
-    either the old file or the complete new one — never a truncation."""
+    either the old file or the complete new one — never a truncation.
+    An injected ``result_write`` fault (``runtime/faultinject.py``) fires
+    before anything is written."""
+    from ..runtime import faultinject
+
+    faultinject.fault_point("result_write", path=path)
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         if result.header is not None:

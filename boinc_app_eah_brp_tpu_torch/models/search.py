@@ -18,6 +18,7 @@ device and updates the state in place, one batch per call.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -299,11 +300,13 @@ def run_bank(
     start_template: int = 0,
     stop_template: int | None = None,
     progress_cb=None,
+    snapshot=None,
+    recover: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Search templates ``[start_template, stop_template)`` of the bank
     over the time series ``ts`` (float32[n_unpadded], on the device the
-    search runs on), merging into ``state`` (updated in place; zeroed when
-    None); returns the (M, T) state.  T holds global template indices.
+    search runs on), merging into ``state`` (zeroed when None); returns
+    the (M, T) state.  T holds global template indices.
 
     ``progress_cb(done, total, M, T)`` runs after each batch with the live
     state; it must read what it needs before it returns, since the next
@@ -313,23 +316,106 @@ def run_bank(
     On unwhitened runs (``geom.exact_mean``) the exact pad means of the
     templates still to search are computed first, in one launch, and stay
     resident beside the bank; the padded slots past ``n_stop`` keep 0.0
-    (they are masked)."""
+    (they are masked).
+
+    Failures classified transient (``runtime/resilience.py``) re-enter
+    the loop from the last host snapshot instead of ending the run,
+    spending from the per-run retry budget: a device OOM halves the batch
+    (after the failed attempt's cached memory and cuFFT plans are
+    released), anything else retries.  ``snapshot`` (a
+    ``resilience.DispatchSnapshot`` of ``state`` at ``start_template``) is
+    the recovery point; the caller refreshes it where it already waits on
+    the card (``runtime/session.py``), and without one the loop restarts
+    from ``state`` as given.  The (M, T) written does not depend on the
+    batch: the merge keeps the earliest template on ties.
+    ``ERP_RETRY_BUDGET=0`` or ``recover=False`` runs one attempt."""
+    from ..runtime import flightrec, resilience
+
     validate_bank_bounds(geom, bank_P, bank_tau, bank_psi0)
     dev = ts.device
     n = len(bank_P)
     n_stop = n if stop_template is None else min(n, int(stop_template))
-    bank = upload_bank(bank_params_host(bank_P, bank_tau, bank_psi0, geom.dt), batch_size, dev)
+    params = bank_params_host(bank_P, bank_tau, bank_psi0, geom.dt)
     ts = ts.contiguous()
     mean = None
     if geom.exact_mean and start_template < n_stop:
-        mean = torch.zeros(bank.shape[0], dtype=torch.float32, device=dev)
-        mean[start_template:n_stop] = exact_mean_params(
-            ts, bank[start_template:n_stop], n_unpadded=geom.n_unpadded, dt=geom.dt
-        )[1]
-    step = BankStep(geom, bank, batch_size, state=state, mean=mean)
-    for start in range(start_template, n_stop, batch_size):
-        # templates past n_stop are masked like the padding of a last batch
-        step(ts, start, n_stop)
-        if progress_cb is not None and progress_cb(min(start + batch_size, n_stop), n, step.M, step.T) is False:
+        rows = upload_bank(params, 0, dev)[start_template:n_stop]
+        mean = (start_template, exact_mean_params(ts, rows, n_unpadded=geom.n_unpadded, dt=geom.dt)[1])
+        del rows
+    attempt = dict(ts=ts, params=params, geom=geom, n=n, n_stop=n_stop, mean=mean, progress_cb=progress_cb)
+    pol = resilience.policy() if recover else None
+    if pol is None:
+        return _run_bank_attempt(batch_size=batch_size, state=state, start=start_template, **attempt)
+    snap = snapshot if snapshot is not None else resilience.DispatchSnapshot(state, start_template)
+    ladder = resilience.DegradationLadder(pol, batch_size)
+    cur_state, cur_start = state, start_template
+    while True:
+        try:
+            return _run_bank_attempt(batch_size=ladder.batch_size, state=cur_state, start=cur_start, **attempt)
+        except Exception as e:
+            if not ladder.record_failure("dispatch", e):
+                raise
+            oom = resilience.is_oom(e)
+        # out of the except block: the failed attempt's frames (and their
+        # tensors) are gone, so their memory can go back to the card
+        if oom:
+            resilience.release_device_memory()
+        ladder.sleep()
+        host_state, cur_start = snap.restore()
+        # copies: the attempt updates (M, T) in place, the snapshot stays as taken
+        cur_state = None if host_state is None else tuple(torch.tensor(a, device=dev) for a in host_state)
+        flightrec.record("redispatch", start=cur_start, batch_size=ladder.batch_size, attempt=ladder.attempt)
+
+
+def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, batch_size, state, start):
+    """One pass of the dispatch loop over ``[start, n_stop)`` at
+    ``batch_size``: upload the bank, then one :class:`BankStep` per batch.
+    The loop never waits on the card: the stream queues ahead, and only a
+    ``progress_cb`` that copies the state to the host synchronizes.  Each
+    batch is bracketed for the metrics, the trace, the flight recorder,
+    the watchdog (``dispatch``: the enqueue, the first one with the kernel
+    build and the cuFFT plan) and the fault points ``h2d`` and
+    ``dispatch``, under the JAX package's names."""
+    from ..runtime import faultinject, flightrec, metrics, profiling, steptime, tracing, watchdog
+
+    dev = ts.device
+    faultinject.fault_point("h2d", loop="run_bank")
+    bank = upload_bank(params, batch_size, dev)
+    mean_dev = None
+    if mean is not None:
+        mean_dev = torch.zeros(bank.shape[0], dtype=torch.float32, device=dev)
+        mean_dev[mean[0] : n_stop] = mean[1]
+    step = BankStep(geom, bank, batch_size, state=state, mean=mean_dev)
+
+    # bound once outside the loop: shared no-op nulls when disabled
+    m_batches = metrics.counter("search.batches")
+    m_templates = metrics.counter("search.templates")
+    m_dispatch_s = metrics.counter("search.dispatch_wall_s", unit="s")
+    m_dispatch_ms = metrics.histogram("search.dispatch_ms", metrics.LATENCY_BUCKETS_MS, unit="ms")
+    metrics.counter("search.h2d_bytes", unit="B").inc(bank.nbytes)
+    # the exact means are computed ahead on the card and never waited for:
+    # the JAX package's prefetch wait is 0 here
+    metrics.counter("search.prefetch_wait_s", unit="s")
+    st = steptime.recorder(dev)
+    for start_b in range(start, n_stop, batch_size):
+        stop = min(start_b + batch_size, n_stop)
+        tracing.new_context()
+        st.begin()
+        t0 = time.perf_counter()
+        with watchdog.guard("dispatch", start=start_b, stop=stop):
+            faultinject.fault_point("dispatch", start=start_b, stop=stop)
+            with tracing.span("dispatch", start=start_b, stop=stop), profiling.annotate("erp:dispatch"):
+                # templates past n_stop are masked like the padding of a last batch
+                step(ts, start_b, n_stop)
+        dt = time.perf_counter() - t0
+        st.observe(step.M, start_b, stop)
+        m_dispatch_s.inc(dt)
+        m_dispatch_ms.observe(dt * 1e3)
+        m_batches.inc()
+        m_templates.inc(stop - start_b)
+        flightrec.record("dispatch", start=start_b, stop=stop, ms=round(dt * 1e3, 3))
+        flightrec.note_dispatch(loop="run_bank", start=start_b, stop=stop, n_total=n, batch_size=batch_size)
+        if progress_cb is not None and progress_cb(stop, n, step.M, step.T) is False:
             break
+    st.flush()
     return step.M, step.T

@@ -65,6 +65,9 @@ _SIGNATURES = {
 }
 
 launch_counts = {name: 0 for name in KERNELS}
+# callables told (sources compiled, wall seconds) after each build that ran
+# nvcc (the metrics layer's kernel-build counters)
+build_listeners: list = []
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas's resource report of each kernel built by this process
@@ -123,7 +126,11 @@ def build() -> float:
             ]
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
-    return time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    if jobs:
+        for fn in build_listeners:
+            fn(len(jobs), wall)
+    return wall
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -174,9 +174,15 @@ class IncrementalRescorer:
         pool = self._pool
         if pool is None:
             return
+        from ..runtime import faultinject, flightrec, metrics
         from .toplist import finalize_candidates
 
+        # an injected failure here fails this observe's future and counts
+        # in finalize()'s ``failed``: the end-of-run rescore recomputes it
+        faultinject.fault_point("rescore_feed", seq=self.observed + 1)
         self.observed += 1
+        metrics.counter("rescore.observes").inc()
+        flightrec.record("rescore", what="observe", seq=self.observed)
         emitted = finalize_candidates(candidates_all, self._t_obs)
         if len(emitted) == 0:
             return
@@ -189,6 +195,7 @@ class IncrementalRescorer:
                 continue
             self._pending.setdefault(tpl, set()).update(missing)
             self.submitted += 1
+            metrics.counter("rescore.submitted").inc()
             try:
                 self._futures.append(pool.submit(self._run, tpl, frozenset(missing)))
             except RuntimeError:
@@ -204,8 +211,19 @@ class IncrementalRescorer:
         feed = self._feed
         if feed is None:
             return
+        from ..runtime import tracing, watchdog
+
+        # the feed worker's span carries the trace context of the batch
+        # whose checkpoint queued it
+        ctx = tracing.context()
+
+        def feed_observe():
+            tracing.set_context(ctx)
+            with watchdog.guard("rescore_feed"), tracing.span("rescore-feed", tid="rescore-feed"):
+                self.observe(build())
+
         try:
-            self._futures.append(feed.submit(lambda: self.observe(build())))
+            self._futures.append(feed.submit(feed_observe))
         except RuntimeError:
             pass  # shut down meanwhile; nothing to feed
 
@@ -221,6 +239,10 @@ class IncrementalRescorer:
             return self._scored
         pool.shutdown(wait=True)
         self.failed += sum(1 for f in self._futures if f.exception() is not None)
+        if self.failed:
+            from ..runtime import metrics
+
+            metrics.counter("rescore.failed").inc(self.failed)
         return self._scored
 
     def series_if_fetched(self) -> np.ndarray | None:

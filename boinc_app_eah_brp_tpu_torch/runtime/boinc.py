@@ -98,6 +98,12 @@ class BoincAdapter:
                 os._exit(RADPUL_EVAL)
             erplog.warn("Caught signal %d (%d); finishing batch then exiting.\n",
                         signum, self._sigterm_count)
+            # black-box snapshot on the first signal (runtime/flightrec.py):
+            # a client that escalates to SIGKILL leaves it as the only
+            # record; a plain JSON write, no device sync
+            from . import flightrec
+
+            flightrec.dump(f"signal-{signum}")
 
         return {sig: signal.signal(sig, handler) for sig in (signal.SIGTERM, signal.SIGINT)}
 
@@ -116,6 +122,12 @@ class BoincAdapter:
             with open(self.status_path, "a") as f:
                 f.write(f"fraction_done {fraction:.6f}\n")
         erplog.debug("fraction done: %.4f\n", fraction)
+        # progress lands in the metrics heartbeat and the flightrec ring,
+        # so a run report or a black-box dump shows how far the run got
+        from . import flightrec, metrics
+
+        metrics.gauge("boinc.fraction_done").set(round(fraction, 6))
+        flightrec.record("progress", fraction=round(fraction, 6))
 
     def time_to_checkpoint(self) -> bool:
         return time.monotonic() - self._last_checkpoint >= self.checkpoint_period_s

@@ -30,21 +30,21 @@ Usage: {prog} [options], options are:
  -B, --box\t\t\tint\tWindow width for the running median in frequeny bins.
  -D\t\t\t\tinteger\tThe CUDA device ID to be used.
  -z, --debug\t\t\tboolean\tRun program in debug mode.
- --batch\t\t\tint\tTemplates per device batch (default 16).
+ --batch\t\t\tint\tTemplates per device batch (default: auto, from a measured sweep or the card's memory).
  --device\t\t\tstring\tTorch device: cuda (default), cuda:N or cpu.
  --no-rescore\t\tboolean\tSkip host-oracle rescoring of emitted candidates.
  --status-file\t\tstring\tProgress sink when run under the native wrapper.
  --control-file\t\tstring\tQuit/abort source when run under the native wrapper.
  --shmem\t\t\tstring\tScreensaver shared-memory segment path.
+ --profile-dir\t\tstring\tCapture a torch.profiler trace of the search loop into this directory.
+ --metrics-file\t\tstring\tAppend a structured metrics JSONL stream (+ run report) to this file.
+ --supervised\t\tint\tRe-exec the worker on watchdog temporary exit (rc 99), resuming from the checkpoint, up to N restarts.
 """
 
 # the JAX package's flags for layers the port does not have yet, and why
 _NOT_YET = {
     "--mesh": "multi-device search: the port searches on one card per process",
     "--exact-sin": "the exact-sine resampler: the port's kernel A computes the reference's LUT sine only",
-    "--supervised": "supervised restarts: they need the watchdog, which is not ported",
-    "--profile-dir": "profiler traces: the tracing layer is not ported",
-    "--metrics-file": "the metrics stream: the metrics layer is not ported",
 }
 
 _NUMBERS = {
@@ -68,6 +68,8 @@ _FILES = {
     "--status-file": "status_file",
     "--control-file": "control_file",
     "--shmem": "shmem",
+    "--profile-dir": "profile_dir",
+    "--metrics-file": "metrics_file",
 }
 _SWITCHES = {
     "-W": ("white", True), "--whitening": ("white", True),
@@ -142,20 +144,30 @@ def parse_args(argv: list[str]) -> DriverArgs | int:
 
 
 def main(argv: list[str] | None = None) -> int:
-    parsed = parse_args(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    # --supervised N: this process becomes the restart supervisor, and the
+    # worker runs as a child re-exec'd without the flag while the
+    # watchdog's temporary exit (rc 99) asks for another pass
+    from .supervise import run_supervised, self_cmd, strip_supervised_flag
+
+    worker_argv, restart_budget = strip_supervised_flag(argv)
+    if restart_budget is not None:
+        return run_supervised(self_cmd(worker_argv), max_restarts=max(0, restart_budget))
+    parsed = parse_args(argv)
     if isinstance(parsed, int):
         return parsed
-    import torch
+    from .resilience import is_oom
 
     # Exit-code contract with the native wrapper (native/erp_wrapper.cpp):
     # 1 (RADPUL_EMEM) means out of memory and earns a temporary-exit
-    # retry, so no other failure may leak CPython's generic status 1
+    # retry, so no other failure may leak CPython's generic status 1; an
+    # out-of-memory the degradation ladder could not absorb ends here
     try:
         return run_search(parsed)
-    except (MemoryError, torch.cuda.OutOfMemoryError) as e:
-        erplog.error("Out of memory: %s\n", e)
-        return RADPUL_EMEM
     except Exception as e:
+        if is_oom(e):
+            erplog.error("Out of memory: %s\n", e)
+            return RADPUL_EMEM
         import traceback
 
         traceback.print_exc()

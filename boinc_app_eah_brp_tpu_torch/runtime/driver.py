@@ -1,7 +1,9 @@
 """The search driver (the reference's ``MAIN()``, ``demod_binary.c:117``):
 the process around one :class:`~.session.Session` — the argument surface,
-the BOINC slot's ``init_data.xml``, the device choice, signal handling and
-the RADPUL_* exit codes.
+the observability and resilience layers armed for the run (metrics,
+tracing, the flight recorder, the watchdog, fault injection, the retry
+budget) and closed after it, the BOINC slot's ``init_data.xml``, the
+device choice, signal handling and the RADPUL_* exit codes.
 
 Checkpoint compatibility: the card holds (M, T) per-bin maxima; a
 checkpoint stores the reference's 500-candidate toplist built from them,
@@ -11,9 +13,12 @@ port and the JAX package resume each other's checkpoints.
 
 from __future__ import annotations
 
+import os
+import sys
 import threading
 from dataclasses import dataclass, replace
 
+from . import faultinject, flightrec, metrics, resilience, steptime, tracing, watchdog
 from . import logging as erplog
 from .boinc import BoincAdapter, restore_signal_handlers
 from .errors import RADPUL_EIO, RADPUL_EVAL, RadpulError, exit_code_for
@@ -22,8 +27,8 @@ from .errors import RADPUL_EIO, RADPUL_EVAL, RadpulError, exit_code_for
 @dataclass
 class DriverArgs:
     """The reference's command-line surface (``demod_binary.c:217-445``),
-    plus the batch size, oracle rescoring, the device and the BOINC
-    wrapper's files."""
+    plus the batch size, oracle rescoring, the device, the BOINC wrapper's
+    files and the observability outputs."""
 
     inputfile: str
     outputfile: str
@@ -36,7 +41,9 @@ class DriverArgs:
     window: int = 1000
     white: bool = False
     debug: bool = False
-    batch_size: int = 16
+    # batch size: None = auto (measured sweep or memory model,
+    # runtime/autobatch.py); --batch N pins it
+    batch_size: int | None = None
     # host-oracle rescoring of the emitted candidates (oracle/rescore.py),
     # off with --no-rescore
     rescore: bool = True
@@ -47,6 +54,10 @@ class DriverArgs:
     status_file: str | None = None
     control_file: str | None = None
     shmem: str | None = None
+    # torch.profiler trace directory (also $ERP_PROFILE_DIR; runtime/profiling.py)
+    profile_dir: str | None = None
+    # metrics JSONL stream + run report (also $ERP_METRICS_FILE; runtime/metrics.py)
+    metrics_file: str | None = None
 
 
 def make_adapter(args: DriverArgs) -> BoincAdapter:
@@ -93,6 +104,12 @@ def _run_search(args: DriverArgs, adapter: BoincAdapter) -> int:
     from .session import Session
 
     erplog.info("Starting data processing...\n")
+    # the fault-injection schedule, loudly (a malformed ERP_FAULT_SPEC is a
+    # usage error: RADPUL_EVAL through the ValueError mapping), and a fresh
+    # retry budget for every resilience site
+    if faultinject.configure():
+        erplog.warn("Fault injection armed: ERP_FAULT_SPEC=%s\n", os.environ.get(faultinject.ENV_SPEC, ""))
+    resilience.begin_run()
     # BOINC slot: device assignment and user/host provenance
     # (cuda_utilities.c:53-85, demod_binary.c:1591-1605)
     init_data = load_init_data()
@@ -111,14 +128,46 @@ def _run_search(args: DriverArgs, adapter: BoincAdapter) -> int:
 def run_search(args: DriverArgs, adapter: BoincAdapter | None = None) -> int:
     """Returns 0 on success (or after a quit, checkpointed), a RADPUL_*
     error code otherwise."""
+    metrics.configure(metrics_file=args.metrics_file)
+    # host span timeline ($ERP_TRACE_FILE), armed before any phase bracket
+    if tracing.configure():
+        metrics.note_host_trace(os.environ.get(tracing.TRACE_FILE_ENV, ""))
+    # black box: ring and crash hooks for the whole run; the dump lands
+    # next to the checkpoint (the one directory known to be writable)
+    dump_dir = next((os.path.dirname(os.path.abspath(p)) for p in (args.checkpointfile, args.outputfile) if p), None)
+    context = {"inputfile": args.inputfile, "templatebank": args.templatebank, "checkpointfile": args.checkpointfile}
+    corr_id = os.environ.get(metrics.CORR_ID_ENV)
+    if corr_id:
+        context["corr_id"] = corr_id
+    flightrec.arm(dump_dir=dump_dir, context=context)
+    # hang doctor: per-stage deadlines turn a wedge into a supervised
+    # restart; the incident log remembers which template window was in
+    # flight, so a repeat offender is quarantined on a later pass
+    incident_path = watchdog.default_incident_path(args.checkpointfile)
+    watchdog.arm(incident_log=watchdog.IncidentLog(incident_path) if incident_path else None)
+    code: int | None = None
     try:
-        return _run_search(args, adapter or make_adapter(args))
+        code = _run_search(args, adapter or make_adapter(args))
+        return code
     except FileNotFoundError as e:
         erplog.error("Couldn't open file: %s\n", e)
-        return RADPUL_EIO
+        code = RADPUL_EIO
+        return code
     except Exception as e:
-        code = exit_code_for(e)
-        if code is None:
+        mapped = exit_code_for(e)
+        if mapped is None:
             raise
         erplog.error("%s\n", e)
+        code = mapped
         return code
+    finally:
+        if code != 0:
+            # a dump on any non-success exit, before the run report closes
+            flightrec.dump(f"exit-code-{code}" if code is not None else "unhandled-exception", exc=sys.exc_info()[1])
+        else:
+            flightrec.disarm()
+        # the supervisor thread must not outlive the run it watches
+        watchdog.disarm()
+        tracing.finish(code)
+        steptime.finish(code)
+        metrics.finish(code, context={"inputfile": args.inputfile, "templatebank": args.templatebank})

@@ -6,6 +6,10 @@ RADPUL_EFILE = 2
 RADPUL_EIO = 3
 RADPUL_EVAL = 4
 RADPUL_EMISC = 5
+# the watchdog's "restart me" exit (runtime/watchdog.py), the analogue of
+# boinc_temporary_exit (erp_boinc_wrapper.cpp:560-570): the run is healthy
+# enough to be re-run from its last checkpoint, by --supervised or BOINC
+RADPUL_TEMPORARY_EXIT = 99
 
 
 class RadpulError(RuntimeError):

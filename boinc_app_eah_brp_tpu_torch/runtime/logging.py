@@ -31,6 +31,22 @@ _TAGS = {
 # set from $ERP_LOGLEVEL at the bottom of this module
 _threshold = Level.DEBUG
 
+# optional tap on every emitted line (the flight recorder's log-tail feed,
+# runtime/flightrec.py): called with (level, formatted_line) after the
+# threshold filter; it must never raise into the log path.  None = off.
+_tap = None
+
+
+def set_tap(fn) -> None:
+    global _tap
+    _tap = fn
+
+
+def enabled(level: Level) -> bool:
+    """Would a message at ``level`` be emitted?  Callers with costly
+    message-building work (device walks) gate on this."""
+    return level <= _threshold
+
 
 def parse_level(raw) -> Level | None:
     """Level from a name ("info") or a number ("2"), or None when
@@ -66,6 +82,11 @@ def log_message(level: Level, show_level: bool, msg: str, *args) -> None:
     out.write(prefix)
     out.write(text)
     out.flush()
+    if _tap is not None:
+        try:
+            _tap(level, prefix + text)
+        except Exception:
+            pass
 
 
 def error(msg, *args):

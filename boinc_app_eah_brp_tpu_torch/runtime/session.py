@@ -1,14 +1,24 @@
 """One workunit's search, from the checkpoint it resumes to its result file.
 
-:meth:`Session.prepare` parses the bank, finds a resumable checkpoint,
-reads the workunit, builds the geometry, whitens (``-W``) or uploads the
-raw series, and seeds the checkpoint's candidates into (M, T) as virtual
-templates past the bank.  :meth:`Session.execute` runs the batched search
-with the BOINC progress callback (checkpoint cadence, screensaver,
-suspend, quit), writes the final checkpoint, turns (M, T) into the
-toplist, rescores the winners through the host oracle and writes the
-result file.  Counterpart of the JAX package's ``runtime/session.py`` on
-one device.
+:meth:`Session.prepare` parses the bank, finds a resumable checkpoint and
+the quarantined template ranges (``runtime/watchdog.py``), reads the
+workunit, builds the geometry, whitens (``-W``) or uploads the raw series,
+chooses the batch (``--batch``, else ``runtime/autobatch.py``) and seeds
+the checkpoint's candidates into (M, T) as virtual templates past the
+bank.  :meth:`Session.execute` runs the batched search over the runnable
+segments with the BOINC progress callback (checkpoint cadence,
+screensaver, suspend, quit, the watchdog's abort), writes the final
+checkpoint, turns (M, T) into the toplist, rescores the winners through
+the host oracle and writes the result file.  Counterpart of the JAX
+package's ``runtime/session.py`` on one device, with its spans, metrics,
+flight-recorder events, watchdog guards and retried writes under the same
+names.
+
+The search loop never waits on the card between batches; the host waits
+only where it copies the state: the checkpoint's copy, the screensaver's
+row and the final copy.  Those are the ``drain`` points: each runs under
+the watchdog's ``drain`` guard (the only guards that can see a wedged
+kernel) and refreshes the dispatch loop's recovery snapshot.
 """
 
 from __future__ import annotations
@@ -37,9 +47,10 @@ from ..io.formats import N_BINS_SS
 from ..oracle.pipeline import DerivedParams, SearchConfig
 from ..oracle.stats import base_thresholds
 from ..oracle.toplist import finalize_candidates, update_toplist_from_maxima
+from . import flightrec, metrics, profiling, resilience, steptime, tracing, watchdog
 from . import logging as erplog
 from .boinc import BoincAdapter
-from .errors import RADPUL_EFILE, RadpulError
+from .errors import RADPUL_EFILE, RADPUL_TEMPORARY_EXIT, RadpulError
 
 EXEC_NAME = "eah_brp_tpu_torch"
 
@@ -125,6 +136,7 @@ class Session:
         self.adapter = adapter or BoincAdapter()
         self.init_data = init_data
         self.prepared = False
+        self._setup_span = None
 
     def prepare(self) -> "Session":
         from ..models.search import (
@@ -139,6 +151,10 @@ class Session:
         )
 
         args = self.args
+        # everything up to the template loop on one timeline span, closed
+        # by execute(): an exception mid-setup leaves it on the open-span
+        # stack, which is what a crash dump should show
+        self._setup_span = tracing.span("setup").__enter__()
         self.dev = resolve_device(args.device)
 
         # template bank: the full parse is its validation (demod_binary.c:507-544)
@@ -164,7 +180,8 @@ class Session:
         seed_cands = None
         self.start_template = 0
         if resumed is not None:
-            cp = resumed[0]
+            cp, used_path, generation = resumed
+            flightrec.record("resume", n_template=cp.n_template, path=used_path, generation=generation)
             if cp.n_template == template_total:
                 erplog.info("Thank you but this work unit has already been processed completely...\n")
             else:
@@ -174,6 +191,28 @@ class Session:
         else:
             erplog.info("Checkpoint file unavailable: %s\n", args.checkpointfile)
             erplog.log_message(erplog.Level.INFO, False, "Starting from scratch...\n")
+
+        # poison-range quarantine (runtime/watchdog.py): template windows
+        # that wedged or crashed the worker K times are skipped, loudly,
+        # and named in the checkpoint and result provenance
+        quarantined: list[tuple[int, int]] = []
+        incident_path = watchdog.default_incident_path(args.checkpointfile)
+        if incident_path:
+            quarantined = [
+                (max(0, a), min(template_total, b))
+                for a, b in watchdog.IncidentLog(incident_path).quarantined()
+                if a < template_total and b > 0 and max(0, a) < min(template_total, b)
+            ]
+        if quarantined:
+            n_quarantined = sum(b - a for a, b in quarantined)
+            metrics.counter("resilience.quarantined").inc(n_quarantined)
+            flightrec.record("quarantine", ranges=[[a, b] for a, b in quarantined])
+            erplog.warn(
+                "Quarantined %d poison template(s) after repeated incidents: %s — skipping them, the gap is "
+                "recorded in checkpoint and result provenance.\n",
+                n_quarantined, ", ".join(f"[{a}, {b})" for a, b in quarantined),
+            )
+        self.quarantined = quarantined
 
         wu = read_workunit(args.inputfile)
         if args.debug:
@@ -197,13 +236,24 @@ class Session:
 
             if not args.zaplistfile:
                 raise RadpulError(RADPUL_EFILE, "Whitening requires a zaplist file (-l).")
-            self.ts = whiten_and_zap(wu.samples, derived, cfg, read_zaplist(args.zaplistfile), device=self.dev)
+            with profiling.phase("whitening"):
+                self.ts = whiten_and_zap(wu.samples, derived, cfg, read_zaplist(args.zaplistfile), device=self.dev)
         else:
             self.ts = torch.from_numpy(np.ascontiguousarray(wu.samples, dtype=np.float32)).to(self.dev)
         self.wu, self.cfg, self.derived, self.geom = wu, cfg, derived, geom
         self.base_thr = base_thresholds(cfg.fA, derived.fft_size)
         if args.debug:
             _dump_thresholds(cfg.fA, derived.fft_size)
+
+        # batch size: pinned by --batch, else the measured sweep or the
+        # memory model (runtime/autobatch.py); the choice is logged either way
+        if args.batch_size is not None:
+            self.batch_size = int(args.batch_size)
+            erplog.info("Batch size %d (--batch).\n", self.batch_size)
+        else:
+            from .autobatch import choose_batch
+
+            self.batch_size = choose_batch(geom.nsamples, log=erplog.info, device=self.dev)
 
         # the checkpoint's candidates re-enter (M, T) as virtual templates
         # past the bank, so the toplist conversion treats them uniformly
@@ -255,7 +305,8 @@ class Session:
     def execute(self) -> int:
         """Run the prepared search to its result file; returns 0 (also
         after a quit, once the checkpoint is written) or raises one of the
-        exceptions ``runtime/errors.py::exit_code_for`` maps."""
+        exceptions ``runtime/errors.py::exit_code_for`` maps (the
+        watchdog's abort as ``RADPUL_TEMPORARY_EXIT``)."""
         if not self.prepared:
             self.prepare()
         from ..models.search import run_bank
@@ -263,7 +314,7 @@ class Session:
         from ..oracle.rescore import IncrementalRescorer, rescore_winners, unique_winner_count
 
         args, adapter, bank, geom, derived = self.args, self.adapter, self.bank, self.geom, self.derived
-        template_total = self.template_total
+        template_total, quarantined, batch_size = self.template_total, self.quarantined, self.batch_size
 
         # background rescoring of the winners seen at each checkpoint, so the
         # end-of-run oracle pass only scores what won after the last one;
@@ -273,27 +324,69 @@ class Session:
             rescorer = IncrementalRescorer(self.host_series, derived, derived.t_obs)
             erplog.debug("Rescore overlap armed (checkpoint cadence).\n")
 
+        ckpt_count = metrics.counter("checkpoint.count")
+        ckpt_bytes = metrics.counter("checkpoint.bytes", unit="B")
+        d2h_bytes = metrics.counter("search.d2h_bytes", unit="B")
+        stall_s = metrics.counter("search.drain_stall_s", unit="s")
+        stall_ms = metrics.histogram("search.drain_stall_ms", metrics.LATENCY_BUCKETS_MS, unit="ms")
+        topology = topology_record(1, quarantined=quarantined)
+        snap = None  # the current segment's recovery point (resilience.DispatchSnapshot)
+
+        def drain(fetch, stop: int):
+            """``fetch()`` copies from the card, so the host waits there for
+            every batch queued before it: the watchdog's ``drain`` guard."""
+            t0 = time.perf_counter()
+            with watchdog.guard("drain", stop=stop), tracing.span("drain", stop=stop), profiling.annotate("erp:drain"):
+                out = fetch()
+            dt = time.perf_counter() - t0
+            stall_s.inc(dt)
+            stall_ms.observe(dt * 1e3)
+            flightrec.record("drain", stop=stop, stall_ms=round(dt * 1e3, 3))
+            return out
+
+        def host_state(M_now, T_now, stop: int):
+            M_host, T_host = drain(lambda: (M_now.cpu().numpy(), T_now.cpu().numpy()), stop)
+            d2h_bytes.inc(M_host.nbytes + T_host.nbytes)
+            return M_host, T_host
+
         def checkpoint_now(n_done: int, M_now, T_now) -> None:
             if not args.checkpointfile and rescorer is None:
                 return
-            # host copies now: the next batch overwrites the device state
-            M_host, T_host = M_now.cpu().numpy(), T_now.cpu().numpy()
-            if not args.checkpointfile:
-                rescorer.observe_async(lambda: self._candidates(M_host, T_host))
-                return
-            cands = self._candidates(M_host, T_host)
-            if rescorer is not None:
-                rescorer.observe_async(lambda: cands)
-            write_checkpoint(
-                args.checkpointfile,
-                Checkpoint(n_template=n_done, originalfile=args.inputfile, candidates=cands),
-                bank=(args.templatebank, template_total),
-                topology=topology_record(),
-            )
+            with tracing.span("checkpoint", n_done=n_done), profiling.annotate("erp:checkpoint"):
+                # host copies now: the next batch overwrites the device state
+                M_host, T_host = host_state(M_now, T_now, n_done)
+                if snap is not None:
+                    snap.maybe_commit(M_host, T_host, n_done)
+                if not args.checkpointfile:
+                    rescorer.observe_async(lambda: self._candidates(M_host, T_host))
+                    return
+                cands = self._candidates(M_host, T_host)
+                if rescorer is not None:
+                    rescorer.observe_async(lambda: cands)
+                # transient write failures spend the shared retry budget; a
+                # wedged write trips the watchdog
+                with watchdog.guard("ckpt_write", n_done=n_done):
+                    resilience.call_with_retry(
+                        lambda: write_checkpoint(
+                            args.checkpointfile,
+                            Checkpoint(n_template=n_done, originalfile=args.inputfile, candidates=cands),
+                            bank=(args.templatebank, template_total),
+                            topology=topology,
+                        ),
+                        site="ckpt_write",
+                    )
+                ckpt_count.inc()
+                try:
+                    ckpt_bytes.inc(os.path.getsize(args.checkpointfile))
+                except OSError:
+                    pass
 
         interrupted = False
         last_done = self.start_template
         search_info = self.search_info
+        metrics.gauge("driver.template_total").set(int(template_total))
+        metrics.gauge("driver.start_template").set(int(self.start_template))
+        fraction_g = metrics.gauge("driver.fraction_done")
 
         def progress_cb(done: int, total: int, M_now, T_now) -> bool:
             nonlocal interrupted, last_done
@@ -301,6 +394,7 @@ class Session:
             # the reference reports (counter+1)/total per template
             # (demod_binary.c:1420); a batch reports its exact fraction
             adapter.fraction_done(done / total)
+            fraction_g.set(done / total)
             if adapter.time_to_checkpoint():
                 erplog.log_message(erplog.Level.DEBUG, False, "Committing checkpoint.\n")
                 checkpoint_now(done, M_now, T_now)
@@ -308,9 +402,10 @@ class Session:
                 erplog.info("Checkpoint committed!\n")
             if adapter.search_info_due():
                 # the 4-harmonic row only, and only when something listens
-                search_info["power_spectrum"] = binned_spectrum(
-                    row_to_natural(M_now[2].cpu().numpy(), 2, geom.fund_hi), geom.fund_hi
-                )
+                row = drain(lambda: M_now[2].cpu().numpy(), done)
+                if snap is not None:
+                    snap.maybe_commit(M_now, T_now, done)
+                search_info["power_spectrum"] = binned_spectrum(row_to_natural(row, 2, geom.fund_hi), geom.fund_hi)
                 search_info["fraction_done"] = done / total
                 # the current template's orbit (demod_binary.c:1213-1215)
                 t_cur = min(done, template_total) - 1
@@ -322,33 +417,62 @@ class Session:
             # a client-requested suspension parks here, between batches,
             # with the state resident on the card
             adapter.wait_while_suspended()
-            if adapter.quit_requested():
+            # the watchdog's cooperative abort stops dispatching too, so
+            # the run checkpoints and exits for a supervised restart
+            if adapter.quit_requested() or watchdog.abort_requested():
                 interrupted = True
                 return False
             return True
 
         erplog.info(
             "Search on %s: %d templates from no. %d, batch %d.\n",
-            self.dev, template_total, self.start_template, args.batch_size,
+            self.dev, template_total, self.start_template, batch_size,
         )
+        profiling.device_memory_status("search setup")
+        if self._setup_span is not None:
+            self._setup_span.__exit__(None, None, None)
+            self._setup_span = None
+        metrics.gauge("search.batch_size").set(int(batch_size))
+        flightrec.record(
+            "run-config", template_total=int(template_total), start_template=int(self.start_template),
+            batch_size=int(batch_size), n_mesh=1,
+        )
+        # quarantined windows carve the bank into runnable segments, each a
+        # bounded [start, stop) window (templates >= stop are masked)
+        segments = watchdog.runnable_segments(template_total, quarantined, start=self.start_template)
+        state = self.state
         try:
-            state = run_bank(
-                self.ts, bank.P, bank.tau, bank.psi0, geom,
-                batch_size=args.batch_size, state=self.state,
-                start_template=self.start_template, progress_cb=progress_cb,
-            )
+            # ERP_STEPTIME_PROFILE=<dir> or --profile-dir/ERP_PROFILE_DIR
+            # capture the loop with torch.profiler
+            with steptime.maybe_capture_profile(), profiling.trace(args.profile_dir), profiling.phase("template loop"):
+                for seg_a, seg_b in segments:
+                    if resilience.policy() is not None:
+                        snap = resilience.DispatchSnapshot(state, seg_a)
+                    state = run_bank(
+                        self.ts, bank.P, bank.tau, bank.psi0, geom, batch_size=batch_size, state=state,
+                        start_template=seg_a, stop_template=seg_b, progress_cb=progress_cb, snapshot=snap,
+                    )
+                    if interrupted:
+                        break
             if interrupted:
                 erplog.warn("Quit requested! Exiting prematurely...\n")
                 if rescorer is not None:
                     rescorer.abort()
                 checkpoint_now(last_done, *state)
+                if watchdog.abort_requested():
+                    # the checkpoint is committed: exit with the temporary-exit
+                    # code so --supervised (or BOINC) restarts from it
+                    raise RadpulError(
+                        RADPUL_TEMPORARY_EXIT, "Watchdog stall: checkpointed and exiting for a supervised restart."
+                    )
                 return 0
 
             # final checkpoint (demod_binary.c:1495-1499), then the toplist
             erplog.debug("Search done!\n")
             checkpoint_now(template_total, *state)
-            cands = self._candidates(state[0].cpu().numpy(), state[1].cpu().numpy())
-            emitted = finalize_candidates(cands, derived.t_obs)
+            with tracing.span("finalize"):
+                cands = self._candidates(*host_state(*state, template_total))
+                emitted = finalize_candidates(cands, derived.t_obs)
         except BaseException:
             # never leave the rescore pool joining background passes on the
             # way out through an error
@@ -356,15 +480,19 @@ class Session:
                 rescorer.abort()
             raise
 
-        cache = rescorer.finalize() if rescorer is not None else None
+        cache = None
+        if rescorer is not None:
+            with tracing.span("rescore-finalize"):
+                cache = rescorer.finalize()
         if args.rescore and len(emitted):
-            t0 = time.perf_counter()
-            ts_host = rescorer.series_if_fetched() if rescorer is not None else None
-            if ts_host is None:
-                ts_host = self.host_series()
-            n_winners = unique_winner_count(emitted)
-            patched, n_eval = rescore_winners(ts_host, cands, emitted, derived, cache=cache)
-            emitted = finalize_candidates(patched, derived.t_obs)
+            with profiling.phase("oracle rescore"):
+                t0 = time.perf_counter()
+                ts_host = rescorer.series_if_fetched() if rescorer is not None else None
+                if ts_host is None:
+                    ts_host = self.host_series()
+                n_winners = unique_winner_count(emitted)
+                patched, n_eval = rescore_winners(ts_host, cands, emitted, derived, cache=cache)
+                emitted = finalize_candidates(patched, derived.t_obs)
             erplog.info(
                 "Rescored %d of %d winning templates through the host oracle in %.1f s%s.\n",
                 n_eval, n_winners, time.perf_counter() - t0,
@@ -373,13 +501,18 @@ class Session:
             )
 
         header = ResultHeader(exec_name=EXEC_NAME)
+        # quarantine gaps are named in the result header, so a validator
+        # comparing against another host's file knows the coverage differs
+        header.quarantined = quarantined
         if self.init_data is not None:
             # provenance from the BOINC slot (demod_binary.c:1591-1602)
             header.user_id = self.init_data.userid
             header.user_name = self.init_data.user_name
             header.host_id = self.init_data.hostid
             header.host_cpid = self.init_data.host_cpid
-        write_result_file(args.outputfile, ResultFile(candidates=emitted, t_obs=derived.t_obs, header=header))
+        result = ResultFile(candidates=emitted, t_obs=derived.t_obs, header=header)
+        with tracing.span("result-write"), watchdog.guard("result_write"):
+            resilience.call_with_retry(lambda: write_result_file(args.outputfile, result), site="result_write")
         erplog.info("Data processing finished successfully!\n")
         return 0
 

@@ -35,7 +35,27 @@ Phases:
    the exact mean must have run once, ahead of the main path's kernels;
    then the same run quit after 3 batches and resumed must give the same
    candidate rows, each of the two runs launching the exact mean once;
-6. print the kernel table as one JSON line (launches from the whitened
+6. the default command line (a): the same workunit unwhitened with no
+   ``--batch``, with ``--metrics-file``, ``ERP_TRACE_FILE`` and
+   ``--profile-dir``, counts reset just before: the batch must be chosen
+   and logged by ``runtime/autobatch.py``, the run report must validate,
+   the candidate rows must equal phase 5's, and the main path's kernels
+   must have run; prints the batch, the loop's templates/s and device
+   idle share on the card's clock (first to last kernel of the profile)
+   and the peak memory;
+7. the batch sweep (b): the whitened search loop at batches 8 to 128, two
+   runs each with its peak memory, written to the artifact phase (a)
+   reads on the next run; then the loop at batch 32 with the metrics and
+   the host tracer off and on, in turns;
+8. the out-of-memory ladder (c), against a whitened ``--no-rescore``
+   baseline at batch 32: a batch this card cannot hold (1024) and an
+   injected ``dispatch:oom@n=2`` must both finish with
+   ``resilience.batch_halved`` >= 1 and the baseline's rows;
+9. a supervised restart (d): ``--supervised 2`` with
+   ``dispatch:hang@n=3``, a short dispatch deadline and a checkpoint
+   every batch must exit 0 after one restart with the baseline's rows,
+   and its incident log must validate;
+10. print the kernel table as one JSON line (launches from the whitened
    run, the serial mean's from the unwhitened one), the runs' numbers,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -49,6 +69,7 @@ import glob
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -101,6 +122,8 @@ UNWHITENED_PATH = MAIN_PATH + ("serial_mean",)
 ADD_LATENCY_S = 4 / 1.98e9
 QUIT_AFTER = 3  # batches before the interrupted run quits
 TILE = 33  # the exact mean is also run on bank200 tiled this often: 6,600 templates
+OOM_BATCH = 1024  # a batch the card cannot hold at this width (~153 MB a template)
+HANG_DEADLINE_S = 10  # the supervised run's dispatch deadline
 
 
 class CheckFailed(Exception):
@@ -611,6 +634,235 @@ def run_unwhitened(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_i
     )
 
 
+class _Tee:
+    """stderr that also keeps what was written (the driver's log lines)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _report(path: str) -> dict:
+    with open(path + ".report.json") as f:
+        return json.load(f)
+
+
+def run_default_cli(torch, bank, workdir: str, wu: str, unwhite_rows) -> dict:
+    """Phase (a): the default command line (unwhitened, no --batch) with
+    the metrics stream, the host trace and a profiler trace of the loop,
+    counts reset just before and read just after."""
+    import contextlib
+
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.runtime import metrics, steptime, tracing
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
+
+    cand, mfile = os.path.join(workdir, "default.cand"), os.path.join(workdir, "default.metrics.jsonl")
+    prof, trace = os.path.join(workdir, "default.prof"), os.path.join(workdir, "default.trace.jsonl")
+    argv = (
+        f"-i {wu} -o {cand} -t {BANK} -c {os.path.join(workdir, 'default.cpt')} -P {PADDING} -f {F0} -A {FA} "
+        f"-B {WINDOW} --device {DEVICE} --metrics-file {mfile} --profile-dir {prof}"
+    ).split()
+    os.environ[tracing.TRACE_FILE_ENV] = trace
+    tee = _Tee(sys.stderr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        with contextlib.redirect_stderr(tee):
+            t0 = time.perf_counter()
+            rc = cli_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        del os.environ[tracing.TRACE_FILE_ENV]
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"the default command line exited with {rc}")
+    for name in UNWHITENED_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched by the default command line")
+    decision = [ln.strip() for ln in "".join(tee.lines).splitlines() if "Batch size" in ln]
+    check(len(decision) == 1 and "(--batch)" not in decision[0], f"no autobatch decision logged: {decision}")
+    report = _report(mfile)
+    problems = metrics.validate_report(report)
+    check(not problems, f"the run report does not validate: {problems}")
+    gauges = report["metrics"]["gauges"]
+    batch = gauges["autobatch.batch_size"]["value"]
+    check(batch in (8, 16, 32, 64, 128), f"autobatch chose {batch}")
+    rows = _candidate_rows(cand)
+    check(np.array_equal(rows, unwhite_rows), f"the default command line's rows (batch {batch}) differ from phase 5's")
+    with open(trace) as f:
+        spans = [json.loads(ln) for ln in f if ln.strip()]
+    check(tracing.validate_stream(spans) == [], "the host trace stream does not validate")
+    # the loop on the card: from its first kernel to its last in the
+    # profile (the host's loop phase ends when the last batch is queued)
+    records = steptime.device_records_from_chrome(os.path.join(prof, "trace.json"))
+    idle = steptime.device_idle_share(records)
+    check(idle["n"] > 0, "the profile holds no device records")
+    stage_ms = {}
+    for r in steptime.stage_records(records):
+        stage_ms[r["args"]["stage"]] = stage_ms.get(r["args"]["stage"], 0.0) + r["dur_us"] / 1e3
+    return dict(
+        batch=batch,
+        decision=decision[0],
+        autobatch=gauges["autobatch.decision"]["value"],
+        wall_s=wall,
+        loop_enqueue_s=report["metrics"]["phases"]["template loop"]["wall_s"],
+        loop_templates_per_s=len(bank) / (idle["span_us"] * 1e-6),
+        peak_device_bytes=int(peak),
+        device_records=idle["n"],
+        device_span_ms=idle["span_us"] / 1e3,
+        device_busy_ms=idle["busy_us"] / 1e3,
+        device_idle_share=idle["idle_share"],
+        device_gaps=idle["gaps"],
+        stage_ms=stage_ms,
+        counters={k: v["value"] for k, v in report["metrics"]["counters"].items()},
+        launches=launches,
+    )
+
+
+def run_batch_sweep(torch, geom, bank, wu: str, zap: str) -> dict:
+    """Phase (b): the whitened search loop at each batch of the sweep, two
+    runs each, written to the artifact the default command line reads."""
+    from boinc_app_eah_brp_tpu_torch.io import read_workunit, read_zaplist
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+    from boinc_app_eah_brp_tpu_torch.ops.whiten import whiten_and_zap
+    from boinc_app_eah_brp_tpu_torch.runtime import autobatch
+
+    cfg = SearchConfig(f0=F0, padding=PADDING, fA=FA, window=WINDOW, white=True)
+    wu_data = read_workunit(wu)
+    derived = DerivedParams.derive(wu_data.nsamples, float(wu_data.header["tsample"]), cfg)
+    ts = whiten_and_zap(wu_data.samples, derived, cfg, read_zaplist(zap), device=DEVICE)
+    art = autobatch.sweep(ts, bank.P, bank.tau, bank.psi0, geom, runs=2)
+    check(art["device_kind"] == torch.cuda.get_device_name(0), "the sweep artifact lacks the card's kind")
+    check(all("error" not in r for r in art["rungs"]), f"a sweep rung failed: {art['rungs']}")
+    # what the next run's autobatch makes of the artifact
+    lines = []
+    batch = autobatch.choose_batch(geom.nsamples, log=lines.append, device=DEVICE)
+    check(batch == art["best_batch"] and "on this device kind" in lines[0], f"the sweep was not taken: {lines}")
+    art["next_run_decision"] = lines[0].strip()
+    # the loop at batch 32 with the metrics and the host tracer off and on
+    # (in memory), in turns: what the instrumentation costs
+    from boinc_app_eah_brp_tpu_torch.models.search import run_bank
+    from boinc_app_eah_brp_tpu_torch.runtime import metrics, tracing
+
+    def loop_s():
+        t0 = time.perf_counter()
+        run_bank(ts, bank.P, bank.tau, bank.psi0, geom, batch_size=BATCH)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    overhead = {"off": [], "on": []}
+    for knobs in ("off", "on", "on", "off", "off", "on"):
+        if knobs == "on":
+            metrics.configure(force=True, interval=0)
+            tracing.configure(force=True)
+        overhead[knobs].append(loop_s())
+        if knobs == "on":
+            tracing.finish(0)
+            metrics.finish(0)
+    art["loop_s_knobs"] = overhead
+    del ts
+    torch.cuda.empty_cache()
+    return art
+
+
+def run_oom_ladder(torch, workdir: str, wu: str, zap: str) -> dict:
+    """Phase (c): a whitened --no-rescore baseline at batch 32, then a
+    batch the card cannot hold and an injected out-of-memory; both must
+    halve the batch and write the baseline's rows."""
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
+
+    def run(name, batch, env=None):
+        argv = (
+            f"-i {wu} -o {os.path.join(workdir, name + '.cand')} -t {BANK} -l {zap} -W -P {PADDING} -f {F0} "
+            f"-A {FA} -B {WINDOW} --batch {batch} --no-rescore --device {DEVICE} "
+            f"--metrics-file {os.path.join(workdir, name + '.jsonl')}"
+        ).split()
+        os.environ.update(env or {})
+        try:
+            t0 = time.perf_counter()
+            rc = cli_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for k in env or {}:
+                del os.environ[k]
+        check(rc == 0, f"the {name} run exited with {rc}")
+        report = _report(os.path.join(workdir, name + ".jsonl"))
+        counters = {k: v["value"] for k, v in report["metrics"]["counters"].items()}
+        gauges = {k: v["value"] for k, v in report["metrics"]["gauges"].items()}
+        torch.cuda.empty_cache()
+        return _candidate_rows(os.path.join(workdir, name + ".cand")), dict(
+            wall_s=wall,
+            batch_halved=counters.get("resilience.batch_halved", 0),
+            retries=counters.get("resilience.retries", 0),
+            final_batch=gauges.get("resilience.batch_size", batch),
+            templates_dispatched=counters["search.templates"],
+        )
+
+    base_rows, base = run("baseline", BATCH)
+    out = {"baseline": base}
+    for name, batch, env in (
+        ("real_oom", OOM_BATCH, None),
+        ("injected_oom", BATCH, {"ERP_FAULT_SPEC": "dispatch:oom@n=2"}),
+    ):
+        rows, out[name] = run(name, batch, env)
+        check(out[name]["batch_halved"] >= 1, f"the {name} run did not halve its batch: {out[name]}")
+        check(np.array_equal(rows, base_rows), f"the {name} run's rows differ from the baseline's")
+    out["baseline_rows"] = base_rows
+    return out
+
+
+def run_supervised(workdir: str, wu: str, zap: str, base_rows) -> dict:
+    """Phase (d): --supervised 2 with a dispatch hang at the third batch, a
+    short dispatch deadline and a checkpoint every batch; the watchdog
+    ends the wedged worker with rc 99 and the supervisor resumes it."""
+    from boinc_app_eah_brp_tpu_torch.runtime import watchdog
+
+    cand, cp = os.path.join(workdir, "supervised.cand"), os.path.join(workdir, "supervised.cpt")
+    env = dict(
+        os.environ,
+        PYTHONPATH=REPO,
+        ERP_FAULT_SPEC="dispatch:hang@n=3",
+        ERP_FAULT_STATE=os.path.join(workdir, "supervised.faults.json"),
+        ERP_WATCHDOG_SPEC=f"dispatch={HANG_DEADLINE_S}",
+        ERP_WATCHDOG_GRACE_S="2",
+        ERP_CHECKPOINT_PERIOD="0",
+        ERP_SUPERVISE_BACKOFF_S="0",
+        ERP_LOGLEVEL="info",
+    )
+    argv = (
+        f"--supervised 2 -i {wu} -o {cand} -t {BANK} -c {cp} -l {zap} -W -P {PADDING} -f {F0} -A {FA} "
+        f"-B {WINDOW} --batch {BATCH} --no-rescore --device {DEVICE}"
+    ).split()
+    t0 = time.perf_counter()
+    # a session of its own: on a timeout the supervisor's worker goes too
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "boinc_app_eah_brp_tpu_torch", *argv], env=env, cwd=workdir,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True,
+    )
+    try:
+        _, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise CheckFailed("the supervised run did not finish in 600 s")
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the supervised run exited with {proc.returncode}: {stderr[-2000:]}")
+    check("exited rc 99 (pass 1)" in stderr and "after 2 pass(es)" in stderr, "the supervised run did not restart once")
+    check(np.array_equal(_candidate_rows(cand), base_rows), "the supervised run's rows differ from the baseline's")
+    doc = watchdog.IncidentLog(cp + ".incidents.json").read()
+    check(watchdog.validate_incident_log(doc) == [] and len(doc["incidents"]) == 1, f"bad incident log: {doc}")
+    return dict(wall_s=wall, incidents=[(i["stage"], i["window"]) for i in doc["incidents"]])
+
+
 def main() -> int:
     try:
         import torch
@@ -655,6 +907,13 @@ def main() -> int:
         run = run_main_path(torch, geom, bank, workdir, wu, P_inj, tau_inj)
         torch.cuda.empty_cache()
         unwhite = run_unwhitened(torch, geom, bank, workdir, wu, P_inj, tau_inj)
+        torch.cuda.empty_cache()
+        default = run_default_cli(torch, bank, workdir, wu, _candidate_rows(os.path.join(workdir, "unwhitened.cand")))
+        torch.cuda.empty_cache()
+        zap = os.path.join(workdir, "smoke.zap")
+        sweep = run_batch_sweep(torch, geom, bank, wu, zap)
+        ladder = run_oom_ladder(torch, workdir, wu, zap)
+        supervised = run_supervised(workdir, wu, zap, ladder.pop("baseline_rows"))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -683,6 +942,10 @@ def main() -> int:
         )
     print(json.dumps({"main_path": {k: v for k, v in run.items() if k != "launches"}}))
     print(json.dumps({"unwhitened": unwhite}))
+    print(json.dumps({"default_cli": default}))
+    print(json.dumps({"batch_sweep": sweep}))
+    print(json.dumps({"oom_ladder": ladder}))
+    print(json.dumps({"supervised": supervised}))
     print(json.dumps({"kernels": rows}))
     print(
         json.dumps(

@@ -204,3 +204,48 @@ def test_bank_step_card_matches_cpu(dev, exact_mean):
     (Mc, Tc), (Mg, Tg) = out["cpu"], out[str(dev)]
     np.testing.assert_allclose(Mg, Mc, rtol=1e-4, atol=1e-6)
     assert (Tg == Tc).mean() > 0.99
+
+
+def test_steptime_bracket_reads_events_without_a_sync(dev, monkeypatch, tmp_path):
+    """The CUDA-event step bracket: no synchronize while the loop runs
+    (each observe only queries its events), positive times once flushed."""
+    from boinc_app_eah_brp_tpu_torch.runtime import steptime
+
+    waits = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: waits.append("device"))
+    real_wait = torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", lambda self: (waits.append("event"), real_wait(self))[1])
+    ctx = steptime.StepTimeContext(name="card")
+    ctx.configure(force=True)
+    rec = ctx.recorder(dev)
+    x = torch.randn(16, 1 << 20, device=dev)
+    for start in range(0, 40, 8):
+        rec.begin()
+        torch.fft.rfft(x).abs().amax()
+        rec.observe(None, start, start + 8)
+    assert waits == []
+    rec.flush()
+    records = ctx.records()
+    assert [r["start"] for r in records] == [0, 8, 16, 24, 32]
+    assert all(r["ms"] > 0 for r in records)
+    ctx.finish(0)
+
+
+def test_is_oom_on_a_real_out_of_memory(dev):
+    from boinc_app_eah_brp_tpu_torch.runtime import resilience
+
+    with pytest.raises(torch.cuda.OutOfMemoryError) as info:
+        torch.empty(1 << 50, dtype=torch.uint8, device=dev)
+    assert resilience.is_oom(info.value) and resilience.classify(info.value) == "transient"
+
+
+def test_choose_batch_on_the_card(dev, monkeypatch, tmp_path):
+    from boinc_app_eah_brp_tpu_torch.runtime import autobatch
+
+    monkeypatch.delenv("ERP_BATCH", raising=False)
+    monkeypatch.setenv(autobatch.SWEEP_ENV, str(tmp_path / "none.json"))
+    lines = []
+    b = autobatch.choose_batch(12_582_912, log=lines.append, device=dev)
+    assert b in (8, 16, 32, 64, 128)
+    assert len(lines) == 1 and lines[0].startswith(f"Batch size {b} (memory model, HBM budget ")
+    assert autobatch.device_memory_budget(dev) > 0

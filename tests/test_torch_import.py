@@ -46,6 +46,28 @@ def test_port_cpu_path_imports_no_jax(tmp_path):
     assert r.stdout.strip().endswith("ok")
 
 
+RUNTIME_LAYERS = (
+    "percentiles", "metrics", "tracing", "flightrec", "obs", "profiling", "steptime",
+    "autobatch", "faultinject", "resilience", "watchdog", "supervise", "errors",
+)
+
+
+def test_runtime_layers_import_neither_torch_nor_jax():
+    """The observability and resilience layers are host code: importing
+    them loads neither torch nor jax (nor the JAX package)."""
+    probe = (
+        "import sys\n"
+        + "".join(f"import boinc_app_eah_brp_tpu_torch.runtime.{m}\n" for m in RUNTIME_LAYERS)
+        + "bad = [m for m in sys.modules if m in ('torch', 'jax') or m.startswith('boinc_app_eah_brp_tpu.')]\n"
+        + "assert not bad, bad\nprint('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", probe], env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    for m in RUNTIME_LAYERS:
+        assert (PORT / "runtime" / f"{m}.py").is_file()
+
+
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"boinc_app_eah_brp_tpu\.|from jax|import jax")
     offenders = [

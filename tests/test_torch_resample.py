@@ -46,9 +46,11 @@ from boinc_app_eah_brp_tpu.ops.sincos import sincos_lut_lookup as jax_sincos
 from boinc_app_eah_brp_tpu.oracle.pipeline import DerivedParams as JaxDerived
 from boinc_app_eah_brp_tpu.oracle.pipeline import SearchConfig as JaxConfig
 from boinc_app_eah_brp_tpu.oracle.resample import ResampleParams, resample as oracle_resample
+from boinc_app_eah_brp_tpu.oracle.resample import resample_stats as jax_resample_stats
 from boinc_app_eah_brp_tpu_torch.models import search
 from boinc_app_eah_brp_tpu_torch.models.search import bank_params_host
 from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+from boinc_app_eah_brp_tpu_torch.oracle import resample as port_oracle
 from boinc_app_eah_brp_tpu_torch.ops import resample as port
 from boinc_app_eah_brp_tpu_torch.ops.sincos import sincos_lut_unwrapped
 from fixtures import synthetic_timeseries
@@ -429,6 +431,27 @@ def test_exact_mean_nonpositive_n_steps():
     n_steps, mean = port.exact_mean_params(torch.from_numpy(ts), params, n_unpadded=n, dt=DT)
     np.testing.assert_array_equal(n_steps.numpy(), [0, -1, -1])
     assert mean.numpy().tobytes() == np.zeros(3, np.float32).tobytes()
+
+
+@pytest.mark.parametrize("K", [4095.0, 4136.0])
+def test_n_steps_minus_one_jax_oracle_raises_port_gives_zero(K):
+    """Where the integer S0 = K leaves no sample before the trailing run,
+    n_steps = -1: the JAX package's oracle raises ValueError
+    (``np.arange(-1)`` against ``del_t[:-1]``); the port's oracle and its
+    exact mean give (-1, 0.0), as its kernel does on the card."""
+    n = 4096
+    ts = (_series(n, seed=10)[0] + 3.0).astype(np.float32)
+    fields = dict(
+        nsamples=2 * n, nsamples_unpadded=n, fft_size=n + 1, tau=np.float32(0.0), omega=np.float32(1.0),
+        psi0=np.float32(0.0), dt=np.float32(DT), step_inv=np.float32(1.0) / np.float32(DT), s0=np.float32(K),
+    )
+    with pytest.raises(ValueError):
+        jax_resample_stats(ts, ResampleParams(**fields))
+    n_steps, mean = port_oracle.resample_stats(ts, port_oracle.ResampleParams(**fields))
+    assert n_steps == -1 and mean.tobytes() == np.float32(0.0).tobytes()
+    params = port.stream_params([0.0], [1.0], [0.0], [K])
+    ns, mn = port.exact_mean_params(torch.from_numpy(ts), params, n_unpadded=n, dt=DT)
+    assert ns.tolist() == [-1] and mn.numpy().tobytes() == np.float32(0.0).tobytes()
 
 
 def test_exact_mean_refuses_renorm():

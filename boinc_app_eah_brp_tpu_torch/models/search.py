@@ -13,6 +13,12 @@ reference's keep-first-seen semantics (``demod_binary.c:1360``).
 
 :class:`BankStep` holds the whole bank's parameters and the state on the
 device and updates the state in place, one batch per call.
+
+What outlives a workunit in a resident server is keyed by
+:func:`step_cache_key`: the loaded kernel libraries (``ops/kernels.py``)
+and cuFFT's plan of the batch's transform (torch's plan cache), both held
+by the process.  :func:`warm_step` makes them ahead of the first
+workunit; ``run_bank(step_cache=...)`` counts a hit or a miss per attempt.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from ..device import resolve_device
 from ..oracle.pipeline import DerivedParams
 from ..oracle.sincos import libm_sinf_array
 from ..ops.harmonic import from_natural_order, state_width, sumspec_spectrum, to_natural_order
+from ..ops.kernels import planned_fft
 from ..ops.resample import exact_mean_params, fftprep_series
 
 # below any real summed power: padded batch slots are masked to this before
@@ -275,7 +282,7 @@ class BankStep(nn.Module):
             nsamples=g.nsamples, n_unpadded=g.n_unpadded, dt=g.dt, exact_mean=g.exact_mean,
             mean=None if self.mean is None else self.mean[t_offset : t_offset + B],
         )
-        F = torch.fft.rfft(x)
+        F = planned_fft(torch.fft.rfft, x)
         del x
         sums = sumspec_spectrum(F, nsamples=g.nsamples, fund_hi=g.fund_hi, harm_hi=g.harm_hi)
         del F  # sums: (B, 5, W)
@@ -287,6 +294,42 @@ class BankStep(nn.Module):
         self.M.copy_(torch.where(better, bmax, self.M))
         self.T.copy_(torch.where(better, barg + t_offset, self.T))
         return self.M, self.T
+
+
+def step_cache_key(geom: SearchGeometry, batch_size: int, device) -> tuple:
+    """Residency key of a batch step: two searches with equal keys run the
+    same kernels on the same transform, so the second needs no kernel
+    build and no new cuFFT plan.  It folds in everything :class:`BankStep`
+    and :func:`run_bank` read besides their operands: the geometry (a
+    frozen dataclass of scalars, hashable, with ``exact_mean``), the batch
+    (the R2C plan is of (batch, nsamples)) and the device (plans are per
+    card)."""
+    return ("erp-torch-bank-step/1", geom, int(batch_size), str(resolve_device(device)))
+
+
+def warm_step(geom: SearchGeometry, batch_size: int, device="cuda") -> None:
+    """Make what a search of ``geom`` at ``batch_size`` needs before its
+    first workunit: build and load every kernel library (on a card, at the
+    first kernel launch), plan cuFFT's R2C of (batch, nsamples) by one
+    :class:`BankStep` on zero operands of the production shapes, take the
+    exact mean once where ``geom.exact_mean``, and otherwise (whitened
+    runs) warm whitening (``ops/whiten.py::warm``)."""
+    dev = resolve_device(device)
+    B = int(batch_size)
+    ts = torch.zeros(geom.n_unpadded, dtype=torch.float32, device=dev)
+    params = bank_params_host(np.full(B, 1000.0), np.full(B, 0.01), np.zeros(B), geom.dt)
+    bank = upload_bank(params, B, dev)
+    mean = None
+    if geom.exact_mean:
+        mean = torch.zeros(bank.shape[0], dtype=torch.float32, device=dev)
+        mean[:B] = exact_mean_params(ts, bank[:B], n_unpadded=geom.n_unpadded, dt=geom.dt)[1]
+    else:
+        from ..ops.whiten import warm
+
+        warm(geom.nsamples, dev)
+    BankStep(geom, bank, B, mean=mean)(ts, 0, B)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def run_bank(
@@ -302,6 +345,7 @@ def run_bank(
     progress_cb=None,
     snapshot=None,
     recover: bool = True,
+    step_cache=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Search templates ``[start_template, stop_template)`` of the bank
     over the time series ``ts`` (float32[n_unpadded], on the device the
@@ -328,7 +372,10 @@ def run_bank(
     the card (``runtime/session.py``), and without one the loop restarts
     from ``state`` as given.  The (M, T) written does not depend on the
     batch: the merge keeps the earliest template on ties.
-    ``ERP_RETRY_BUDGET=0`` or ``recover=False`` runs one attempt."""
+    ``ERP_RETRY_BUDGET=0`` or ``recover=False`` runs one attempt.
+
+    ``step_cache`` (``runtime/scheduler.StepCache``) is told the attempt's
+    :func:`step_cache_key`, and counts a hit or a miss."""
     from ..runtime import flightrec, resilience
 
     validate_bank_bounds(geom, bank_P, bank_tau, bank_psi0)
@@ -342,7 +389,9 @@ def run_bank(
         rows = upload_bank(params, 0, dev)[start_template:n_stop]
         mean = (start_template, exact_mean_params(ts, rows, n_unpadded=geom.n_unpadded, dt=geom.dt)[1])
         del rows
-    attempt = dict(ts=ts, params=params, geom=geom, n=n, n_stop=n_stop, mean=mean, progress_cb=progress_cb)
+    attempt = dict(
+        ts=ts, params=params, geom=geom, n=n, n_stop=n_stop, mean=mean, progress_cb=progress_cb, step_cache=step_cache
+    )
     pol = resilience.policy() if recover else None
     if pol is None:
         return _run_bank_attempt(batch_size=batch_size, state=state, start=start_template, **attempt)
@@ -367,7 +416,7 @@ def run_bank(
         flightrec.record("redispatch", start=cur_start, batch_size=ladder.batch_size, attempt=ladder.attempt)
 
 
-def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, batch_size, state, start):
+def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, step_cache, batch_size, state, start):
     """One pass of the dispatch loop over ``[start, n_stop)`` at
     ``batch_size``: upload the bank, then one :class:`BankStep` per batch.
     The loop never waits on the card: the stream queues ahead, and only a
@@ -379,6 +428,8 @@ def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, batch_size
     from ..runtime import faultinject, flightrec, metrics, profiling, steptime, tracing, watchdog
 
     dev = ts.device
+    if step_cache is not None:
+        step_cache.touch(step_cache_key(geom, batch_size, dev))
     faultinject.fault_point("h2d", loop="run_bank")
     bank = upload_bank(params, batch_size, dev)
     mean_dev = None

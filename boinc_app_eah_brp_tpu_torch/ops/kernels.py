@@ -16,6 +16,10 @@ and the reference's serial float32 pad mean of unwhitened runs (entry
 ``serial_mean``: every template's mean of a bank in one launch, from
 kernel A's device functions), ``fold.cu`` the fold of float power and of
 the complex spectrum.
+
+:func:`planned_fft` runs the port's ``torch.fft`` transforms and tells
+:data:`plan_listeners` how many cuFFT plans each created, on the thread
+that created them.
 """
 
 from __future__ import annotations
@@ -68,11 +72,15 @@ launch_counts = {name: 0 for name in KERNELS}
 # callables told (sources compiled, wall seconds) after each build that ran
 # nvcc (the metrics layer's kernel-build counters)
 build_listeners: list = []
+# callables told the number of cuFFT plans a transform of planned_fft just
+# created, on its thread (the metrics layer's plan counters)
+plan_listeners: list = []
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas's resource report of each kernel built by this process
 ptxas_report: dict[str, list[str]] = {}
 _lock = threading.Lock()
+_plan_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -159,3 +167,24 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def planned_fft(transform, x, **kwargs):
+    """``transform(x, **kwargs)``, a ``torch.fft`` transform, telling
+    :data:`plan_listeners` how many cuFFT plans it created.  torch's plan
+    cache of ``x``'s card is read before and after the call under one lock,
+    so a transform on another thread is never counted as this one's (cuFFT
+    makes a plan on the calling thread, before the launch)."""
+    if x.device.type != "cuda":
+        return transform(x, **kwargs)
+    import torch
+
+    cache = torch.backends.cuda.cufft_plan_cache[x.device.index]
+    with _plan_lock:
+        before = cache.size
+        out = transform(x, **kwargs)
+        made = cache.size - before
+    if made > 0:
+        for fn in plan_listeners:
+            fn(made)
+    return out

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .kernels import planned_fft
+
 
 def power_from_rfft(F: torch.Tensor, *, nsamples: int) -> torch.Tensor:
     """``(re*re + im*im) * float32(1/nsamples)`` of the complex spectra
@@ -23,5 +25,5 @@ def power_from_rfft(F: torch.Tensor, *, nsamples: int) -> torch.Tensor:
 def power_spectrum(x: torch.Tensor, *, nsamples: int) -> torch.Tensor:
     """float32[..., nsamples//2 + 1] of the real series ``x[..., nsamples]``,
     DC bin zeroed per spectrum."""
-    return power_from_rfft(torch.fft.rfft(x), nsamples=nsamples)
+    return power_from_rfft(planned_fft(torch.fft.rfft, x), nsamples=nsamples)
 

@@ -14,6 +14,7 @@ import torch
 from ..device import resolve_device
 from ..oracle.pipeline import DerivedParams, SearchConfig
 from ..oracle.whiten import seed_from_samples, zap_noise
+from .kernels import planned_fft
 from .native_median import running_median
 
 
@@ -43,7 +44,7 @@ def whiten_and_zap(
 
     padded = torch.zeros(nsamples, dtype=torch.float32, device=dev)
     padded[:n_unpadded] = torch.from_numpy(samples).to(dev)
-    F = torch.fft.rfft(padded)
+    F = _forward(padded)
     re, im = F.real, F.imag
 
     ps = re * re + im * im
@@ -73,6 +74,24 @@ def whiten_and_zap(
     im[:window_2] = 0.0
     im[fft_size - window_2 :] = 0.0
 
-    back = torch.fft.irfft(torch.complex(re, im), n=nsamples)
+    back = _inverse(re, im, nsamples)
     back = back * float(np.sqrt(np.float32(nsamples)))
     return back[:n_unpadded].contiguous()
+
+
+def _forward(padded: torch.Tensor) -> torch.Tensor:
+    return planned_fft(torch.fft.rfft, padded)
+
+
+def _inverse(re: torch.Tensor, im: torch.Tensor, nsamples: int) -> torch.Tensor:
+    return planned_fft(torch.fft.irfft, torch.complex(re, im), n=nsamples)
+
+
+def warm(nsamples: int, device: str | torch.device = "cuda") -> None:
+    """Make what :func:`whiten_and_zap` of a series padded to ``nsamples``
+    needs before its first workunit: its two transforms' cuFFT plans, on
+    zeros, and the host median's library."""
+    dev = resolve_device(device)
+    F = _forward(torch.zeros(nsamples, dtype=torch.float32, device=dev))
+    _inverse(F.real, F.imag, nsamples)
+    running_median(np.zeros(3, dtype=np.float32), 3)

@@ -28,8 +28,11 @@ Design rules:
 Where the JAX package bridges ``jax.monitoring`` (recompiles, cache
 traffic), the port counts its own builds: ``torch.kernel_builds`` and
 ``torch.kernel_build_s`` (``nvcc`` runs of ``ops/kernels.py::build``) and
-``torch.cufft_plans`` (cuFFT plans created during the window, from
-``torch.backends.cuda.cufft_plan_cache``).
+``torch.cufft_plans`` (cuFFT plans created during the window, as
+``ops/kernels.py::planned_fft`` reports them).  Both fan out to every live
+context, unless the thread that made them is charged to one context
+(:func:`charged_to`): a resident server prepares one workunit on its prep
+thread while another executes, and each counts its own.
 
 Env surface: ``ERP_METRICS_FILE`` (JSONL stream path; enables the layer),
 ``ERP_METRICS_INTERVAL`` (heartbeat seconds, default 30, <= 0 disables
@@ -42,6 +45,7 @@ take explicit paths.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import os
 import sys
@@ -298,7 +302,6 @@ class MetricsContext:
         self._trace_dirs: list[str] = []
         self._host_trace_file: str | None = None
         self._corr_id: str | None = None
-        self._cufft_base = 0
         with _contexts_lock:
             _all_contexts.add(self)
 
@@ -341,12 +344,13 @@ class MetricsContext:
             with self._lock:
                 self._host_trace_file = str(path)
 
+    def cufft_plans(self) -> int:
+        """cuFFT plans created in this window (0 when disabled or none)."""
+        if not self._enabled or "torch.cufft_plans" not in self._registry._metrics:
+            return 0
+        return int(self._registry.counter("torch.cufft_plans").value)
+
     def snapshot(self) -> dict:
-        if self._enabled:
-            plans = _cufft_plan_count() - self._cufft_base
-            if plans > 0:
-                c = self._registry.counter("torch.cufft_plans")
-                c.inc(plans - c.value)
         return self._registry.snapshot()
 
     # -- stream emitter ---------------------------------------------------
@@ -428,7 +432,6 @@ class MetricsContext:
                 os.environ.get(CORR_ID_ENV) if self._env_fallback else None
             ) or None
             self._emitter_stop = threading.Event()
-            self._cufft_base = _cufft_plan_count()
             self._enabled = True
         _register_build_hook()
         _register_atexit()
@@ -646,18 +649,43 @@ def emergency_flush(status: str = "abnormal-exit") -> dict | None:
 
 _build_hooked = False
 _atexit_registered = False
+_charge = threading.local()
+
+
+@contextlib.contextmanager
+def charged_to(ctx: MetricsContext | None):
+    """Kernel builds and cuFFT plans made on this thread inside the block
+    count in ``ctx`` alone (None: in every live context, the default)."""
+    prev = getattr(_charge, "ctx", None)
+    _charge.ctx = ctx
+    try:
+        yield
+    finally:
+        _charge.ctx = prev
+
+
+def _charged_contexts() -> list[MetricsContext]:
+    ctx = getattr(_charge, "ctx", None)
+    if ctx is not None:
+        return [ctx] if ctx.enabled() else []
+    return _live_contexts()
 
 
 def _on_kernel_build(n_built: int, seconds: float) -> None:
-    for ctx in _live_contexts():
+    for ctx in _charged_contexts():
         ctx.registry().counter("torch.kernel_builds").inc(int(n_built))
         ctx.registry().counter("torch.kernel_build_s", unit="s").inc(float(seconds))
 
 
+def _on_cufft_plans(n_made: int) -> None:
+    for ctx in _charged_contexts():
+        ctx.registry().counter("torch.cufft_plans").inc(int(n_made))
+
+
 def _register_build_hook() -> None:
     """Count ``nvcc`` runs of ``ops/kernels.py::build`` (one per kernel
-    source compiled; a cached library counts nothing).  Registered once
-    per process; the listener fans out to every live context."""
+    source compiled; a cached library counts nothing) and the cuFFT plans
+    of ``ops/kernels.py::planned_fft``.  Registered once per process."""
     global _build_hooked
     if _build_hooked:
         return
@@ -665,6 +693,7 @@ def _register_build_hook() -> None:
 
     _build_hooked = True
     kernels.build_listeners.append(_on_kernel_build)
+    kernels.plan_listeners.append(_on_cufft_plans)
 
 
 def _cuda_ready():
@@ -678,20 +707,6 @@ def _cuda_ready():
     except Exception:
         pass
     return None
-
-
-def _cufft_plan_count() -> int:
-    """cuFFT plans held in torch's plan caches, over every device."""
-    torch = _cuda_ready()
-    if torch is None:
-        return 0
-    try:
-        return sum(
-            int(torch.backends.cuda.cufft_plan_cache[i].size)
-            for i in range(torch.cuda.device_count())
-        )
-    except Exception:
-        return 0
 
 
 def _device_peaks() -> list[dict]:

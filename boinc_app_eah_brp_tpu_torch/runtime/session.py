@@ -14,6 +14,17 @@ package's ``runtime/session.py`` on one device, with its spans, metrics,
 flight-recorder events, watchdog guards and retried writes under the same
 names.
 
+A resident server (``runtime/scheduler.py``) builds one Session per
+workunit with a :class:`SessionEnv` snapshot of the env knobs, a scoped
+``runtime/obs.ObsContext`` and a correlation id, prepares it on its prep
+thread and executes it with its step cache; :meth:`Session.release` then
+drops the session's tensors.  The prep thread queues its device work
+(the series' upload, whitening's FFTs, the zeroed state) on the default
+stream that the executing session also uses, so it runs after the work
+already queued there and needs no stream synchronisation of its own; its
+copies between host and card (the pageable upload, whitening's power
+spectrum) wait for that queue.
+
 The search loop never waits on the card between batches; the host waits
 only where it copies the state: the checkpoint's copy, the screensaver's
 row and the final copy.  Those are the ``drain`` points: each runs under
@@ -26,6 +37,7 @@ from __future__ import annotations
 import math
 import os
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -49,8 +61,9 @@ from ..oracle.stats import base_thresholds
 from ..oracle.toplist import finalize_candidates, update_toplist_from_maxima
 from . import flightrec, metrics, profiling, resilience, steptime, tracing, watchdog
 from . import logging as erplog
-from .boinc import BoincAdapter
+from .boinc import BoincAdapter, _default_checkpoint_period, _default_progress_min_delta
 from .errors import RADPUL_EFILE, RADPUL_TEMPORARY_EXIT, RadpulError
+from .errors import exit_code_for  # noqa: F401  (re-exported, as the JAX package's session does)
 
 EXEC_NAME = "eah_brp_tpu_torch"
 
@@ -125,20 +138,85 @@ def _dump_thresholds(fA: float, fft_size: int) -> None:
         erplog.log_message(erplog.Level.INFO, False, "%s = %g\n", label, 0.5 * chisq_Qinv(prob, nu))
 
 
+@dataclass(frozen=True)
+class SessionEnv:
+    """Per-Session snapshot of the env knobs a resident server must re-read
+    between workunits: the checkpoint cadence (``ERP_CHECKPOINT_PERIOD``)
+    and the progress threshold (``ERP_PROGRESS_MIN_DELTA``), read through
+    ``runtime/boinc.py`` with its fallbacks for bad values.  Captured once
+    per Session: a knob changed while a server runs applies from the next
+    workunit on, never in the middle of one."""
+
+    checkpoint_period_s: float = 60.0
+    progress_min_delta: float = 0.001
+
+    @classmethod
+    def capture(cls) -> "SessionEnv":
+        return cls(
+            checkpoint_period_s=_default_checkpoint_period(),
+            progress_min_delta=_default_progress_min_delta(),
+        )
+
+    def make_adapter(self) -> BoincAdapter:
+        """A fresh BOINC adapter honouring this snapshot's cadence."""
+        return BoincAdapter(
+            checkpoint_period_s=self.checkpoint_period_s,
+            progress_min_delta=self.progress_min_delta,
+        )
+
+
 class Session:
     """One workunit's search.  ``args`` is a ``runtime/driver.DriverArgs``
     whose ``device`` is already chosen; ``adapter`` defaults to a fresh
-    :class:`BoincAdapter`; ``init_data`` (``runtime/initdata.py``) gives
-    the result file its provenance."""
+    :class:`BoincAdapter` built from ``env`` (a :class:`SessionEnv`,
+    captured now when None); ``init_data`` (``runtime/initdata.py``) gives
+    the result file its provenance.  ``obs`` is an optional scoped
+    ``ObsContext`` (the serving tier's per-Session black box; the driver
+    leaves it None and uses the process-global layers), ``corr_id`` the
+    workunit's correlation id (default ``$ERP_CORR_ID``).  ``batch_for(geom,
+    device)``, when given, chooses the batch of a run without ``--batch``
+    in place of ``runtime/autobatch.py`` (a resident scheduler holds one
+    batch per geometry class)."""
 
-    def __init__(self, args, adapter: BoincAdapter | None = None, init_data=None):
+    def __init__(
+        self,
+        args,
+        adapter: BoincAdapter | None = None,
+        *,
+        env: SessionEnv | None = None,
+        obs=None,
+        corr_id: str | None = None,
+        init_data=None,
+        batch_for=None,
+    ):
         self.args = args
-        self.adapter = adapter or BoincAdapter()
+        self.env = env or SessionEnv.capture()
+        self.adapter = adapter or self.env.make_adapter()
+        self.obs = obs
+        self.corr_id = corr_id or os.environ.get(metrics.CORR_ID_ENV) or None
         self.init_data = init_data
+        self.batch_for = batch_for
         self.prepared = False
-        self._setup_span = None
+
+    def _obs_record(self, event: str, **fields) -> None:
+        """A lifecycle breadcrumb into the Session's own black box (a no-op
+        without a scoped bundle: the driver's flight recorder keeps its
+        record points)."""
+        if self.obs is None:
+            return
+        if self.corr_id:
+            fields.setdefault("corr_id", self.corr_id)
+        self.obs.flightrec.record(event, **fields)
 
     def prepare(self) -> "Session":
+        """Parse, upload and (with ``-W``) whiten the workunit, read the
+        bank and the checkpoint, and choose the batch, on one timeline span
+        closed on the thread that opened it (a server prepares on its prep
+        thread); a failure closes it with its error."""
+        with tracing.span("setup"):
+            return self._prepare()
+
+    def _prepare(self) -> "Session":
         from ..models.search import (
             SearchGeometry,
             init_state,
@@ -151,10 +229,7 @@ class Session:
         )
 
         args = self.args
-        # everything up to the template loop on one timeline span, closed
-        # by execute(): an exception mid-setup leaves it on the open-span
-        # stack, which is what a crash dump should show
-        self._setup_span = tracing.span("setup").__enter__()
+        self._obs_record("session-prepare", inputfile=args.inputfile, templatebank=args.templatebank)
         self.dev = resolve_device(args.device)
 
         # template bank: the full parse is its validation (demod_binary.c:507-544)
@@ -250,6 +325,8 @@ class Session:
         if args.batch_size is not None:
             self.batch_size = int(args.batch_size)
             erplog.info("Batch size %d (--batch).\n", self.batch_size)
+        elif self.batch_for is not None:
+            self.batch_size = int(self.batch_for(geom, self.dev))
         else:
             from .autobatch import choose_batch
 
@@ -286,6 +363,14 @@ class Session:
         self.prepared = True
         return self
 
+    def release(self) -> None:
+        """Drop the prepared tensors (the series and the (M, T) state), so a
+        resident server's device memory returns to its baseline between
+        workunits; the session must be prepared again to run."""
+        for name in ("ts", "state"):
+            self.__dict__.pop(name, None)
+        self.prepared = False
+
     def _candidates(self, M_host: np.ndarray, T_host: np.ndarray) -> np.ndarray:
         from ..models.search import state_to_natural
 
@@ -302,11 +387,13 @@ class Session:
         """The searched series on the host, for the oracle rescoring."""
         return self.ts.cpu().numpy()
 
-    def execute(self) -> int:
+    def execute(self, step_cache=None) -> int:
         """Run the prepared search to its result file; returns 0 (also
         after a quit, once the checkpoint is written) or raises one of the
         exceptions ``runtime/errors.py::exit_code_for`` maps (the
-        watchdog's abort as ``RADPUL_TEMPORARY_EXIT``)."""
+        watchdog's abort as ``RADPUL_TEMPORARY_EXIT``).  ``step_cache``
+        (``runtime/scheduler.StepCache``) is handed to ``run_bank``, which
+        counts its hits and misses; None (the driver) changes nothing."""
         if not self.prepared:
             self.prepare()
         from ..models.search import run_bank
@@ -429,13 +516,14 @@ class Session:
             self.dev, template_total, self.start_template, batch_size,
         )
         profiling.device_memory_status("search setup")
-        if self._setup_span is not None:
-            self._setup_span.__exit__(None, None, None)
-            self._setup_span = None
         metrics.gauge("search.batch_size").set(int(batch_size))
         flightrec.record(
             "run-config", template_total=int(template_total), start_template=int(self.start_template),
             batch_size=int(batch_size), n_mesh=1,
+        )
+        self._obs_record(
+            "session-search", template_total=int(template_total), start_template=int(self.start_template),
+            batch_size=int(batch_size),
         )
         # quarantined windows carve the bank into runnable segments, each a
         # bounded [start, stop) window (templates >= stop are masked)
@@ -451,6 +539,7 @@ class Session:
                     state = run_bank(
                         self.ts, bank.P, bank.tau, bank.psi0, geom, batch_size=batch_size, state=state,
                         start_template=seg_a, stop_template=seg_b, progress_cb=progress_cb, snapshot=snap,
+                        step_cache=step_cache,
                     )
                     if interrupted:
                         break
@@ -465,6 +554,7 @@ class Session:
                     raise RadpulError(
                         RADPUL_TEMPORARY_EXIT, "Watchdog stall: checkpointed and exiting for a supervised restart."
                     )
+                self._obs_record("session-interrupted", last_done=last_done)
                 return 0
 
             # final checkpoint (demod_binary.c:1495-1499), then the toplist
@@ -514,6 +604,7 @@ class Session:
         with tracing.span("result-write"), watchdog.guard("result_write"):
             resilience.call_with_retry(lambda: write_result_file(args.outputfile, result), site="result_write")
         erplog.info("Data processing finished successfully!\n")
+        self._obs_record("session-done", outputfile=args.outputfile)
         return 0
 
     def run(self) -> int:

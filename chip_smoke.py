@@ -55,7 +55,16 @@ Phases:
    ``dispatch:hang@n=3``, a short dispatch deadline and a checkpoint
    every batch must exit 0 after one restart with the baseline's rows,
    and its incident log must validate;
-10. print the kernel table as one JSON line (launches from the whitened
+10. serving (e): one resident ``FleetServer`` warmed for the unwhitened
+   class at ``--batch 32`` serves phase 5's workunit, a missing input
+   file, a second workunit with another injected template, and phase 5's
+   workunit again, counts reset just before and read per workunit: every
+   good workunit must run with no kernel build and no new cuFFT plan, hit
+   the one step cache entry, launch kernels A, B, C and the exact mean,
+   and give device memory back to the post-warm value within 64 MB; the
+   copies of phase 5's workunit must give phase 5's rows, the other its
+   injected template in the top 5, the missing file RADPUL_EIO;
+11. print the kernel table as one JSON line (launches from the whitened
    run, the serial mean's from the unwhitened one), the runs' numbers,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -86,6 +95,7 @@ FA = 0.08
 WINDOW = 1000
 BATCH = 32
 INJECT = 57  # bank200 row whose orbit the synthetic signal follows
+INJECT2 = 131  # the serving phase's second workunit follows this row
 SEED = 20261016
 DEVICE = "cuda"
 
@@ -124,6 +134,7 @@ QUIT_AFTER = 3  # batches before the interrupted run quits
 TILE = 33  # the exact mean is also run on bank200 tiled this often: 6,600 templates
 OOM_BATCH = 1024  # a batch the card cannot hold at this width (~153 MB a template)
 HANG_DEADLINE_S = 10  # the supervised run's dispatch deadline
+SERVE_MEM_SLACK = 64 << 20  # device memory a served workunit may leave above the post-warm value
 
 
 class CheckFailed(Exception):
@@ -328,6 +339,11 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
         rfft_ms=time_ms(torch, lambda: torch.fft.rfft(x), 5),
         power_ms=time_ms(torch, lambda: power_from_rfft(F, nsamples=nsamples), 5),
     )
+    # the rfft (cuFFT) has no kernel of ours: its bound is one pass, the
+    # real input read once and the complex output written once; "passes"
+    # is how many such passes its measured time is worth
+    out["rfft"] = bound(T * nsamples * 4 + T * F.shape[1] * 8)
+    out["rfft"]["passes"] = stages["rfft_ms"] / out["rfft"]["bound_ms"]
     del x
     fold_kw = dict(fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
     W = harmonic.state_width(geom.fund_hi)
@@ -388,14 +404,14 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
     return out
 
 
-def synthetic_workunit(path: str, geom, bank) -> tuple[float, float]:
+def synthetic_workunit(path: str, geom, bank, inject: int = INJECT, seed: int = SEED) -> tuple[float, float]:
     """A 4-bit workunit of N_UNPADDED samples: N(4, 1) noise plus a pulse
-    train whose arrival times follow bank row INJECT's orbit, made from
-    SEED.  Returns the template's (P, tau)."""
+    train whose arrival times follow bank row ``inject``'s orbit, made from
+    ``seed``.  Returns the template's (P, tau)."""
     from boinc_app_eah_brp_tpu_torch.io import write_workunit
 
-    P, tau, psi0 = bank.P[INJECT], bank.tau[INJECT], bank.psi0[INJECT]
-    rng = np.random.default_rng(SEED)
+    P, tau, psi0 = bank.P[inject], bank.tau[inject], bank.psi0[inject]
+    rng = np.random.default_rng(seed)
     dt = TSAMPLE_US * 1e-6
     i = np.arange(N_UNPADDED, dtype=np.float64)
     t = i * dt
@@ -863,6 +879,120 @@ def run_supervised(workdir: str, wu: str, zap: str, base_rows) -> dict:
     return dict(wall_s=wall, incidents=[(i["stage"], i["window"]) for i in doc["incidents"]])
 
 
+def run_serving(torch, workdir: str, wu: str, unwhite_rows, geom, bank) -> dict:
+    """Phase (e): one resident FleetServer, warmed for the unwhitened class
+    at BATCH, serves phase 5's workunit, a missing input file, a second
+    workunit with another injected template and phase 5's workunit again,
+    all queued at once (so each workunit's prep overlaps the one before).
+    The launch counts are reset just before the first submit; each
+    session's launches, steps and device memory are read around its
+    execution, which the scheduler serializes."""
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.runtime import steptime
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import parse_args
+    from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EIO
+    from boinc_app_eah_brp_tpu_torch.runtime.percentiles import latency_block
+    from boinc_app_eah_brp_tpu_torch.runtime.scheduler import WarmSpec
+    from boinc_app_eah_brp_tpu_torch.runtime.session import Session
+    from boinc_app_eah_brp_tpu_torch.serving import FleetServer
+
+    wu2 = os.path.join(workdir, "serve2.bin4")
+    P2, tau2 = synthetic_workunit(wu2, geom, bank, inject=INJECT2, seed=SEED + 1)
+
+    def args(path, name):
+        return parse_args(
+            f"-i {path} -o {os.path.join(workdir, name + '.cand')} -t {BANK} -c {os.path.join(workdir, name + '.cpt')} "
+            f"-P {PADDING} -f {F0} -A {FA} -B {WINDOW} --batch {BATCH} --device {DEVICE}".split()
+        )
+
+    requests = [
+        ("serve_a", args(wu, "serve_a")),
+        ("serve_missing", args(os.path.join(workdir, "missing.bin4"), "serve_missing")),
+        ("serve_b", args(wu2, "serve_b")),
+        ("serve_c", args(wu, "serve_c")),
+    ]
+    # the class's geometry, as a session of it builds it
+    probe = Session(args(wu, "serve_probe")).prepare()
+    spec = WarmSpec(probe.geom, BATCH)
+    probe.release()
+    del probe
+    steptime.configure(force=True)
+    t0 = time.perf_counter()
+    server = FleetServer(name="smoke", warm_specs=[spec], device=DEVICE)
+    warm_s = time.perf_counter() - t0
+    per_wu = {}
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        execute = server.scheduler.execute
+
+        def counted(session, prep_future=None):
+            before, step0 = dict(kernels.launch_counts), steptime.count()
+            res = execute(session, prep_future)
+            torch.cuda.synchronize()
+            steps = [r["ms"] for r in steptime.records(since=step0)]
+            per_wu[res.name] = dict(
+                launches={k: v - before[k] for k, v in kernels.launch_counts.items()},
+                mem_delta_bytes=torch.cuda.memory_allocated() - base,
+                first_step_ms=steps[0] if steps else None,
+                median_step_ms=float(np.median(steps)) if steps else None,
+            )
+            return res
+
+        server.scheduler.execute = counted
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tickets = [server.submit(a, corr_id=name) for name, a in requests]
+        results = [server.result(t, timeout=600) for t in tickets]
+        served_s = time.perf_counter() - t0
+        stats = server.stats()
+        gaps = latency_block(server.scheduler.inter_wu_gaps_s, digits=6)
+    finally:
+        server.close()
+        steptime.finish(0)
+    torch.cuda.synchronize()
+    end_delta = torch.cuda.memory_allocated() - base
+
+    wus = []
+    for (name, a), r in zip(requests, results):
+        w = per_wu[r.name]
+        wus.append(dict(
+            request=name, code=r.code, wall_s=r.wall_s, prepare_s=r.prepare_s, recompiles=r.recompiles,
+            step_cache_hits=r.step_cache_hits, step_cache_misses=r.step_cache_misses, **w,
+        ))
+        if name == "serve_missing":
+            check(r.code == RADPUL_EIO, f"the missing input gave {r.code}, not RADPUL_EIO: {r.error}")
+            continue
+        check(r.ok, f"served {name} failed: {r.code} {r.error}")
+        check(r.recompiles == 0, f"served {name} built kernels or planned cuFFT after warm-up: {r.recompiles}")
+        check(r.step_cache_hits >= 1 and r.step_cache_misses == 0, f"served {name} missed the step cache")
+        for k in UNWHITENED_PATH:
+            check(w["launches"][k] > 0, f"kernel {k} was not launched by served {name}")
+        check(w["launches"]["serial_mean"] == 1, f"served {name} took the exact mean {w['launches']['serial_mean']} times")
+        check(abs(w["mem_delta_bytes"]) <= SERVE_MEM_SLACK, f"served {name} left {w['mem_delta_bytes']} bytes on the card")
+        rows = _candidate_rows(a.outputfile)
+        if name in ("serve_a", "serve_c"):
+            check(np.array_equal(rows, unwhite_rows), f"served {name}'s rows differ from phase 5's")
+        else:
+            rank = _injected_rank(rows[:5], P2, tau2)
+            check(rank is not None, f"served {name}: injected template row {INJECT2} not in the top 5")
+            wus[-1]["injected_rank"] = rank
+    check(stats["step_cache"]["entries"] == 1, f"the step cache holds {stats['step_cache']['entries']} entries")
+    check(stats["recompiles_after_warmup"] == 0, "the server built or planned after warm-up")
+    check(abs(end_delta) <= SERVE_MEM_SLACK, f"the server left {end_delta} bytes on the card")
+    return dict(
+        warm=server.warm_report,
+        warm_s=warm_s,
+        served_s=served_s,
+        workunits=wus,
+        end_mem_delta_bytes=end_delta,
+        wus_per_hour_per_chip=stats["wus_per_hour_per_chip"],
+        inter_wu_gap_s={k: gaps[k] for k in ("n", "p50", "p95")},
+        stats=stats,
+        launches=dict(kernels.launch_counts),
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -914,12 +1044,16 @@ def main() -> int:
         sweep = run_batch_sweep(torch, geom, bank, wu, zap)
         ladder = run_oom_ladder(torch, workdir, wu, zap)
         supervised = run_supervised(workdir, wu, zap, ladder.pop("baseline_rows"))
+        torch.cuda.empty_cache()
+        serving = run_serving(
+            torch, workdir, wu, _candidate_rows(os.path.join(workdir, "unwhitened.cand")), geom, bank
+        )
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     print(json.dumps({"stages": measured.pop("stages")}))
-    detail = ("limit", "bound_ms", "bytes_ms", "fp32_ms", "conversions_ms", "chain_ms")
+    detail = ("limit", "bound_ms", "bytes_ms", "fp32_ms", "conversions_ms", "chain_ms", "passes")
     print(json.dumps({"bounds": {k: {d: m[d] for d in detail if d in m} for k, m in measured.items()}}))
     rows = []
     for name, (replaces, src) in KERNEL_ROWS.items():
@@ -946,6 +1080,7 @@ def main() -> int:
     print(json.dumps({"batch_sweep": sweep}))
     print(json.dumps({"oom_ladder": ladder}))
     print(json.dumps({"supervised": supervised}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": rows}))
     print(
         json.dumps(

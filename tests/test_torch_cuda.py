@@ -249,3 +249,71 @@ def test_choose_batch_on_the_card(dev, monkeypatch, tmp_path):
     assert b in (8, 16, 32, 64, 128)
     assert len(lines) == 1 and lines[0].startswith(f"Batch size {b} (memory model, HBM budget ")
     assert autobatch.device_memory_budget(dev) > 0
+
+
+@pytest.mark.parametrize("white", [False, True])
+def test_warmed_scheduler_serves_without_builds_or_plans(dev, tmp_path, monkeypatch, white):
+    """On a warmed Scheduler two same-geometry sessions make no kernel
+    build and no new cuFFT plan (whitened: nor whitening's transforms),
+    launch the main path's kernels, and give device memory back to the
+    post-warm value.  A session whose second batch runs out of memory
+    clears every plan and halves its batch: the plan it then makes counts
+    though the plan cache is smaller than when its window opened, and the
+    next session of the class, prepared on the prep thread meanwhile,
+    replans and counts that too."""
+    from boinc_app_eah_brp_tpu_torch.io import TemplateBank, write_template_bank, write_workunit
+    from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs
+    from boinc_app_eah_brp_tpu_torch.runtime.scheduler import Scheduler, WarmSpec
+    from boinc_app_eah_brp_tpu_torch.runtime.session import Session
+
+    n = 1 << 16
+    b = np.loadtxt(BANK200)[:10]
+    bank = str(tmp_path / "bank.dat")
+    write_template_bank(bank, TemplateBank(b[:, 0], b[:, 1], b[:, 2]))
+    zap = tmp_path / "zap.txt"
+    zap.write_text("50.0 51.0\n")
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        x = np.clip(np.round(rng.normal(4.0, 1.0, n)), 0, 15).astype(np.float32)
+        write_workunit(str(tmp_path / f"wu{i}.bin4"), x, tsample_us=DT * 1e6, scale=1.0)
+
+    def args(i, name, batch=4):
+        return DriverArgs(
+            inputfile=str(tmp_path / f"wu{i}.bin4"), outputfile=str(tmp_path / f"{name}.cand"), templatebank=bank,
+            checkpointfile=str(tmp_path / f"{name}.cpt"), window=200, white=white,
+            zaplistfile=str(zap) if white else None, batch_size=batch, device=str(dev),
+        )
+
+    probe = Session(args(0, "probe")).prepare()
+    spec = WarmSpec(probe.geom, 4)
+    probe.release()
+    del probe
+    sched = Scheduler(device=str(dev))
+    try:
+        sched.warm([spec])
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        for i in range(2):
+            kernels.reset_launch_counts()
+            r = sched.process(args(i, f"served{i}"))
+            torch.cuda.synchronize(dev)
+            assert r.ok, r.error
+            assert r.recompiles == 0
+            assert r.step_cache_hits >= 1 and r.step_cache_misses == 0
+            for k in ("resample", "fftprep", "fold_spectrum"):
+                assert kernels.launch_counts[k] > 0
+            assert kernels.launch_counts["serial_mean"] == int(not white)
+            assert torch.cuda.memory_allocated(dev) == base
+        monkeypatch.setenv("ERP_FAULT_SPEC", "dispatch:oom@n=2")
+        oom_s, again_s = sched.build_session(args(1, "oom")), sched.build_session(args(0, "replanned"))
+        oom_f, again_f = sched.prepare_async(oom_s), sched.prepare_async(again_s)
+        oom = sched.execute(oom_s, prep_future=oom_f)
+        monkeypatch.delenv("ERP_FAULT_SPEC")
+        assert oom.ok and oom.recompiles >= 1 and oom.step_cache_misses == 1
+        again = sched.execute(again_s, prep_future=again_f)
+        assert again.ok and again.recompiles >= 1 and again.step_cache_hits >= 1
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.memory_allocated(dev) == base
+        assert len(sched.step_cache) == 2  # batches 4 and 2
+    finally:
+        sched.close()

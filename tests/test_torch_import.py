@@ -29,6 +29,14 @@ assert open("out.cand").read().endswith("%DONE%\\n")
 rc = main("-i wu.bin4 -o out2.cand -t bank.dat -c cp.bin -B 100 --batch 2 --device cpu".split())
 assert rc == 0, rc
 assert open("out2.cand").read().endswith("%DONE%\\n")
+# the serving tier: one resident server, the same workunit
+from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs
+from boinc_app_eah_brp_tpu_torch.serving import FleetServer
+with FleetServer(name="probe", device="cpu") as server:
+    res = server.process(DriverArgs(inputfile="wu.bin4", outputfile="out3.cand", templatebank="bank.dat",
+                                    window=100, batch_size=2, device="cpu"))
+assert res.ok, res
+assert open("out3.cand").read().endswith("%DONE%\\n")
 assert "jax" not in sys.modules, "jax imported"
 assert not [m for m in sys.modules if m.startswith("boinc_app_eah_brp_tpu.")
             or m == "boinc_app_eah_brp_tpu"], "JAX package imported"
@@ -48,8 +56,9 @@ def test_port_cpu_path_imports_no_jax(tmp_path):
 
 RUNTIME_LAYERS = (
     "percentiles", "metrics", "tracing", "flightrec", "obs", "profiling", "steptime",
-    "autobatch", "faultinject", "resilience", "watchdog", "supervise", "errors",
+    "autobatch", "faultinject", "resilience", "watchdog", "supervise", "errors", "scheduler",
 )
+SERVING = ("journal", "slo", "introspect", "server")
 
 
 def test_runtime_layers_import_neither_torch_nor_jax():
@@ -66,6 +75,24 @@ def test_runtime_layers_import_neither_torch_nor_jax():
     assert r.returncode == 0, r.stderr
     for m in RUNTIME_LAYERS:
         assert (PORT / "runtime" / f"{m}.py").is_file()
+
+
+def test_serving_imports_neither_torch_nor_jax():
+    """The serving tier (the FleetServer, its journal, SLO monitor and
+    introspection) is host code: importing it loads neither torch nor jax;
+    torch comes in with the first session."""
+    probe = (
+        "import sys\n"
+        "import boinc_app_eah_brp_tpu_torch.serving\n"
+        + "".join(f"import boinc_app_eah_brp_tpu_torch.serving.{m}\n" for m in SERVING)
+        + "bad = [m for m in sys.modules if m in ('torch', 'jax') or m.startswith('boinc_app_eah_brp_tpu.')]\n"
+        + "assert not bad, bad\nprint('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", probe], env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    for m in SERVING:
+        assert (PORT / "serving" / f"{m}.py").is_file()
 
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():

@@ -37,6 +37,7 @@ from ..oracle.sincos import libm_sinf_array
 from ..ops.harmonic import from_natural_order, state_width, sumspec_spectrum, to_natural_order
 from ..ops.kernels import planned_fft
 from ..ops.resample import exact_mean_params, fftprep_series
+from ..runtime.devicecost import scoped, stage_scope
 
 # below any real summed power: padded batch slots are masked to this before
 # the batch reduction so they can never claim a bin
@@ -246,23 +247,80 @@ def bank_from_jax(params, device="cuda") -> torch.Tensor:
     return torch.from_numpy(np.stack(cols, axis=1)).to(resolve_device(device))
 
 
+# integers below 2**24 are exact in float32, so is a float32 count below it
+_EXACT_F32_COUNT = 1 << 24
+
+
+@scoped("health")
+def batch_health_vec(sums: torch.Tensor, valid: torch.Tensor, M_new: torch.Tensor) -> torch.Tensor:
+    """Device health scalars of one batch, a float32[4] vector
+    ``[nonfinite_batch, nonfinite_state, finite_max, finite_min]``
+    (counterpart of the reference package's ``batch_health_vec``, bit for
+    bit).
+
+    Computed from the batch's (B, 5, W) summed spectra before the
+    max-merge's sentinel mask, the only place a NaN is still visible:
+    ``NaN > M`` is false, so poisoned templates never reach (M, T)
+    (``runtime/health.py``).  Padded slots are excluded through ``valid``
+    (bool[B]); like the reference's, the finite max/min count each
+    excluded or non-finite slot as the sentinel (``NEG_SENTINEL`` for the
+    max, its negation for the min).  Plain torch reductions, outside any
+    kernel, per template row and then over the valid rows, in six passes
+    over the sums: the finite count (``1 + x*0`` is 1 where finite, NaN
+    elsewhere, summed ignoring NaN), and a copy with the non-finite slots
+    at -inf for the max, then at +inf in place for the min.
+    ``torch.isfinite`` and boolean sums are avoided on the sums: on an H100
+    the direct transcription with them takes 1.9x as long as these passes
+    (``PERF.md``, section 6).
+
+    The finite count is a float32 sum of ones, exact only below 2**24
+    slots a row (5 * W; production has 1,647,760), so a longer row
+    raises ``ValueError``."""
+    B = sums.shape[0]
+    x = sums.reshape(B, -1)
+    row = x.shape[1]
+    if row >= _EXACT_F32_COUNT:
+        raise ValueError(f"batch_health_vec counts in float32: {row} slots a row, the limit is {_EXACT_F32_COUNT - 1}")
+    inf = float("inf")
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    n_fin = torch.nansum(torch.addcmul(one, x, torch.zeros_like(one)), dim=1).to(torch.int64)
+    m = torch.nan_to_num(x, nan=-inf, posinf=-inf, neginf=-inf)
+    hi = m.amax(dim=1)
+    lo = m.nan_to_num_(neginf=inf).amin(dim=1)
+    del m
+    fmax = torch.where(valid, hi, -inf).amax()
+    fmin = torch.where(valid, lo, inf).amin()
+    excluded = (~valid | (n_fin < row)).any()
+    fmax = torch.where(excluded, torch.clamp(fmax, min=NEG_SENTINEL), fmax)
+    fmin = torch.where(excluded, torch.clamp(fmin, max=-NEG_SENTINEL), fmin)
+    nf_batch = ((row - n_fin) * valid).sum()
+    nf_state = (~torch.isfinite(M_new)).sum()
+    return torch.stack([nf_batch.to(torch.float32), nf_state.to(torch.float32), fmax, fmin])
+
+
 class BankStep(nn.Module):
     """One batch of the search: slice the resident bank at ``t_offset``,
     resample (kernel A), FFT-prep (kernel B), rfft, power + fold (kernel C
     on the complex spectrum), and merge the batch into the (M, T) state in
-    place.
+    place.  Each stage runs under its ``runtime/devicecost.py`` scope.
 
     ``bank`` is the float32[capacity, 4] resident bank (:func:`upload_bank`
     or :func:`bank_from_jax`) with capacity >= n_total + batch_size.
     ``mean`` (float32[capacity], optional) is the resident pad mean of
     every template, computed ahead (:func:`run_bank`); without it an
     unwhitened step (``geom.exact_mean``) computes its batch's exact means
-    itself."""
+    itself.  With ``with_health`` the step also returns the batch's
+    :func:`batch_health_vec`, for ``runtime/health.py``'s watchdog; without
+    it, it launches nothing more."""
 
-    def __init__(self, geom: SearchGeometry, bank: torch.Tensor, batch_size: int, state=None, mean=None):
+    def __init__(
+        self, geom: SearchGeometry, bank: torch.Tensor, batch_size: int, state=None, mean=None,
+        with_health: bool = False,
+    ):
         super().__init__()
         self.geom = geom
         self.batch_size = int(batch_size)
+        self.with_health = bool(with_health)
         self.register_buffer("bank", bank)
         self.register_buffer("mean", mean)
         if state is None:
@@ -276,24 +334,50 @@ class BankStep(nn.Module):
         B = self.batch_size
         if t_offset + B > self.bank.shape[0]:
             raise ValueError("bank capacity too small for this batch: pad it by batch_size")
-        p = self.bank[t_offset : t_offset + B]
+        with stage_scope("bank-slice"):
+            p = self.bank[t_offset : t_offset + B]
+            mean = None if self.mean is None else self.mean[t_offset : t_offset + B]
         x = fftprep_series(
             ts, p[:, 0], p[:, 1], p[:, 2], p[:, 3],
-            nsamples=g.nsamples, n_unpadded=g.n_unpadded, dt=g.dt, exact_mean=g.exact_mean,
-            mean=None if self.mean is None else self.mean[t_offset : t_offset + B],
+            nsamples=g.nsamples, n_unpadded=g.n_unpadded, dt=g.dt, exact_mean=g.exact_mean, mean=mean,
         )
-        F = planned_fft(torch.fft.rfft, x)
+        with stage_scope("fft"):
+            F = planned_fft(torch.fft.rfft, x)
         del x
-        sums = sumspec_spectrum(F, nsamples=g.nsamples, fund_hi=g.fund_hi, harm_hi=g.harm_hi)
+        with stage_scope("sumspec"):
+            sums = sumspec_spectrum(F, nsamples=g.nsamples, fund_hi=g.fund_hi, harm_hi=g.harm_hi)
         del F  # sums: (B, 5, W)
-        valid = torch.arange(t_offset, t_offset + B, device=sums.device) < n_total
-        sums = torch.where(valid[:, None, None], sums, torch.full_like(sums[:1], NEG_SENTINEL))
-        bmax = sums.amax(dim=0)
-        barg = sums.argmax(dim=0).to(torch.int32)  # first index of the max in the batch
-        better = bmax > self.M
-        self.M.copy_(torch.where(better, bmax, self.M))
-        self.T.copy_(torch.where(better, barg + t_offset, self.T))
-        return self.M, self.T
+        unmasked = sums if self.with_health else None
+        with stage_scope("merge"):
+            valid = torch.arange(t_offset, t_offset + B, device=sums.device) < n_total
+            sums = torch.where(valid[:, None, None], sums, torch.full_like(sums[:1], NEG_SENTINEL))
+            bmax = sums.amax(dim=0)
+            barg = sums.argmax(dim=0).to(torch.int32)  # first index of the max in the batch
+            better = bmax > self.M
+            self.M.copy_(torch.where(better, bmax, self.M))
+            self.T.copy_(torch.where(better, barg + t_offset, self.T))
+        if unmasked is None:
+            return self.M, self.T
+        del sums, bmax, barg, better
+        return self.M, self.T, batch_health_vec(unmasked, valid, self.M)
+
+
+def template_sumspec(ts: torch.Tensor, P: float, tau: float, psi0: float, geom: SearchGeometry) -> torch.Tensor:
+    """One template's float32[5, W] phase-major run maxima over the
+    series ``ts``, through the batch step's operations at T = 1: kernel A's
+    single-template launch (counted ``resample_t1``), the exact mean where
+    ``geom.exact_mean``, kernel B, a batch-1 rfft and kernel C.  The
+    counterpart of the reference package's ``template_sumspec_fn``: the
+    sentinel probe's device search (``runtime/health.py``)."""
+    p = torch.from_numpy(np.stack(bank_params_host([P], [tau], [psi0], geom.dt), axis=1)).to(ts.device)
+    x = fftprep_series(
+        ts, p[:, 0], p[:, 1], p[:, 2], p[:, 3],
+        nsamples=geom.nsamples, n_unpadded=geom.n_unpadded, dt=geom.dt, exact_mean=geom.exact_mean,
+    )
+    with stage_scope("fft"):
+        F = planned_fft(torch.fft.rfft, x)
+    with stage_scope("sumspec"):
+        return sumspec_spectrum(F, nsamples=geom.nsamples, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)[0]
 
 
 def step_cache_key(geom: SearchGeometry, batch_size: int, device) -> tuple:
@@ -303,7 +387,8 @@ def step_cache_key(geom: SearchGeometry, batch_size: int, device) -> tuple:
     and :func:`run_bank` read besides their operands: the geometry (a
     frozen dataclass of scalars, hashable, with ``exact_mean``), the batch
     (the R2C plan is of (batch, nsamples)) and the device (plans are per
-    card)."""
+    card).  The health vector is not in it: it is eager reductions over
+    the sums, with no build and no plan of its own."""
     return ("erp-torch-bank-step/1", geom, int(batch_size), str(resolve_device(device)))
 
 
@@ -375,7 +460,12 @@ def run_bank(
     ``ERP_RETRY_BUDGET=0`` or ``recover=False`` runs one attempt.
 
     ``step_cache`` (``runtime/scheduler.StepCache``) is told the attempt's
-    :func:`step_cache_key`, and counts a hit or a miss."""
+    :func:`step_cache_key`, and counts a hit or a miss.
+
+    With ``ERP_HEALTH_EVERY`` set (``runtime/health.py``) each batch also
+    returns its health vector; the watchdog checks the pending vectors
+    every that many templates and at the end, where the loop waits on the
+    card."""
     from ..runtime import flightrec, resilience
 
     validate_bank_bounds(geom, bank_P, bank_tau, bank_psi0)
@@ -387,7 +477,8 @@ def run_bank(
     mean = None
     if geom.exact_mean and start_template < n_stop:
         rows = upload_bank(params, 0, dev)[start_template:n_stop]
-        mean = (start_template, exact_mean_params(ts, rows, n_unpadded=geom.n_unpadded, dt=geom.dt)[1])
+        with stage_scope("serial_mean"):
+            mean = (start_template, exact_mean_params(ts, rows, n_unpadded=geom.n_unpadded, dt=geom.dt)[1])
         del rows
     attempt = dict(
         ts=ts, params=params, geom=geom, n=n, n_stop=n_stop, mean=mean, progress_cb=progress_cb, step_cache=step_cache
@@ -420,14 +511,19 @@ def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, step_cache
     """One pass of the dispatch loop over ``[start, n_stop)`` at
     ``batch_size``: upload the bank, then one :class:`BankStep` per batch.
     The loop never waits on the card: the stream queues ahead, and only a
-    ``progress_cb`` that copies the state to the host synchronizes.  Each
+    ``progress_cb`` that copies the state to the host, or the health
+    watchdog's cadence check, synchronizes.  Each
     batch is bracketed for the metrics, the trace, the flight recorder,
     the watchdog (``dispatch``: the enqueue, the first one with the kernel
     build and the cuFFT plan) and the fault points ``h2d`` and
     ``dispatch``, under the JAX package's names."""
     from ..runtime import faultinject, flightrec, metrics, profiling, steptime, tracing, watchdog
+    from ..runtime.health import watchdog as health_watchdog
 
     dev = ts.device
+    # numerical health (runtime/health.py): None unless ERP_HEALTH_EVERY is
+    # set, and then the step launches exactly what it launches without it
+    wd = health_watchdog()
     if step_cache is not None:
         step_cache.touch(step_cache_key(geom, batch_size, dev))
     faultinject.fault_point("h2d", loop="run_bank")
@@ -436,7 +532,7 @@ def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, step_cache
     if mean is not None:
         mean_dev = torch.zeros(bank.shape[0], dtype=torch.float32, device=dev)
         mean_dev[mean[0] : n_stop] = mean[1]
-    step = BankStep(geom, bank, batch_size, state=state, mean=mean_dev)
+    step = BankStep(geom, bank, batch_size, state=state, mean=mean_dev, with_health=wd is not None)
 
     # bound once outside the loop: shared no-op nulls when disabled
     m_batches = metrics.counter("search.batches")
@@ -457,7 +553,9 @@ def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, step_cache
             faultinject.fault_point("dispatch", start=start_b, stop=stop)
             with tracing.span("dispatch", start=start_b, stop=stop), profiling.annotate("erp:dispatch"):
                 # templates past n_stop are masked like the padding of a last batch
-                step(ts, start_b, n_stop)
+                out = step(ts, start_b, n_stop)
+                if wd is not None:
+                    wd.push(start_b, stop, out[2])
         dt = time.perf_counter() - t0
         st.observe(step.M, start_b, stop)
         m_dispatch_s.inc(dt)
@@ -466,7 +564,13 @@ def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, step_cache
         m_templates.inc(stop - start_b)
         flightrec.record("dispatch", start=start_b, stop=stop, ms=round(dt * 1e3, 3))
         flightrec.note_dispatch(loop="run_bank", start=start_b, stop=stop, n_total=n, batch_size=batch_size)
+        if wd is not None:
+            # the cadence check copies the pending vectors to the host: the
+            # loop's one wait on the card, every ERP_HEALTH_EVERY templates
+            wd.maybe_check("run_bank")
         if progress_cb is not None and progress_cb(stop, n, step.M, step.T) is False:
             break
+    if wd is not None:
+        wd.check("run_bank")
     st.flush()
     return step.M, step.T

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..oracle.resample import ResampleParams, resample_stats, serial_mean_f32
+from ..runtime.devicecost import stage_scope
 from . import kernels
 from .sincos import COS64, SIN64, TWO_PI, TWO_PI_INV, sincos_lut_unwrapped
 
@@ -295,14 +296,18 @@ def fftprep_series(
     real FFT.  The pad is ``mean`` (float32[T]) where given, else with
     ``exact_mean`` (unwhitened runs) the reference's serial float32 mean
     of A's samples (:func:`exact_mean_params` over this batch), else A's
-    fixed-order mean."""
-    params = stream_params(tau, omega, psi0, s0, device=ts.device)
-    raw, n_steps, a_mean = resample_stream(ts, params, n_unpadded=n_unpadded, dt=dt, renorm=renorm)
+    fixed-order mean.  A runs under the ``resample`` scope, B under
+    ``fftprep`` (``runtime/devicecost.py``)."""
+    with stage_scope("resample"):
+        params = stream_params(tau, omega, psi0, s0, device=ts.device)
+        raw, n_steps, a_mean = resample_stream(ts, params, n_unpadded=n_unpadded, dt=dt, renorm=renorm)
     if mean is None and exact_mean:
         if renorm is not None:
             raise ValueError("the exact mean is of the unwhitened series: it takes no renorm")
-        mean = exact_mean_params(ts, params, n_unpadded=n_unpadded, dt=dt)[1]
-    return fftprep(raw, n_steps, a_mean if mean is None else mean, nsamples=nsamples)
+        with stage_scope("serial_mean"):
+            mean = exact_mean_params(ts, params, n_unpadded=n_unpadded, dt=dt)[1]
+    with stage_scope("fftprep"):
+        return fftprep(raw, n_steps, a_mean if mean is None else mean, nsamples=nsamples)
 
 
 def resample_fftprep_batch(

@@ -22,15 +22,17 @@ def exit_code_for(e: BaseException) -> int | None:
     """The RADPUL_* code a failure maps to, or None for an exception
     outside the mapped set (which then propagates): an unusable
     checkpoint is a file error, a bad bank or value a validation error,
-    a missing or short file an I/O error."""
+    and so is a numerical-health abort (``ERP_HEALTH_ACTION=abort``: the
+    numbers are wrong), a missing or short file an I/O error."""
     from ..io.checkpoint import CheckpointError
     from ..io.templates import TemplateBankError
+    from .health import HealthError
 
     if isinstance(e, RadpulError):
         return e.code
     if isinstance(e, CheckpointError):
         return RADPUL_EFILE
-    if isinstance(e, (TemplateBankError, ValueError)):
+    if isinstance(e, (TemplateBankError, HealthError, ValueError)):
         return RADPUL_EVAL
     if isinstance(e, (FileNotFoundError, EOFError)):
         return RADPUL_EIO

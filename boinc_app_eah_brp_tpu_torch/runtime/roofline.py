@@ -1,0 +1,322 @@
+"""Byte and instruction accounting, and the roofline model, of the port's
+search on an NVIDIA H100.
+
+Counterpart of the reference package's ``runtime/roofline.py``, which
+models the TPU's MXU matmul cascade; here the model is of the port's own
+pipeline, one batch of ``batch`` templates at a time:
+
+* kernel A (``csrc/resample.cu``) with its statistics (n_steps, mean);
+* kernel B (``csrc/fftprep.cu``), the mean-padded interleaved series;
+* the rfft (cuFFT) at one pass: the real input read once, the complex
+  output written once (cuFFT's own passes at this size are not modelled);
+* kernel C (``csrc/fold.cu``) on the complex spectrum, with the |X|^2/N
+  epilogue inside it (``fold_spectrum``), or on float power (``fold``);
+* the max/argmax merge into (M, T);
+* per ``run_bank`` call on unwhitened runs, the exact mean of every
+  template (``erp_exact_mean``), with its chain of dependent float32 adds.
+
+Each stage's least time is the largest of its bytes at the card's memory
+rate, its float32 instructions and its conversions at their issue rates,
+and for the exact mean the chain of its longest template's adds, one
+after another.  Bytes count each input read once and each output written
+once.  The counts are the ones ``chip_smoke.py`` prints in its ``bounds``
+line, which it takes from this module.
+
+Not carried over from the reference package: the TPU-generation
+``projection`` (the port runs on one card kind) and
+``compiler_bound_templates_per_sec``, which reads XLA's
+``COST_LEDGER.json`` (there is no compiler ledger behind eager PyTorch
+and hand-written kernels).  There is no ``mfu``: the port runs no
+tensor-core work.
+
+Import-light: no torch at import; :func:`card_name` reads torch only
+where the caller already initialised CUDA.
+"""
+
+from __future__ import annotations
+
+import sys
+from dataclasses import dataclass
+
+F32 = 4  # bytes
+C64 = 8
+
+
+@dataclass(frozen=True)
+class Peaks:
+    """One card's rates: memory bytes/s, float32 instructions/s outside
+    the tensor cores, float<->int conversions/s, and the latency of one
+    dependent float32 add (s)."""
+
+    bytes_s: float
+    f32_instr_s: float
+    cvt_s: float
+    add_latency_s: float
+
+
+# H100 SXM: HBM bandwidth (NVIDIA data sheet); float32 instructions at
+# 132 SMs x 128 lanes x 1.98 GHz (the data sheet's 67 TFLOP/s counts a
+# fused multiply-add as two, and every kernel here is built with
+# -fmad=false, so each multiply and add is one instruction); conversions
+# at 16 a clock per SM (CUDA Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0); a dependent add every 4 cycles.
+# "cpu" is a placeholder so a run off the card still gets a labelled
+# model, as in the reference package.
+CARDS = {
+    "h100": Peaks(3.35e12, 132 * 128 * 1.98e9, 132 * 16 * 1.98e9, 4 / 1.98e9),
+    "cpu": Peaks(50e9, 1e11, 1e10, 1e-9),
+}
+
+# kernel A's float32 instructions a sample, counted from csrc/resample.cu's
+# interior path: the phase and LUT argument 6, the LUT index by the 2^23
+# add 2, the Taylor sine 9, del_t 3, the nearest index 3, the add into its
+# lane's sum 1; it has no conversions there (one a lane per run of 8)
+RESAMPLE_F32_PER_SAMPLE = 24
+# kernel C, per output column: 15 multipliers x 16 rows of adds, 16 masks,
+# ~31 maxima; the complex entry adds 3 multiplies and an add a bin read
+FOLD_F32_PER_COLUMN = 15 * 16 + 16 + 31
+POWER_F32_PER_BIN = 4
+
+
+def card_name() -> str:
+    """``torch.cuda.get_device_name`` of the current card where this
+    process already initialised CUDA, else ``"cpu"``."""
+    torch = sys.modules.get("torch")
+    try:
+        if torch is not None and torch.cuda.is_initialized():
+            return torch.cuda.get_device_name(torch.cuda.current_device())
+    except Exception:
+        pass
+    return "cpu"
+
+
+def peaks_key(name: str) -> str | None:
+    """The :data:`CARDS` row of a card name: ``h100`` for an H100, ``cpu``
+    for the ``"cpu"`` label of a run off the card, and None for any other
+    card, whose rates are not modelled."""
+    if "h100" in name.lower():
+        return "h100"
+    return "cpu" if name == "cpu" else None
+
+
+def state_width(fund_hi: int) -> int:
+    """Row width W of the phase-major (5, W) state (``ops/harmonic.py``)."""
+    return max(n_ph * -(-fund_hi // n_ph) for n_ph in (1, 8, 4, 2, 1))
+
+
+def _fold_read(L: int, W: int) -> int:
+    """Spectrum prefix the fold of W columns reads (``ops/harmonic.py``)."""
+    return min(L, 16 * W + 16)
+
+
+@dataclass(frozen=True)
+class StageCost:
+    """One stage's work: ``name`` (its kernel-table name), ``scope`` (its
+    ``runtime/devicecost.py`` stage), bytes moved, float32 instructions,
+    conversions and, for a serial chain, its dependent adds; ``per`` is
+    ``"batch"`` or ``"run"`` (once a ``run_bank`` call)."""
+
+    name: str
+    scope: str
+    bytes: float
+    f32_instr: float = 0.0
+    conversions: float = 0.0
+    chain_adds: float = 0.0
+    per: str = "batch"
+
+    def bound(self, peaks: Peaks = CARDS["h100"]) -> dict:
+        """The least time, ms: the largest of bytes, float32 instructions
+        and conversions at their rates (``bound_by`` "bytes" or
+        "operations", ``limit`` which of the three), and the chain of
+        dependent adds where there is one (``limit`` "chain" where it is
+        the longest)."""
+        t = {
+            "bytes": self.bytes / peaks.bytes_s * 1e3,
+            "fp32": self.f32_instr / peaks.f32_instr_s * 1e3,
+            "conversions": self.conversions / peaks.cvt_s * 1e3,
+        }
+        by = max(t, key=t.get)
+        out = dict(
+            bound_ms=t[by],
+            bound_by="bytes" if by == "bytes" else "operations",
+            limit=by,
+            **{f"{k}_ms": v for k, v in t.items()},
+        )
+        if self.chain_adds:
+            out["chain_ms"] = self.chain_adds * peaks.add_latency_s * 1e3
+            if out["chain_ms"] > out["bound_ms"]:
+                out["limit"] = "chain"
+        return out
+
+    def t_ms(self, peaks: Peaks = CARDS["h100"]) -> float:
+        """The stage's least time including its chain."""
+        b = self.bound(peaks)
+        return max(b["bound_ms"], b.get("chain_ms", 0.0))
+
+
+def resample_cost(T: int, n_unpadded: int) -> StageCost:
+    """Kernel A at ``T`` templates: the series read once, the parameters
+    read, the samples and (n_steps, mean) written."""
+    n = n_unpadded
+    return StageCost(
+        "resample" if T > 1 else "resample_t1", "resample",
+        bytes=n * F32 + T * 16 + T * n * F32 + T * 8,
+        f32_instr=T * n * RESAMPLE_F32_PER_SAMPLE,
+    )
+
+
+def fftprep_cost(T: int, n_unpadded: int, nsamples: int) -> StageCost:
+    """Kernel B: A's samples and (n_steps, mean) read, the padded series
+    written."""
+    return StageCost("fftprep", "fftprep", bytes=T * n_unpadded * F32 + T * 8 + T * nsamples * F32)
+
+
+def rfft_cost(T: int, nsamples: int) -> StageCost:
+    """The rfft at one pass: the real input read once, the complex output
+    written once."""
+    return StageCost("rfft", "fft", bytes=T * nsamples * F32 + T * (nsamples // 2 + 1) * C64)
+
+
+def fold_cost(T: int, nsamples: int, fund_hi: int, complex_input: bool = True) -> StageCost:
+    """Kernel C: the spectrum prefix it reads (complex64 with the power
+    epilogue inside, ``fold_spectrum``; or float power, ``fold``) and the
+    (T, 5, W) run maxima written."""
+    W = state_width(fund_hi)
+    read = _fold_read(nsamples // 2 + 1, W)
+    ops = T * W * FOLD_F32_PER_COLUMN
+    if complex_input:
+        return StageCost(
+            "fold_spectrum", "sumspec",
+            bytes=T * read * C64 + T * 5 * W * F32, f32_instr=ops + T * read * POWER_F32_PER_BIN,
+        )
+    return StageCost("fold", "sumspec", bytes=T * read * F32 + T * 5 * W * F32, f32_instr=ops)
+
+
+def merge_cost(T: int, fund_hi: int) -> StageCost:
+    """The merge: the (T, 5, W) sums read, (M, T) read and written; a
+    maximum and a comparison a slot."""
+    W = state_width(fund_hi)
+    return StageCost("merge", "merge", bytes=T * 5 * W * F32 + 4 * 5 * W * F32, f32_instr=2 * T * 5 * W)
+
+
+def exact_mean_cost(n_unpadded: int, n_steps) -> StageCost:
+    """The exact mean of the templates whose kernel-A n_steps are
+    ``n_steps`` (what this run's data needs): the series read once, each
+    template's parameters read and (n_steps, mean) written, A's
+    instructions for every sample below n_steps, and the longest
+    template's chain of dependent adds."""
+    steps = [max(int(s), 0) for s in n_steps]
+    return StageCost(
+        "serial_mean", "serial_mean",
+        bytes=n_unpadded * F32 + len(steps) * 24,
+        f32_instr=float(sum(steps)) * RESAMPLE_F32_PER_SAMPLE,
+        chain_adds=float(max(steps, default=0)),
+        per="run",
+    )
+
+
+def pipeline_costs(
+    nsamples: int,
+    n_unpadded: int,
+    fund_hi: int,
+    harm_hi: int,
+    batch: int,
+    n_steps=None,
+) -> list[StageCost]:
+    """The stages of one batch of ``batch`` templates of the main path, in
+    pipeline order, and with ``n_steps`` (kernel A's n_steps of every
+    template of an unwhitened run) the exact mean of the run.  ``harm_hi``
+    is part of the reference package's signature; the fold reads its own
+    prefix of 16 W + 16 bins, which covers it."""
+    if harm_hi > nsamples // 2 + 1:
+        raise ValueError("harm_hi beyond the spectrum")
+    T = int(batch)
+    costs = [
+        resample_cost(T, n_unpadded),
+        fftprep_cost(T, n_unpadded, nsamples),
+        rfft_cost(T, nsamples),
+        fold_cost(T, nsamples, fund_hi),
+        merge_cost(T, fund_hi),
+    ]
+    if n_steps is not None:
+        costs.append(exact_mean_cost(n_unpadded, n_steps))
+    return costs
+
+
+def roofline_report(
+    nsamples: int,
+    n_unpadded: int,
+    fund_hi: int,
+    harm_hi: int,
+    batch: int = 32,
+    n_steps=None,
+    measured_templates_per_sec: float | None = None,
+    card: str | None = None,
+) -> dict:
+    """The model as a JSON-serialisable dict: each stage's bytes,
+    instructions and least time, the attainable templates/s (a batch's
+    stages summed; with ``n_steps`` the exact mean spread over its
+    templates) and the binding stage.  Given a measured rate it adds
+    ``hbm_utilization`` (the model's bytes at that rate over the memory
+    rate) and ``fraction_of_attainable``.
+
+    A card other than an H100 is not modelled: its report has
+    ``"peaks": None``, no stages and no attainable rate, rather than
+    another card's rates under its name."""
+    card = card or card_name()
+    key = peaks_key(card)
+    if key is None:
+        out = {"card": card, "peaks": None, "batch": int(batch), "stages": [],
+               "attainable_templates_per_sec": None, "model_bound": "unmodelled"}
+        if measured_templates_per_sec:
+            out["measured_templates_per_sec"] = float(measured_templates_per_sec)
+        return out
+    peaks = CARDS[key]
+    costs = pipeline_costs(nsamples, n_unpadded, fund_hi, harm_hi, batch, n_steps=n_steps)
+    stages = []
+    for c in costs:
+        b = c.bound(peaks)
+        stages.append(
+            {
+                "stage": c.name,
+                "scope": c.scope,
+                "per": c.per,
+                "mbytes": c.bytes / 1e6,
+                "f32_ginstr": c.f32_instr / 1e9,
+                "t_ms": c.t_ms(peaks),
+                **b,
+            }
+        )
+    t_batch = sum(c.t_ms(peaks) for c in costs if c.per == "batch") / 1e3
+    bytes_batch = sum(c.bytes for c in costs if c.per == "batch")
+    n_run = len(n_steps) if n_steps is not None else 0
+    t_run = sum(c.t_ms(peaks) for c in costs if c.per == "run") / 1e3
+    bytes_run = sum(c.bytes for c in costs if c.per == "run")
+    # per template: a batch's share, plus the run's stages spread over
+    # the run's templates
+    t_tpl = t_batch / batch + (t_run / n_run if n_run else 0.0)
+    bytes_tpl = bytes_batch / batch + (bytes_run / n_run if n_run else 0.0)
+    attainable = 1.0 / t_tpl if t_tpl > 0 else None
+    out = {
+        "card": card,
+        "peaks": key,
+        "hbm_gbytes_per_s": peaks.bytes_s / 1e9,
+        "f32_tinstr_per_s": peaks.f32_instr_s / 1e12,
+        "batch": int(batch),
+        "stages": stages,
+        "attainable_templates_per_sec": attainable,
+        "model_bound": max(stages, key=lambda s: s["t_ms"] if s["per"] == "batch" else -1.0)["stage"],
+    }
+    if measured_templates_per_sec:
+        r = float(measured_templates_per_sec)
+        out["measured_templates_per_sec"] = r
+        out["hbm_utilization"] = r * bytes_tpl / peaks.bytes_s
+        out["fraction_of_attainable"] = r / attainable if attainable else None
+        # far below the model bound, the gap is neither bytes nor
+        # instructions: launch gaps, host work, or a stage's passes
+        out["bound"] = (
+            out["model_bound"]
+            if attainable and r > 0.5 * attainable
+            else "overhead (measured < 50% of model bound)"
+        )
+    return out

@@ -29,7 +29,10 @@ The search loop never waits on the card between batches; the host waits
 only where it copies the state: the checkpoint's copy, the screensaver's
 row and the final copy.  Those are the ``drain`` points: each runs under
 the watchdog's ``drain`` guard (the only guards that can see a wedged
-kernel) and refreshes the dispatch loop's recovery snapshot.
+kernel) and refreshes the dispatch loop's recovery snapshot.  With
+``ERP_HEALTH_EVERY`` set (``runtime/health.py``) the loop also waits where
+the health watchdog copies its vectors, and each checkpoint runs the
+sentinel probe.
 """
 
 from __future__ import annotations
@@ -59,11 +62,12 @@ from ..io.formats import N_BINS_SS
 from ..oracle.pipeline import DerivedParams, SearchConfig
 from ..oracle.stats import base_thresholds
 from ..oracle.toplist import finalize_candidates, update_toplist_from_maxima
-from . import flightrec, metrics, profiling, resilience, steptime, tracing, watchdog
+from . import devicecost, flightrec, metrics, profiling, resilience, steptime, tracing, watchdog
 from . import logging as erplog
 from .boinc import BoincAdapter, _default_checkpoint_period, _default_progress_min_delta
 from .errors import RADPUL_EFILE, RADPUL_TEMPORARY_EXIT, RadpulError
 from .errors import exit_code_for  # noqa: F401  (re-exported, as the JAX package's session does)
+from .roofline import roofline_report
 
 EXEC_NAME = "eah_brp_tpu_torch"
 
@@ -411,6 +415,20 @@ class Session:
             rescorer = IncrementalRescorer(self.host_series, derived, derived.t_obs)
             erplog.debug("Rescore overlap armed (checkpoint cadence).\n")
 
+        # sentinel drift probe (runtime/health.py): K fixed templates re-run
+        # on the card and through the host oracle at each checkpoint, armed
+        # only when the health watchdog itself is on (ERP_HEALTH_EVERY > 0)
+        from .health import SentinelProbe, sentinel_count
+        from .health import watchdog as make_watchdog
+
+        sentinel = None
+        sentinel_wd = make_watchdog()
+        if sentinel_wd is not None and sentinel_count() > 0 and template_total > 0:
+            sentinel = SentinelProbe(
+                lambda: self.ts, bank.P, bank.tau, bank.psi0, geom, derived, sentinel_wd, device=self.dev
+            )
+            erplog.debug("Sentinel drift probe armed: templates %s.\n", sentinel.indices.tolist())
+
         ckpt_count = metrics.counter("checkpoint.count")
         ckpt_bytes = metrics.counter("checkpoint.bytes", unit="B")
         d2h_bytes = metrics.counter("search.d2h_bytes", unit="B")
@@ -444,29 +462,35 @@ class Session:
                 M_host, T_host = host_state(M_now, T_now, n_done)
                 if snap is not None:
                     snap.maybe_commit(M_host, T_host, n_done)
-                if not args.checkpointfile:
+                if args.checkpointfile:
+                    write_now(n_done, M_host, T_host)
+                else:
                     rescorer.observe_async(lambda: self._candidates(M_host, T_host))
-                    return
-                cands = self._candidates(M_host, T_host)
-                if rescorer is not None:
-                    rescorer.observe_async(lambda: cands)
-                # transient write failures spend the shared retry budget; a
-                # wedged write trips the watchdog
-                with watchdog.guard("ckpt_write", n_done=n_done):
-                    resilience.call_with_retry(
-                        lambda: write_checkpoint(
-                            args.checkpointfile,
-                            Checkpoint(n_template=n_done, originalfile=args.inputfile, candidates=cands),
-                            bank=(args.templatebank, template_total),
-                            topology=topology,
-                        ),
-                        site="ckpt_write",
-                    )
-                ckpt_count.inc()
-                try:
-                    ckpt_bytes.inc(os.path.getsize(args.checkpointfile))
-                except OSError:
-                    pass
+                if sentinel is not None:
+                    with profiling.annotate("erp:sentinel-probe"):
+                        sentinel.probe("checkpoint")
+
+        def write_now(n_done: int, M_host, T_host) -> None:
+            cands = self._candidates(M_host, T_host)
+            if rescorer is not None:
+                rescorer.observe_async(lambda: cands)
+            # transient write failures spend the shared retry budget; a
+            # wedged write trips the watchdog
+            with watchdog.guard("ckpt_write", n_done=n_done):
+                resilience.call_with_retry(
+                    lambda: write_checkpoint(
+                        args.checkpointfile,
+                        Checkpoint(n_template=n_done, originalfile=args.inputfile, candidates=cands),
+                        bank=(args.templatebank, template_total),
+                        topology=topology,
+                    ),
+                    site="ckpt_write",
+                )
+            ckpt_count.inc()
+            try:
+                ckpt_bytes.inc(os.path.getsize(args.checkpointfile))
+            except OSError:
+                pass
 
         interrupted = False
         last_done = self.start_template
@@ -516,6 +540,16 @@ class Session:
             self.dev, template_total, self.start_template, batch_size,
         )
         profiling.device_memory_status("search setup")
+        # the card's attainable bound (runtime/roofline.py; the reference
+        # logs its GFLOPS estimate the same way, cuda_utilities.c:163-182)
+        roof = roofline_report(geom.nsamples, geom.n_unpadded, geom.fund_hi, geom.harm_hi, batch=batch_size)
+        if roof["peaks"] is None:
+            erplog.debug("Roofline (%s): card not modelled.\n", roof["card"])
+        else:
+            erplog.debug(
+                "Roofline (%s): attainable %.0f templates/s, model bound %s.\n",
+                roof["card"], roof["attainable_templates_per_sec"], roof["model_bound"],
+            )
         metrics.gauge("search.batch_size").set(int(batch_size))
         flightrec.record(
             "run-config", template_total=int(template_total), start_template=int(self.start_template),
@@ -543,6 +577,13 @@ class Session:
                     )
                     if interrupted:
                         break
+            # a search on the CPU: the per-stage device lane of the Chrome
+            # export is estimated from the dispatch windows and the roofline
+            # (runtime/devicecost.py); on the card the profiler measures it
+            if tracing.enabled() and self.dev.type == "cpu":
+                n_dev = devicecost.emit_estimated_timeline(geom, batch_size)
+                if n_dev:
+                    erplog.debug("Synthesized %d estimated device-lane records.\n", n_dev)
             if interrupted:
                 erplog.warn("Quit requested! Exiting prematurely...\n")
                 if rescorer is not None:

@@ -53,6 +53,8 @@ from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
 from . import logging as erplog
+# the kernel -> stage map lives in the stage registry (re-exported here)
+from .devicecost import SCOPE_PREFIX, stage_of_kernel
 from .percentiles import latency_block
 
 STEPTIME_ENV = "ERP_STEPTIME"
@@ -421,33 +423,8 @@ def _register_atexit() -> None:
 # ---------------------------------------------------------------------------
 # on-demand device profiling
 
-SCOPE_PREFIX = "erp."
-
-# the port's stage map: a substring of a kernel's name -> its stage, first
-# match wins (``fftprep_kernel`` before cuFFT's ``*fft*`` kernels)
-_STAGE_OF_KERNEL = (
-    ("exact_mean_kernel", "serial_mean"),
-    ("stream_kernel", "resample"),
-    ("stats_kernel", "resample"),
-    ("fftprep_kernel", "fftprep"),
-    ("fold_kernel", "fold"),
-    ("fft", "rfft"),
-)
 # the profiler's categories of work that occupies the card
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def stage_of_kernel(name) -> str | None:
-    """The search stage a CUDA kernel belongs to: the kernels of ``csrc/``
-    by their symbols, cuFFT's by their names (``regular_fft``,
-    ``vector_fft``, ...); None for anything else (the merge's elementwise
-    kernels, copies)."""
-    if not isinstance(name, str):
-        return None
-    for key, stage in _STAGE_OF_KERNEL:
-        if key in name:
-            return stage
-    return None
 
 
 def device_records_from_chrome(doc) -> list[dict]:

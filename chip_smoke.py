@@ -64,15 +64,32 @@ Phases:
    and give device memory back to the post-warm value within 64 MB; the
    copies of phase 5's workunit must give phase 5's rows, the other its
    injected template in the top 5, the missing file RADPUL_EIO;
-11. print the kernel table as one JSON line (launches from the whitened
-   run, the serial mean's from the unwhitened one), the runs' numbers,
-   and last ``{"ok": true, "device": {...}}``.
+11. health and precision (f): (1) phase 5's command line with
+   ``ERP_HEALTH_EVERY=32`` and a checkpoint every batch, counts reset just
+   before: rows equal to phase 5's, batch checks >= 1, no violation, a
+   sentinel probe at every checkpoint within ``ERP_HEALTH_TOL`` of the
+   oracle, kernel A's single-template launch counted; the batch step and
+   the loop with health on against off, in turns, and the step's peak
+   memory; (2) the same with a NaN-poisoned fold under
+   ``ERP_HEALTH_ACTION=abort``: exit 4 (RADPUL_EVAL) and a black-box dump
+   holding the violation; (3) the precision audit with the port's kernels
+   as its taps, on the CI fixture (gated on ``PRECISION_BASELINE.json``)
+   and at 2^20 samples: per-stage errors against the f64 oracle, recall,
+   the tap proof, counts reset just before (kernel C's float-power entry
+   is the harmonic-sum tap); (4) the roofline model's report with the
+   whitened loop's fraction of its attainable rate;
+12. print the kernel table as one JSON line (launches from the whitened
+   run; the serial mean's from the unwhitened one, A1's from the health
+   run, C's float-power entry's from the audits), the `bounds` line of
+   the package's roofline model (``runtime/roofline.py``), the runs'
+   numbers, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero; so does a machine without a CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -99,22 +116,6 @@ INJECT2 = 131  # the serving phase's second workunit follows this row
 SEED = 20261016
 DEVICE = "cuda"
 
-# H100 SXM peaks: HBM bandwidth (NVIDIA data sheet); float32 instructions
-# outside the tensor cores, 132 SMs x 128 lanes x 1.98 GHz (the data
-# sheet's 67 TFLOP/s counts a fused multiply-add as two, and every kernel
-# here is built with -fmad=false, so each multiply and add is one
-# instruction); conversions between float and int at 16 a clock per SM
-# (CUDA Programming Guide, arithmetic instruction throughput, compute
-# capability 9.0)
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_INSTR_S = 132 * 128 * 1.98e9
-PEAK_CVT_S = 132 * 16 * 1.98e9
-# kernel A's float32 instructions a sample, counted from csrc/resample.cu's
-# interior path: the phase and LUT argument 6, the LUT index by the 2^23
-# add 2, the Taylor sine 9, del_t 3, the nearest index 3, the add into its
-# lane's sum 1; it has no conversions there (one a lane per run of 8)
-RESAMPLE_F32_PER_SAMPLE = 24
-
 KERNEL_ROWS = {
     "resample": ("boinc_app_eah_brp_tpu/ops/pallas_resample.py:352", "resample.cu"),
     "resample_t1": ("boinc_app_eah_brp_tpu/ops/pallas_resample.py:322", "resample.cu"),
@@ -128,8 +129,10 @@ KERNEL_ROWS = {
 # launches these and the serial mean
 MAIN_PATH = ("resample", "fftprep", "fold_spectrum")
 UNWHITENED_PATH = MAIN_PATH + ("serial_mean",)
-# a dependent float32 add issues every 4 cycles at 1.98 GHz
-ADD_LATENCY_S = 4 / 1.98e9
+# the phase whose launches a kernel's row reports: the sentinel probe runs
+# kernel A at T = 1 (phase f, health), the precision audit's harmonic-sum
+# tap kernel C's float-power entry (phase f, audit)
+LAUNCHES_FROM = {"serial_mean": "unwhitened", "resample_t1": "health", "fold": "audit"}
 QUIT_AFTER = 3  # batches before the interrupted run quits
 TILE = 33  # the exact mean is also run on bank200 tiled this often: 6,600 templates
 OOM_BATCH = 1024  # a batch the card cannot hold at this width (~153 MB a template)
@@ -161,33 +164,6 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(bytes_moved: float, f32_instr: float = 0.0, conversions: float = 0.0) -> dict:
-    """The least time for the work: the largest of its bytes at the memory
-    rate, its float32 instructions and its conversions at their rates."""
-    t = {
-        "bytes": bytes_moved / PEAK_BYTES_S * 1e3,
-        "fp32": f32_instr / PEAK_F32_INSTR_S * 1e3,
-        "conversions": conversions / PEAK_CVT_S * 1e3,
-    }
-    by = max(t, key=t.get)
-    return dict(
-        bound_ms=t[by],
-        bound_by="bytes" if by == "bytes" else "operations",
-        limit=by,
-        **{f"{k}_ms": v for k, v in t.items()},
-    )
-
-
-def chain_bound(b: dict, n_steps) -> dict:
-    """``b`` (:func:`bound`) with the chain floor of the exact mean: its
-    longest template's dependent adds, one after another; ``limit`` names
-    the chain where it is the longest of the three."""
-    b["chain_ms"] = float(n_steps.max()) * ADD_LATENCY_S * 1e3
-    if b["chain_ms"] > b["bound_ms"]:
-        b["limit"] = "chain"
-    return b
-
-
 def eager_stats(raw, n_steps, lf):
     """A copy of the eager statistics that ran between kernels A and B
     before A computed them (``ops/resample.py::batch_stats`` up to
@@ -205,6 +181,25 @@ def eager_stats(raw, n_steps, lf):
         (m2 + 1)[None, :] < n_steps[:, None], raw[:, 1], zero
     ).sum(dim=1)
     return n, total / n_steps.to(torch.float32)
+
+
+def direct_health_vec(sums, valid, M):
+    """A direct transcription of the JAX package's ``batch_health_vec``
+    (``torch.isfinite`` masks, two full ``where`` copies, boolean sums):
+    timed beside the port's formulation as a yardstick only."""
+    import torch
+
+    from boinc_app_eah_brp_tpu_torch.models.search import NEG_SENTINEL
+
+    validb = valid[:, None, None]
+    fin = torch.isfinite(sums)
+    ok = validb & fin
+    return torch.stack([
+        (validb & ~fin).sum().to(torch.float32),
+        (~torch.isfinite(M)).sum().to(torch.float32),
+        torch.where(ok, sums, NEG_SENTINEL).amax(),
+        torch.where(ok, sums, -NEG_SENTINEL).amin(),
+    ])
 
 
 def production_geometry():
@@ -227,10 +222,12 @@ def production_geometry():
 def check_kernels(torch, dev, geom, bank, samples) -> dict:
     """Phase 3: every kernel against its plain version at the production
     width; ``samples`` is the unwhitened workunit, for the serial mean.
-    Returns the per-kernel measurements and the stage times."""
+    Returns the per-kernel measurements and the stage times; each bound is
+    the package's roofline model (``runtime/roofline.py``) of this call."""
     from boinc_app_eah_brp_tpu_torch.models import search
     from boinc_app_eah_brp_tpu_torch.ops import harmonic, kernels, resample
     from boinc_app_eah_brp_tpu_torch.ops.spectrum import power_from_rfft
+    from boinc_app_eah_brp_tpu_torch.runtime import roofline
 
     n, nsamples, half = geom.n_unpadded, geom.nsamples, geom.n_unpadded // 2
     rng = np.random.default_rng(SEED)
@@ -256,7 +253,7 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
             ms=time_ms(torch, lambda: resample.resample_stream(ts, p_, **kw), 20 if t_ > 1 else 50),
             plain_ms=time_ms(torch, lambda: resample.resample_stream_plain(ts, p_, **kw), 3),
             library_ms=None,
-            **bound(n * 4 + t_ * 16 + t_ * n * 4 + t_ * 8, t_ * n * RESAMPLE_F32_PER_SAMPLE),
+            **roofline.resample_cost(t_, n).bound(),
         )
         del got, want
     # the exact mean of the unwhitened workunit, the whole bank in one
@@ -291,11 +288,8 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
         torch.equal(ns_t, ns_u.repeat(TILE)) and torch.equal(mean_t.view(torch.int32), mean_u.repeat(TILE).view(torch.int32)),
         f"the exact mean of bank200 tiled {TILE} times differs from bank200's",
     )
-    summed = float(ns_u.clamp(min=0).sum())
-
     def exact_bound(copies: int) -> dict:
-        # ts read once, each row's parameters read and (n_steps, mean) written
-        return chain_bound(bound(n * 4 + copies * N * 24, copies * summed * RESAMPLE_F32_PER_SAMPLE), ns_u)
+        return roofline.exact_mean_cost(n, np.tile(ns_u.cpu().numpy(), copies)).bound()
 
     out["serial_mean"] = dict(
         max_abs_err=float((mean_u - mean_p).abs().max()),
@@ -328,7 +322,7 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
         ms=time_ms(torch, lambda: resample.fftprep(raw, n_steps, mean, nsamples=nsamples), 20),
         plain_ms=time_ms(torch, lambda: resample.fftprep_plain(raw, n_steps, mean, nsamples=nsamples), 3),
         library_ms=time_ms(torch, lambda: torch.where(mask, src, mean[:, None]), 20),
-        **bound(T * n * 4 + T * 8 + T * nsamples * 4),
+        **roofline.fftprep_cost(T, n, nsamples).bound(),
     )
     del x_p, src, mask, i
 
@@ -342,14 +336,10 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
     # the rfft (cuFFT) has no kernel of ours: its bound is one pass, the
     # real input read once and the complex output written once; "passes"
     # is how many such passes its measured time is worth
-    out["rfft"] = bound(T * nsamples * 4 + T * F.shape[1] * 8)
+    out["rfft"] = roofline.rfft_cost(T, nsamples).bound()
     out["rfft"]["passes"] = stages["rfft_ms"] / out["rfft"]["bound_ms"]
     del x
     fold_kw = dict(fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
-    W = harmonic.state_width(geom.fund_hi)
-    read = min(F.shape[1], 16 * W + 16)  # the spectrum prefix the fold reads
-    # per column: 15 multipliers x 16 rows of adds, 16 masks, ~31 maxima
-    fold_ops = T * W * (15 * 16 + 16 + 31)
 
     # C on float power spectra (the counterpart of sumspec_pallas_batch)
     ps = power_from_rfft(F, nsamples=nsamples)
@@ -364,7 +354,7 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
         ms=time_ms(torch, lambda: harmonic.sumspec_batch(ps, **fold_kw), 20),
         plain_ms=time_ms(torch, lambda: harmonic.sumspec_batch_plain(ps, **fold_kw), 2),
         library_ms=None,
-        **bound(T * read * 4 + T * 5 * W * 4, fold_ops),
+        **roofline.fold_cost(T, nsamples, geom.fund_hi, complex_input=False).bound(),
     )
     del ps, sums, sums_p
 
@@ -380,7 +370,7 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
         ms=time_ms(torch, lambda: harmonic.sumspec_spectrum(F, **sk), 20),
         plain_ms=time_ms(torch, lambda: harmonic.sumspec_spectrum_plain(F, **sk), 2),
         library_ms=None,
-        **bound(T * read * 8 + T * 5 * W * 4, fold_ops + T * read * 4),
+        **roofline.fold_cost(T, nsamples, geom.fund_hi).bound(),
     )
     del F, sums, sums_p
 
@@ -993,6 +983,209 @@ def run_serving(torch, workdir: str, wu: str, unwhite_rows, geom, bank) -> dict:
     )
 
 
+@contextlib.contextmanager
+def _env(values: dict):
+    """``os.environ`` updated with ``values`` inside the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _audit_summary(doc: dict) -> dict:
+    """Per lane: each stage's cumulative and introduced max relative error
+    against f64, the candidate scores and (f32) the tap proof."""
+    out = {}
+    for lane, ld in doc["lanes"].items():
+        out[lane] = dict(
+            stages={
+                s["stage"]: {"cumulative": s["max_rel_err"], "introduced": s["introduced_rel_err"],
+                             "mean": s["mean_rel_err"]}
+                for s in ld["stages"]
+            },
+            worst_stage=ld["attribution"]["worst_stage"],
+            candidates={k: ld["candidates"][k] for k in (
+                "recall_at_tol", "jaccard", "rank_stability", "oracle_n", "matched", "boundary", "max_power_rel_err")},
+            tap=ld.get("tap"),
+        )
+    return dict(geometry=doc["geometry"], backend=doc["backend"], lanes=out)
+
+
+def run_health_precision(torch, geom, bank, workdir: str, wu: str, unwhite_rows, loop_templates_per_s: float) -> dict:
+    """Phase (f): numerical health on the command line (batch checks and the
+    sentinel probe), its abort on a poisoned fold, its cost, the precision
+    audit on the card, and the roofline's attainable rate."""
+    from boinc_app_eah_brp_tpu_torch.models import search
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.runtime import flightrec, health, metrics, precision, roofline
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
+    from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EVAL
+
+    def argv(name, extra=""):
+        return (
+            f"-i {wu} -o {os.path.join(workdir, name + '.cand')} -t {BANK} -c {os.path.join(workdir, name + '.cpt')} "
+            f"-P {PADDING} -f {F0} -A {FA} -B {WINDOW} --batch {BATCH} --device {DEVICE} {extra}"
+        ).split()
+
+    out = {}
+    # (1) phase 5's run with the batch checks every batch and a checkpoint,
+    # so a sentinel probe, after every batch; each probe's records kept
+    probes = []
+    real_probe = health.SentinelProbe.probe
+
+    def recording(self, where="checkpoint"):
+        res = real_probe(self, where)
+        probes.append([{k: r[k] for k in ("template", "harmonics", "f0", "rel_err")} for r in res])
+        return res
+
+    mfile = os.path.join(workdir, "health.jsonl")
+    health.SentinelProbe.probe = recording
+    try:
+        with _env({health.HEALTH_EVERY_ENV: str(BATCH), "ERP_CHECKPOINT_PERIOD": "0"}):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli_main(argv("health", f"--metrics-file {mfile}"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.launch_counts)
+    finally:
+        health.SentinelProbe.probe = real_probe
+    check(rc == 0, f"the health-on run exited with {rc}")
+    check(np.array_equal(_candidate_rows(os.path.join(workdir, "health.cand")), unwhite_rows),
+          "the health-on run's rows differ from phase 5's")
+    rep = _report(mfile)["metrics"]
+    counters = {k: v["value"] for k, v in rep["counters"].items() if k.startswith("health.")}
+    gauges = {k: v["value"] for k, v in rep["gauges"].items() if k.startswith("health.")}
+    check(counters.get("health.checks", 0) >= 1, f"no batch check ran: {counters}")
+    check(counters.get("health.violations", 0) == 0, f"the healthy run raised violations: {counters}")
+    check(len(probes) >= 1 and counters.get("health.sentinel_probes") == len(probes), f"probes: {counters}")
+    worst = max(r["rel_err"] for p in probes for r in p)
+    check(worst < health.tolerance(), f"a sentinel drifted on a healthy card: {worst}")
+    check(launches["resample_t1"] > 0, "the sentinel probe did not launch kernel A at T = 1")
+    for name in UNWHITENED_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched by the health-on run")
+    out["health_run"] = dict(
+        wall_s=wall, counters=counters, gauges=gauges, probes=probes, sentinel_max_rel_err=worst,
+        rel_err_hist=rep["histograms"].get("health.sentinel_rel_err"), launches=launches,
+    )
+
+    # the batch step and the loop with health on against off, in turns
+    ts = torch.from_numpy(np.random.default_rng(SEED).normal(0.0, 1.0, geom.n_unpadded).astype(np.float32)).to(DEVICE)
+    bank_dev = search.upload_bank(search.bank_params_host(bank.P, bank.tau, bank.psi0, geom.dt), BATCH, DEVICE)
+    steps = {
+        on: search.BankStep(geom, bank_dev, BATCH, state=search.init_state(geom, DEVICE), with_health=on)
+        for on in (False, True)
+    }
+    step_ms = {"off": [], "on": []}
+    for on in (False, True, True, False, False, True):
+        step_ms["on" if on else "off"].append(time_ms(torch, lambda: steps[on](ts, 0, len(bank)), 10))
+    peak = {}
+    for on in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        steps[on](ts, 0, len(bank))
+        torch.cuda.synchronize()
+        peak["on" if on else "off"] = torch.cuda.max_memory_allocated() - base
+    # the health vector alone, against the direct transcription, on the
+    # step's sums shape: bitwise equal (with non-finite and padded slots),
+    # and each timed with CUDA events
+    W = steps[False].M.shape[1]
+    sums = torch.empty((BATCH, 5, W), device=DEVICE).exponential_(generator=torch.Generator(DEVICE).manual_seed(SEED))
+    valid = torch.arange(BATCH, device=DEVICE) < BATCH - 3
+    poisoned = sums.clone()
+    poisoned[1, 2, 7], poisoned[2, 0, 3], poisoned[5, 4, 100] = float("nan"), float("inf"), -float("inf")
+    for s_, v_ in ((sums, valid), (poisoned, valid), (poisoned, torch.ones_like(valid))):
+        check(
+            torch.equal(search.batch_health_vec(s_, v_, steps[False].M), direct_health_vec(s_, v_, steps[False].M)),
+            "the health vector differs from its direct transcription",
+        )
+    vec_ms = {
+        "port": time_ms(torch, lambda: search.batch_health_vec(sums, valid, steps[False].M), 20),
+        "direct": time_ms(torch, lambda: direct_health_vec(sums, valid, steps[False].M), 20),
+    }
+    del steps, sums, poisoned
+    loop_s = {"off": [], "on": []}
+    for on in (False, True, True, False):
+        with _env({health.HEALTH_EVERY_ENV: str(BATCH if on else 0)}):
+            t0 = time.perf_counter()
+            search.run_bank(ts, bank.P, bank.tau, bank.psi0, geom, batch_size=BATCH)
+            torch.cuda.synchronize()
+            loop_s["on" if on else "off"].append(time.perf_counter() - t0)
+    del ts, bank_dev
+    torch.cuda.empty_cache()
+    out["cost"] = dict(
+        step_ms=step_ms, step_peak_bytes=peak, loop_s=loop_s, health_vec_ms=vec_ms,
+        # autobatch's memory model of a step: 3.04 x nsamples x 4 bytes a template
+        autobatch_model_bytes=3.04 * geom.nsamples * 4 * BATCH,
+    )
+
+    # (2) a NaN-poisoned fold under abort: RADPUL_EVAL and a black box
+    bb = os.path.join(workdir, "blackbox")
+    os.makedirs(bb)
+    real_fold = search.sumspec_spectrum
+    search.sumspec_spectrum = lambda *a, **k: real_fold(*a, **k) * float("nan")
+    try:
+        env = {health.HEALTH_EVERY_ENV: str(BATCH), health.HEALTH_ACTION_ENV: "abort", "ERP_BLACKBOX_DIR": bb}
+        with _env(env):
+            rc = cli_main(argv("poisoned"))
+    finally:
+        search.sumspec_spectrum = real_fold
+    check(rc == RADPUL_EVAL, f"the poisoned run exited with {rc}, not RADPUL_EVAL")
+    check(not os.path.exists(os.path.join(workdir, "poisoned.cand")), "the poisoned run wrote a result")
+    dumps = sorted(glob.glob(os.path.join(bb, "erp-blackbox-*.json")))
+    check(len(dumps) >= 1, "the health abort left no black-box dump")
+    with open(dumps[-1]) as f:
+        doc = json.load(f)
+    check(flightrec.validate_dump(doc) == [], "the black-box dump does not validate")
+    violations = [e for e in flightrec.events_from_dump(doc) if e.get("kind") == "health-violation"]
+    check(violations, "the black-box dump holds no health-violation event")
+    out["abort"] = dict(rc=rc, dump=os.path.basename(dumps[-1]), violation=violations[0])
+
+    # (3) the precision audit on the card: the CI fixture, gated on the
+    # committed baseline (it names the CPU backend; its ceilings and floors
+    # are applied to the card's audit without that key), and 2^20 samples
+    with open(os.path.join(REPO, "PRECISION_BASELINE.json")) as f:
+        baseline = json.load(f)
+    baseline.pop("backend")
+    audits = {}
+    kernels.reset_launch_counts()
+    for name, n in (("ci", precision.CI_SAMPLES), ("n2e20", 1 << 20)):
+        metrics.configure(force=True)
+        try:
+            t0 = time.perf_counter()
+            doc = precision.run_audit(*precision.ci_fixture(n), batch_size=precision.CI_BATCH, device=DEVICE)
+            audit_s = time.perf_counter() - t0
+        finally:
+            metrics.finish(0)
+        check(precision.validate_precision_audit(doc) == [], f"the {name} audit does not validate")
+        tap = doc["lanes"]["f32"]["tap"]
+        check(tap["byte_identical"] and tap["recompiles_in_window"] == 0, f"the {name} audit's tap proof failed: {tap}")
+        if name == "ci":
+            problems = precision.evaluate_baseline(doc, baseline)
+            check(not problems, f"the card's audit fails PRECISION_BASELINE.json: {problems}")
+        audits[name] = dict(seconds=audit_s, **_audit_summary(doc))
+    audit_launches = dict(kernels.launch_counts)
+    check(audit_launches["fold"] > 0, "the audit did not launch kernel C's float-power entry")
+    out["audits"] = audits
+    out["audit_launches"] = audit_launches
+
+    # (4) the roofline's attainable rate against the whitened loop at batch 32
+    out["roofline"] = roofline.roofline_report(
+        geom.nsamples, geom.n_unpadded, geom.fund_hi, geom.harm_hi, batch=BATCH,
+        measured_templates_per_sec=loop_templates_per_s, card=torch.cuda.get_device_name(0),
+    )
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1048,6 +1241,11 @@ def main() -> int:
         serving = run_serving(
             torch, workdir, wu, _candidate_rows(os.path.join(workdir, "unwhitened.cand")), geom, bank
         )
+        torch.cuda.empty_cache()
+        health_f = run_health_precision(
+            torch, geom, bank, workdir, wu, _candidate_rows(os.path.join(workdir, "unwhitened.cand")),
+            run["search_loop_templates_per_s"],
+        )
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1056,16 +1254,20 @@ def main() -> int:
     detail = ("limit", "bound_ms", "bytes_ms", "fp32_ms", "conversions_ms", "chain_ms", "passes")
     print(json.dumps({"bounds": {k: {d: m[d] for d in detail if d in m} for k, m in measured.items()}}))
     rows = []
+    path_launches = {
+        "unwhitened": unwhite["launches"],
+        "health": health_f["health_run"]["launches"],
+        "audit": health_f["audit_launches"],
+    }
     for name, (replaces, src) in KERNEL_ROWS.items():
         m = measured[name]
-        path_run = unwhite if name == "serial_mean" else run
         rows.append(
             dict(
                 name=name,
                 route="cuda",
                 source=f"boinc_app_eah_brp_tpu_torch/csrc/{src}",
                 replaces=replaces,
-                launches=path_run["launches"][name],
+                launches=path_launches.get(LAUNCHES_FROM.get(name), run["launches"])[name],
                 max_abs_err=m["max_abs_err"],
                 ms=m["ms"],
                 plain_ms=m["plain_ms"],
@@ -1081,6 +1283,8 @@ def main() -> int:
     print(json.dumps({"oom_ladder": ladder}))
     print(json.dumps({"supervised": supervised}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"roofline": health_f.pop("roofline")}))
+    print(json.dumps({"health_precision": health_f}))
     print(json.dumps({"kernels": rows}))
     print(
         json.dumps(

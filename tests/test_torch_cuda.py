@@ -317,3 +317,75 @@ def test_warmed_scheduler_serves_without_builds_or_plans(dev, tmp_path, monkeypa
         assert len(sched.step_cache) == 2  # batches 4 and 2
     finally:
         sched.close()
+
+
+@pytest.mark.parametrize("case", ["clean", "nan", "padded"])
+def test_health_vector_card_matches_cpu(dev, case):
+    """``batch_health_vec`` on the card equals the CPU's bit for bit (the
+    counts and extrema are exact)."""
+    rng = np.random.default_rng(3)
+    sums = rng.exponential(3.0, (4, 5, 1000)).astype(np.float32)
+    valid = np.array([True, True, case != "padded", case != "padded"])
+    M = rng.exponential(5.0, (5, 1000)).astype(np.float32)
+    if case == "nan":
+        sums[1, 2, 7] = np.nan
+        sums[2, 0, 3] = np.inf
+        M[0, 9] = np.nan
+    args = [torch.from_numpy(a) for a in (sums, valid, M)]
+    want = search.batch_health_vec(*args)
+    got = search.batch_health_vec(*(a.to(dev) for a in args))
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+def test_template_sumspec_is_a_step_row_on_the_card(dev):
+    """The sentinel probe's one-template search launches kernel A at T = 1,
+    B, a batch-1 rfft and C, and gives the batch step's row for that
+    template."""
+    n = 1 << 16
+    b = np.loadtxt(BANK200)[[17]]
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+
+    d = DerivedParams.derive(n, DT * 1e6, SearchConfig(padding=3.0, f0=400.0, window=1000))
+    geom = search.SearchGeometry.from_derived(
+        d,
+        max_slope=search.max_slope_for_bank(b[:, 0], b[:, 1]),
+        lut_step=search.lut_step_for_bank(b[:, 0], DT),
+        lut_tiles=search.lut_tiles_for_bank(b[:, 0], b[:, 2], n, DT),
+    )
+    ts = torch.from_numpy(np.random.default_rng(2).normal(0, 1, n).astype(np.float32)).to(dev)
+    before = dict(kernels.launch_counts)
+    one = search.template_sumspec(ts, b[0, 0], b[0, 1], b[0, 2], geom)
+    for k in ("resample_t1", "fftprep", "fold_spectrum"):
+        assert kernels.launch_counts[k] == before[k] + 1, k
+    bank = search.upload_bank(search.bank_params_host(b[:, 0], b[:, 1], b[:, 2], DT), 2, dev)
+    step = search.BankStep(geom, bank, 2, with_health=True)
+    M, _, vec = step(ts, 0, 1)
+    assert torch.equal(one, M)
+    assert vec[0].item() == 0 and vec[1].item() == 0
+
+
+def test_precision_audit_on_the_card(dev):
+    """The precision audit with the port's kernels as its taps, on the CI
+    fixture: the committed baseline's ceilings and floors hold on the card
+    too (the baseline names the CPU backend, so it is applied without
+    that key), and the tap proof: (M, T) byte-identical, no kernel build
+    and no new cuFFT plan in the second pass."""
+    import json
+
+    from boinc_app_eah_brp_tpu_torch.runtime import metrics, precision
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(__file__)), "PRECISION_BASELINE.json")) as f:
+        baseline = json.load(f)
+    baseline.pop("backend")
+    metrics.configure(force=True)
+    try:
+        before = dict(kernels.launch_counts)
+        doc = precision.run_audit(*precision.ci_fixture(), lanes=("f32",), device=dev)
+    finally:
+        metrics.finish(0)
+    assert doc["backend"] == "cuda"
+    assert precision.evaluate_baseline(doc, baseline) == []
+    assert doc["lanes"]["f32"]["tap"]["recompiles_in_window"] == 0
+    # the harmonic-sum tap is kernel C's float-power entry, the resample tap A at T = 1
+    assert kernels.launch_counts["fold"] > before["fold"]
+    assert kernels.launch_counts["resample_t1"] > before["resample_t1"]

@@ -57,6 +57,7 @@ def test_port_cpu_path_imports_no_jax(tmp_path):
 RUNTIME_LAYERS = (
     "percentiles", "metrics", "tracing", "flightrec", "obs", "profiling", "steptime",
     "autobatch", "faultinject", "resilience", "watchdog", "supervise", "errors", "scheduler",
+    "health", "devicecost", "roofline", "precision",
 )
 SERVING = ("journal", "slo", "introspect", "server")
 

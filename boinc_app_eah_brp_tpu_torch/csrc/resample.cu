@@ -82,6 +82,21 @@
 //   move the LUT index by 0.003 entries, so a warp reads one entry (rarely
 //   two).
 //
+// The exact-sine instantiation (kExact, chosen at launch; --exact-sin, the
+// JAX package's use_lut=False, boinc_app_eah_brp_tpu/ops/resample.py
+// `_del_t`, which XLA runs: no Pallas kernel stands behind it) takes
+//   s = sinf(phase)
+// in place of the LUT sine; the phase, del_t, nearest-index and statistics
+// chain is the same code.  CUDA's sinf (libdevice) is exact to ~1 ulp;
+// its Cody-Waite reduction and polynomial use explicit fused multiply-adds
+// that -fmad=false does not touch, so it is the same function as
+// torch.sin on a float32 CUDA tensor.  Above |phase| ~ 105,615 rad sinf
+// takes its Payne-Hanek reduction (local memory): at t_obs 274.6 s every
+// P_orb below ~16 ms.  What bounds it: the same bytes as the LUT kernel,
+// and ~18 float32 instructions and 2 conversions a sample for the sine in
+// place of the LUT's 14 (argument 3, index 2, Taylor 9), ~50 more on the
+// slow path (runtime/roofline.py).
+//
 // Numerics: the index arithmetic must not be contracted into FMAs: one
 // fused multiply-add flips a nearest index and with it the candidate set.
 // Every multiply and add below is an explicit round-to-nearest intrinsic in
@@ -133,7 +148,8 @@ enum Path { kInterior, kEdge, kWide };
 // k * kStride (times renorm; 0 past half), and the largest of those m whose
 // i - del_t < n-1 (-1 when none).  The index that a gather reads is held
 // as its bits plus those of 2^23, which base (ts less that bias) undoes.
-template <Path kPath>
+// With kExact, scaled holds the phase itself and y is 0 (sine_args).
+template <Path kPath, bool kExact>
 __device__ __forceinline__ int gather(const float (&i_f)[kPer], const float (&scaled)[kPer],
                                       const float (&y)[kPer], float tau, float s0,
                                       float step_inv, float n_last, int n_unpadded, int m0,
@@ -142,21 +158,26 @@ __device__ __forceinline__ int gather(const float (&i_f)[kPer], const float (&sc
   unsigned bits[kPer];
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    float iu_f;
-    int e;
-    if (kPath == kInterior || below_magic(y[k])) {
-      const float r = __fadd_rz(y[k], kMagic);
-      iu_f = __fsub_rn(r, kMagic);
-      e = __float_as_int(r) & 63;  // kMagicBits has no low bits
+    float s;
+    if (kExact) {
+      s = sinf(scaled[k]);
     } else {
-      const int iu = __float2int_rz(y[k]);
-      iu_f = __int2float_rn(iu);
-      e = max(iu, 0) & 63;
+      float iu_f;
+      int e;
+      if (kPath == kInterior || below_magic(y[k])) {
+        const float r = __fadd_rz(y[k], kMagic);
+        iu_f = __fsub_rn(r, kMagic);
+        e = __float_as_int(r) & 63;  // kMagicBits has no low bits
+      } else {
+        const int iu = __float2int_rz(y[k]);
+        iu_f = __int2float_rn(iu);
+        e = max(iu, 0) & 63;
+      }
+      const float2 sc = c_sincos[e];
+      const float d = __fmul_rn(c_two_pi[0], __fsub_rn(scaled[k], __fmul_rn(0.015625f, iu_f)));
+      const float d2 = __fmul_rn(d, __fmul_rn(0.5f, d));
+      s = __fsub_rn(__fadd_rn(sc.x, __fmul_rn(d, sc.y)), __fmul_rn(d2, sc.x));
     }
-    const float2 sc = c_sincos[e];
-    const float d = __fmul_rn(c_two_pi[0], __fsub_rn(scaled[k], __fmul_rn(0.015625f, iu_f)));
-    const float d2 = __fmul_rn(d, __fmul_rn(0.5f, d));
-    const float s = __fsub_rn(__fadd_rn(sc.x, __fmul_rn(d, sc.y)), __fmul_rn(d2, sc.x));
     const float del_t = __fsub_rn(__fmul_rn(__fmul_rn(tau, s), step_inv), s0);
     const float x = __fsub_rn(i_f[k], del_t);
     const float z = __fadd_rn(x, 0.5f);
@@ -203,14 +224,21 @@ __device__ __forceinline__ float reach_of(float tau, float s0, float step_inv) {
 
 // The phase of each output, as a fraction of a turn and as the LUT
 // argument y.  y is monotone in k (every step is a rounded product or sum
-// with a constant), so its ends bound the whole run.
-__device__ __forceinline__ void lut_args(const float (&tt)[kPer], float omega, float psi0,
-                                         float (&scaled)[kPer], float (&y)[kPer]) {
+// with a constant), so its ends bound the whole run.  With kExact, the
+// phase itself and y = 0 (no table: every y test passes).
+template <bool kExact>
+__device__ __forceinline__ void sine_args(const float (&tt)[kPer], float omega, float psi0,
+                                          float (&scaled)[kPer], float (&y)[kPer]) {
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const float phase = __fadd_rn(__fmul_rn(omega, tt[k]), psi0);
-    scaled[k] = __fmul_rn(c_two_pi[1], phase);
-    y[k] = __fadd_rn(__fmul_rn(scaled[k], 64.0f), 0.5f);
+    if (kExact) {
+      scaled[k] = phase;
+      y[k] = 0.0f;
+    } else {
+      scaled[k] = __fmul_rn(c_two_pi[1], phase);
+      y[k] = __fadd_rn(__fmul_rn(scaled[k], 64.0f), 0.5f);
+    }
   }
 }
 
@@ -219,24 +247,24 @@ __device__ __forceinline__ void lut_args(const float (&tt)[kPer], float omega, f
 // where its contract holds), so bit for bit kernel A's.  stream_kernel
 // keeps its own copy of this choice inline: calling this cost it three
 // registers.
-template <bool kWideSeries>
+template <bool kWideSeries, bool kExact>
 __device__ __forceinline__ void samples(const float (&i_f)[kPer], const float (&tt)[kPer], float tau,
                                         float omega, float psi0, float s0, float reach, float step_inv,
                                         float n_last, int n_unpadded, int m0, int m_left, bool full,
                                         uintptr_t base, float (&v)[kPer]) {
   float scaled[kPer], y[kPer];
-  lut_args(tt, omega, psi0, scaled, y);
+  sine_args<kExact>(tt, omega, psi0, scaled, y);
   const bool interior = !kWideSeries && full && below_magic(y[0]) && below_magic(y[kPer - 1]) &&
                         i_f[0] >= reach && __fadd_rn(i_f[kPer - 1], reach) < __fsub_rn(n_last, 1.0f);
   if (kWideSeries)
-    gather<kWide>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
+    gather<kWide, kExact>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
   else if (interior)
-    gather<kInterior>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
+    gather<kInterior, kExact>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
   else
-    gather<kEdge>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
+    gather<kEdge, kExact>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
 }
 
-template <bool kWideSeries>
+template <bool kWideSeries, bool kExact>
 __global__ void __launch_bounds__(kThreads)
     stream_kernel(const float* __restrict__ ts, const float* __restrict__ params,
                   float* __restrict__ out,
@@ -266,17 +294,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       float scaled[kPer], y[kPer];
-      lut_args(tt[p], omega, psi0, scaled, y);
+      sine_args<kExact>(tt[p], omega, psi0, scaled, y);
       float v[kPer];
       const bool interior = !kWideSeries && full && below_magic(y[0]) && below_magic(y[kPer - 1]) &&
                             i_f[p][0] >= reach && __fadd_rn(i_f[p][kPer - 1], reach) < __fsub_rn(n_last, 1.0f);
       int last;
       if (kWideSeries)
-        last = gather<kWide>(i_f[p], scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
+        last = gather<kWide, kExact>(i_f[p], scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
       else if (interior)
-        last = gather<kInterior>(i_f[p], scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
+        last = gather<kInterior, kExact>(i_f[p], scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
       else
-        last = gather<kEdge>(i_f[p], scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
+        last = gather<kEdge, kExact>(i_f[p], scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, m_left, base, v);
       if (apply_renorm) {
 #pragma unroll
         for (int k = 0; k < kPer; ++k)
@@ -458,7 +486,7 @@ constexpr int kQuietChains = 8;
 
 // The row of template g in a buffer half holds the 2 * kUnit * U samples
 // of one stage, in order.
-template <bool kWideSeries>
+template <bool kWideSeries, bool kExact>
 __global__ void __launch_bounds__(kMeanThreads)
     exact_mean_kernel(const float* __restrict__ ts, const float* __restrict__ params,
                       int* __restrict__ n_steps_out, float* __restrict__ mean_out, int N, int G,
@@ -491,10 +519,10 @@ __global__ void __launch_bounds__(kMeanThreads)
           if (lf[p] >= 0) continue;  // warp-uniform
           float i_f[kPer], tt[kPer], scaled[kPer], y[kPer], v[kPer];
           index_times<kWideSeries>(m0, p, dt, i_f, tt);
-          lut_args(tt, omega, psi0, scaled, y);
+          sine_args<kExact>(tt, omega, psi0, scaled, y);
           int last = kWideSeries
-                         ? gather<kWide>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, half - m0, base, v)
-                         : gather<kEdge>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, half - m0, base, v);
+                         ? gather<kWide, kExact>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, half - m0, base, v)
+                         : gather<kEdge, kExact>(i_f, scaled, y, tau, s0, step_inv, n_last, n_unpadded, m0, half - m0, base, v);
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
           lf[p] = last;
@@ -531,7 +559,7 @@ __global__ void __launch_bounds__(kMeanThreads)
       for (int p = 0; p < 2; ++p) {
         float i_f[kPer], tt[kPer];
         index_times<kWideSeries>(m0, p, dt, i_f, tt);
-        samples<kWideSeries>(i_f, tt, tau, omega, psi0, s0, reach, step_inv, n_last, n_unpadded, m0, m_left,
+        samples<kWideSeries, kExact>(i_f, tt, tau, omega, psi0, s0, reach, step_inv, n_last, n_unpadded, m0, m_left,
                              full, base, v[p]);
       }
       float* r = dst + g * row + j * 2 * kUnit;
@@ -617,13 +645,14 @@ extern "C" int erp_resample_init(int device, const float* sin64,
 // ts: the interleaved series float32[n_unpadded]; out: float32[T, 2, half];
 // params: float32[T, 4] rows (tau, omega, psi0, s0); n_steps: int32[T];
 // mean: float32[T]; scratch: unit_sum float32 and unit_last int32, each
-// [T, 2, ceil(half / kUnit)].
+// [T, 2, ceil(half / kUnit)]; exact_sin: the sinf instantiation.
 extern "C" int erp_resample_stream(int device, void* stream, const float* ts,
                                    const float* params,
                                    float* out, int* n_steps, float* mean,
                                    float* unit_sum, int* unit_last, int T,
                                    int half, int n_unpadded, float dt,
-                                   float step_inv, float renorm, int apply_renorm) {
+                                   float step_inv, float renorm, int apply_renorm,
+                                   int exact_sin) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -631,7 +660,9 @@ extern "C" int erp_resample_stream(int device, void* stream, const float* ts,
   int n_pow2 = 1;
   while (n_pow2 < n_units) n_pow2 <<= 1;
   const int blocks = (n_units + kUnitsPerBlock - 1) / kUnitsPerBlock;
-  const auto kernel = n_unpadded > kMaxNarrow ? stream_kernel<true> : stream_kernel<false>;
+  const bool wide = n_unpadded > kMaxNarrow;
+  const auto kernel = exact_sin ? (wide ? stream_kernel<true, true> : stream_kernel<false, true>)
+                                : (wide ? stream_kernel<true, false> : stream_kernel<false, false>);
   kernel<<<blocks, kThreads, 0, s>>>(ts, params, out, unit_sum, unit_last, T, half, n_units,
                                      n_unpadded, dt, step_inv, renorm, apply_renorm);
   e = cudaGetLastError();
@@ -643,10 +674,11 @@ extern "C" int erp_resample_stream(int device, void* stream, const float* ts,
 
 // ts: the interleaved series float32[n_unpadded]; params: float32[N, 4]
 // rows (tau, omega, psi0, s0); n_steps: int32[N] and mean: float32[N]
-// (out).  Needs erp_resample_init on this device first.
+// (out); exact_sin: the sinf instantiation.  Needs erp_resample_init on
+// this device first.
 extern "C" int erp_exact_mean(int device, void* stream, const float* ts, const float* params,
                               int* n_steps, float* mean, int N, int n_unpadded, float dt,
-                              float step_inv) {
+                              float step_inv, int exact_sin) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   int sms = 0;
@@ -660,7 +692,9 @@ extern "C" int erp_exact_mean(int device, void* stream, const float* ts, const f
   const int half = n_unpadded / 2;
   const int n_units = (half + kUnit - 1) / kUnit;
   const size_t smem = 2 * static_cast<size_t>(G) * (2 * kUnit * U + kRowPad) * sizeof(float);
-  const auto kernel = n_unpadded > kMaxNarrow ? exact_mean_kernel<true> : exact_mean_kernel<false>;
+  const bool wide = n_unpadded > kMaxNarrow;
+  const auto kernel = exact_sin ? (wide ? exact_mean_kernel<true, true> : exact_mean_kernel<false, true>)
+                                : (wide ? exact_mean_kernel<true, false> : exact_mean_kernel<false, false>);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<(N + G - 1) / G, kMeanThreads, smem, static_cast<cudaStream_t>(stream)>>>(

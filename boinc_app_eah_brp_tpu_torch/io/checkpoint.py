@@ -58,13 +58,23 @@ class Checkpoint:
             raise CheckpointError("candidates must be CP_cand[500]")
 
 
-def topology_record(process_count: int = 1, quarantined: list[tuple[int, int]] | None = None) -> dict:
+def topology_record(
+    process_count: int = 1,
+    ranges: list[tuple[int, int]] | None = None,
+    quarantined: list[tuple[int, int]] | None = None,
+) -> dict:
     """The audit sidecar's record of how many processes wrote the
-    checkpoint: the port runs in one process; a checkpoint of a run with
-    more is refused on resume unless ``ERP_RESUME_REBALANCE=1``.
-    ``quarantined`` names the template ranges the hang doctor skipped
-    (``runtime/watchdog.py``), the same gap record as the result header."""
+    checkpoint and, for a multi-process run, a digest of its per-shard
+    template ranges (the JAX package's record); a checkpoint of a run with
+    another process count is refused on resume unless
+    ``ERP_RESUME_REBALANCE=1``.  ``quarantined`` names the template ranges
+    the hang doctor skipped (``runtime/watchdog.py``), the same gap record
+    as the result header."""
     doc = {"process_count": int(process_count)}
+    if ranges is not None:
+        doc["n_shards"] = len(ranges)
+        layout = json.dumps([[int(a), int(b)] for a, b in ranges])
+        doc["layout_sha"] = hashlib.sha256(layout.encode()).hexdigest()
     if quarantined:
         doc["quarantined"] = [[int(a), int(b)] for a, b in quarantined]
     return doc

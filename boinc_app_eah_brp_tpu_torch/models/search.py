@@ -67,6 +67,11 @@ class SearchGeometry:
     # samples) and the pad moves low-bin powers by percent; whitened series
     # have zero mean and skip it.  The driver sets it to ``not cfg.white``.
     exact_mean: bool = False
+    # the reference's 64-point LUT sine; False (--exact-sin) takes the
+    # exact-sine instantiations of kernel A and the exact mean, and drops
+    # the LUT's bounds (lut_step, psi0 in [0, 2pi), lut_tiles), which lets
+    # banks with orbits below milliseconds run
+    use_lut: bool = True
 
     @classmethod
     def from_derived(
@@ -76,6 +81,7 @@ class SearchGeometry:
         lut_step: float = 1e-3,
         lut_tiles: int = 1024,
         exact_mean: bool = False,
+        use_lut: bool = True,
     ) -> "SearchGeometry":
         return cls(
             nsamples=d.nsamples,
@@ -89,6 +95,7 @@ class SearchGeometry:
             lut_step=lut_step,
             lut_tiles=lut_tiles,
             exact_mean=exact_mean,
+            use_lut=use_lut,
         )
 
 
@@ -145,7 +152,9 @@ def validate_bank_bounds(
     bank_psi0: np.ndarray | None = None,
 ) -> None:
     """Check the bank against the geometry's bounds: the same contract the
-    reference package's kernels hold, so both search the same bank."""
+    reference package's kernels hold, so both search the same bank.  The
+    three LUT bounds apply only where the geometry takes the LUT sine
+    (``use_lut``)."""
     if not len(bank_P):
         return
     P = np.asarray(bank_P)
@@ -156,6 +165,8 @@ def validate_bank_bounds(
             f"geometry bound {geom.max_slope:.3g}; rebuild SearchGeometry "
             "with max_slope_for_bank(P, tau)"
         )
+    if not geom.use_lut:
+        return
     bank_lut_step = 64.0 * geom.dt / float(np.min(P))
     if bank_lut_step > geom.lut_step:
         raise ValueError(
@@ -177,7 +188,7 @@ def validate_bank_bounds(
         raise ValueError(
             f"search phase spans {span_periods:.0f} LUT periods, beyond the "
             f"geometry's bound ({geom.lut_tiles}); rebuild SearchGeometry with "
-            "lut_tiles_for_bank(P, psi0, n, dt)"
+            "lut_tiles_for_bank(P, psi0, n, dt) (or use use_lut=False for P_orb below milliseconds)"
         )
 
 
@@ -340,6 +351,7 @@ class BankStep(nn.Module):
         x = fftprep_series(
             ts, p[:, 0], p[:, 1], p[:, 2], p[:, 3],
             nsamples=g.nsamples, n_unpadded=g.n_unpadded, dt=g.dt, exact_mean=g.exact_mean, mean=mean,
+            exact_sin=not g.use_lut,
         )
         with stage_scope("fft"):
             F = planned_fft(torch.fft.rfft, x)
@@ -365,7 +377,8 @@ class BankStep(nn.Module):
 def template_sumspec(ts: torch.Tensor, P: float, tau: float, psi0: float, geom: SearchGeometry) -> torch.Tensor:
     """One template's float32[5, W] phase-major run maxima over the
     series ``ts``, through the batch step's operations at T = 1: kernel A's
-    single-template launch (counted ``resample_t1``), the exact mean where
+    single-template launch (counted ``resample_t1``, or
+    ``resample_t1_exact`` where ``not geom.use_lut``), the exact mean where
     ``geom.exact_mean``, kernel B, a batch-1 rfft and kernel C.  The
     counterpart of the reference package's ``template_sumspec_fn``: the
     sentinel probe's device search (``runtime/health.py``)."""
@@ -373,6 +386,7 @@ def template_sumspec(ts: torch.Tensor, P: float, tau: float, psi0: float, geom: 
     x = fftprep_series(
         ts, p[:, 0], p[:, 1], p[:, 2], p[:, 3],
         nsamples=geom.nsamples, n_unpadded=geom.n_unpadded, dt=geom.dt, exact_mean=geom.exact_mean,
+        exact_sin=not geom.use_lut,
     )
     with stage_scope("fft"):
         F = planned_fft(torch.fft.rfft, x)
@@ -385,7 +399,8 @@ def step_cache_key(geom: SearchGeometry, batch_size: int, device) -> tuple:
     same kernels on the same transform, so the second needs no kernel
     build and no new cuFFT plan.  It folds in everything :class:`BankStep`
     and :func:`run_bank` read besides their operands: the geometry (a
-    frozen dataclass of scalars, hashable, with ``exact_mean``), the batch
+    frozen dataclass of scalars, hashable, with ``exact_mean`` and
+    ``use_lut``: the exact-sine kernels are another instantiation), the batch
     (the R2C plan is of (batch, nsamples)) and the device (plans are per
     card).  The health vector is not in it: it is eager reductions over
     the sums, with no build and no plan of its own."""
@@ -407,7 +422,9 @@ def warm_step(geom: SearchGeometry, batch_size: int, device="cuda") -> None:
     mean = None
     if geom.exact_mean:
         mean = torch.zeros(bank.shape[0], dtype=torch.float32, device=dev)
-        mean[:B] = exact_mean_params(ts, bank[:B], n_unpadded=geom.n_unpadded, dt=geom.dt)[1]
+        mean[:B] = exact_mean_params(
+            ts, bank[:B], n_unpadded=geom.n_unpadded, dt=geom.dt, exact_sin=not geom.use_lut
+        )[1]
     else:
         from ..ops.whiten import warm
 
@@ -478,7 +495,10 @@ def run_bank(
     if geom.exact_mean and start_template < n_stop:
         rows = upload_bank(params, 0, dev)[start_template:n_stop]
         with stage_scope("serial_mean"):
-            mean = (start_template, exact_mean_params(ts, rows, n_unpadded=geom.n_unpadded, dt=geom.dt)[1])
+            mean = (
+                start_template,
+                exact_mean_params(ts, rows, n_unpadded=geom.n_unpadded, dt=geom.dt, exact_sin=not geom.use_lut)[1],
+            )
         del rows
     attempt = dict(
         ts=ts, params=params, geom=geom, n=n, n_stop=n_stop, mean=mean, progress_cb=progress_cb, step_cache=step_cache

@@ -14,7 +14,9 @@ can show that it went through the kernels.  One source may serve several
 entries: ``resample.cu`` the batched and the single-template resampler
 and the reference's serial float32 pad mean of unwhitened runs (entry
 ``serial_mean``: every template's mean of a bank in one launch, from
-kernel A's device functions), ``fold.cu`` the fold of float power and of
+kernel A's device functions), each also in its exact-sine instantiation
+(``--exact-sin``: ``resample_exact``, ``resample_t1_exact``,
+``serial_mean_exact``), ``fold.cu`` the fold of float power and of
 the complex spectrum.
 
 :func:`planned_fft` runs the port's ``torch.fft`` transforms and tells
@@ -37,7 +39,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 SOURCES = ("resample", "fftprep", "fold")
-KERNELS = ("resample", "resample_t1", "fftprep", "fold", "fold_spectrum", "serial_mean")
+KERNELS = (
+    "resample", "resample_t1", "fftprep", "fold", "fold_spectrum", "serial_mean",
+    # the exact-sine instantiations of kernel A, A1 and the exact mean (--exact-sin)
+    "resample_exact", "resample_t1_exact", "serial_mean_exact",
+)
 MAX_GRID_T = 65535  # templates per FFT-prep launch: the batch is a grid dimension
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,8 +61,8 @@ _SIGNATURES = {
     "resample": {
         "erp_resample_unit": [],
         "erp_resample_init": [_I, _P, _P, _P],
-        "erp_resample_stream": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I],
-        "erp_exact_mean": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _F],
+        "erp_resample_stream": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I],
+        "erp_exact_mean": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I],
     },
     "fftprep": {
         "erp_fftprep": [_I, _P, _P, _P, _P, _P, _I, _I, _I],

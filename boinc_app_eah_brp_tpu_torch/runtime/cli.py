@@ -2,9 +2,8 @@
 (``demod_binary.c:217-445``) and the JAX package's extensions that the
 port honours, with the same range checks and exit codes, so BOINC
 ``app_info.xml`` command lines work unchanged.  ``--device`` takes a torch
-device (``cuda``, ``cuda:N`` or ``cpu``); ``-D N`` is ``cuda:N``.  The
-JAX package's flags for layers not ported yet are refused, with the
-reason."""
+device (``cuda``, ``cuda:N`` or ``cpu``); ``-D N`` is ``cuda:N``, which
+pins one card and so excludes ``--mesh N`` above 1."""
 
 from __future__ import annotations
 
@@ -33,6 +32,8 @@ Usage: {prog} [options], options are:
  --batch\t\t\tint\tTemplates per device batch (default: auto, from a measured sweep or the card's memory).
  --device\t\t\tstring\tTorch device: cuda (default), cuda:N or cpu.
  --no-rescore\t\tboolean\tSkip host-oracle rescoring of emitted candidates.
+ --mesh\t\t\tint\tShard the template bank over an N-device mesh (default: all visible devices).
+ --exact-sin\t\tboolean\tUse exact sine instead of the reference LUT.
  --status-file\t\tstring\tProgress sink when run under the native wrapper.
  --control-file\t\tstring\tQuit/abort source when run under the native wrapper.
  --shmem\t\t\tstring\tScreensaver shared-memory segment path.
@@ -40,12 +41,6 @@ Usage: {prog} [options], options are:
  --metrics-file\t\tstring\tAppend a structured metrics JSONL stream (+ run report) to this file.
  --supervised\t\tint\tRe-exec the worker on watchdog temporary exit (rc 99), resuming from the checkpoint, up to N restarts.
 """
-
-# the JAX package's flags for layers the port does not have yet, and why
-_NOT_YET = {
-    "--mesh": "multi-device search: the port searches on one card per process",
-    "--exact-sin": "the exact-sine resampler: the port's kernel A computes the reference's LUT sine only",
-}
 
 _NUMBERS = {
     "-P": ("padding", float, 1.0, 10.0, "padding factor"),
@@ -57,6 +52,7 @@ _NUMBERS = {
     "-A": ("fA", float, 0.0, 1.0, "false alarm rate"),
     "--false_alarm": ("fA", float, 0.0, 1.0, "false alarm rate"),
     "--batch": ("batch_size", int, 1, 1 << 16, "batch size"),
+    "--mesh": ("mesh_devices", int, 1, 1 << 16, "mesh size"),
 }
 # options that take a path; a missing value is a file error
 _FILES = {
@@ -75,6 +71,7 @@ _SWITCHES = {
     "-W": ("white", True), "--whitening": ("white", True),
     "-z": ("debug", True), "--debug": ("debug", True),
     "--no-rescore": ("rescore", False),
+    "--exact-sin": ("use_lut", False),
 }
 
 
@@ -107,9 +104,6 @@ def parse_args(argv: list[str]) -> DriverArgs | int:
                 erplog.debug("Running program in debugging mode.\n")
             i += 1
             continue
-        if a in _NOT_YET:
-            erplog.error('Option "%s" is not supported by the PyTorch port yet: %s.\n', a, _NOT_YET[a])
-            return RADPUL_EMISC
         if a not in _NUMBERS and a not in _FILES and a not in ("-D", "--device"):
             erplog.error('\nUnknown option "%s". Use \'--help\'.\n\n', a)
             return RADPUL_EMISC
@@ -140,6 +134,9 @@ def parse_args(argv: list[str]) -> DriverArgs | int:
         if req not in kw:
             erplog.error("Missing required option for %s.\n", req)
             return RADPUL_EVAL
+    if kw.get("mesh_devices", 1) > 1 and kw.get("device", "cuda").startswith("cuda:"):
+        erplog.error("-D/--device and --mesh N>1 are mutually exclusive.\n")
+        return RADPUL_EVAL
     return DriverArgs(**kw)
 
 

@@ -51,7 +51,7 @@ STAGES: dict[str, str] = {
     "sumspec": "harmonic-sum",  # ops/harmonic.py, kernel C
     "bank-slice": "bank-slice",  # models/search.py bank slicing
     "merge": "merge",  # (M, T) max/argmax/where fold
-    "allreduce": "merge",  # the sharded max-merge (not ported yet)
+    "allreduce": "merge",  # the sharded max-merge (parallel/sharded_search.py)
     "health": "health",  # models/search.py batch_health_vec
     "serial_mean": "resample",  # the exact mean, csrc/resample.cu
     "fold": "harmonic-sum",  # kernel C's CUDA kernel

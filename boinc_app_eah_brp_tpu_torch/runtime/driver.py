@@ -3,7 +3,8 @@ the process around one :class:`~.session.Session` — the argument surface,
 the observability and resilience layers armed for the run (metrics,
 tracing, the flight recorder, the watchdog, fault injection, the retry
 budget) and closed after it, the BOINC slot's ``init_data.xml``, the
-device choice, signal handling and the RADPUL_* exit codes.
+multi-process identity (``parallel/distributed.py``), the device and
+mesh choice, signal handling and the RADPUL_* exit codes.
 
 Checkpoint compatibility: the card holds (M, T) per-bin maxima; a
 checkpoint stores the reference's 500-candidate toplist built from them,
@@ -47,9 +48,14 @@ class DriverArgs:
     # host-oracle rescoring of the emitted candidates (oracle/rescore.py),
     # off with --no-rescore
     rescore: bool = True
+    # the reference's LUT sine; False (--exact-sin): the exact-sine kernels
+    use_lut: bool = True
     # torch device: "cuda" (the current card), "cuda:N" (-D N) or "cpu";
     # a BOINC-assigned card in init_data.xml takes precedence over a card
     device: str = "cuda"
+    # --mesh N: shard the template bank over N devices (None = every
+    # visible card, or ERP_LOCAL_DEVICES logical shards of a CPU run)
+    mesh_devices: int | None = None
     # the native wrapper's protocol (runtime/boinc.py, native/erp_wrapper.cpp)
     status_file: str | None = None
     control_file: str | None = None
@@ -83,20 +89,41 @@ def device_for(args: DriverArgs, init_data=None) -> str:
     return args.device
 
 
-def _select_device(args: DriverArgs, init_data) -> str:
+def _select_devices(args: DriverArgs, init_data) -> tuple[str, int]:
+    """The run's device and the width of its mesh (1: the single-device
+    path), with the JAX package's checks (its ``_select_devices``): a
+    pinned card (``-D``, ``--device cuda:N`` or BOINC's assignment) with
+    ``--mesh N>1``, or a mesh wider than the devices this process
+    addresses, is RADPUL_EVAL; with no ``--mesh`` the mesh spans every
+    visible card (on the CPU, ``ERP_LOCAL_DEVICES`` logical shards)."""
     import torch
 
     from ..device import resolve_device
+    from ..parallel.mesh import local_devices
 
-    dev = resolve_device(device_for(args, init_data))
-    if dev.type == "cuda":
-        count = torch.cuda.device_count()
-        if dev.index >= count:
+    chosen = device_for(args, init_data)
+    pinned = chosen.startswith("cuda:")
+    if pinned and (args.mesh_devices or 0) > 1:
+        raise RadpulError(RADPUL_EVAL, "-D/--device and --mesh N>1 are mutually exclusive.")
+    dev = resolve_device(chosen)
+    visible = local_devices(dev.type)
+    if pinned and dev.index >= len(visible):
+        raise RadpulError(
+            RADPUL_EVAL, f"No device matching the given device ID #{dev.index} found ({len(visible)} available)!"
+        )
+    n_mesh = 1 if pinned else len(visible)
+    if args.mesh_devices is not None:
+        if args.mesh_devices > len(visible):
             raise RadpulError(
-                RADPUL_EVAL, f"No device matching the given device ID #{dev.index} found ({count} available)!"
+                RADPUL_EVAL,
+                f"Requested a {args.mesh_devices}-device mesh but {len(visible)} devices are available!",
             )
+        n_mesh = args.mesh_devices
+    if dev.type == "cuda":
         erplog.info('Using CUDA device #%d "%s"\n', dev.index, torch.cuda.get_device_name(dev))
-    return str(dev)
+    if n_mesh > 1:
+        erplog.info("Using %d %s device(s).\n", n_mesh, dev.type)
+    return str(dev), n_mesh
 
 
 def _run_search(args: DriverArgs, adapter: BoincAdapter) -> int:
@@ -110,17 +137,28 @@ def _run_search(args: DriverArgs, adapter: BoincAdapter) -> int:
     if faultinject.configure():
         erplog.warn("Fault injection armed: ERP_FAULT_SPEC=%s\n", os.environ.get(faultinject.ENV_SPEC, ""))
     resilience.begin_run()
+    # multi-process identity (parallel/distributed.py) before the devices
+    from ..parallel import distributed
+
+    dist = distributed.initialize()
+    if dist is not None and dist.shard_dir is None:
+        raise RadpulError(
+            RADPUL_EVAL,
+            f"Multi-host run ({distributed.ENV_NUM_PROCESSES}={dist.num_processes}) needs "
+            f"{distributed.ENV_SHARD_DIR} pointing at a directory every host can reach.",
+        )
     # BOINC slot: device assignment and user/host provenance
     # (cuda_utilities.c:53-85, demod_binary.c:1591-1605)
     init_data = load_init_data()
     if init_data is None:
         erplog.warn("User/host details unavailable...\n")
-    args = replace(args, device=_select_device(args, init_data))
+    device, n_mesh = _select_devices(args, init_data)
+    args = replace(args, device=device)
     # graceful quit: SIGTERM/SIGINT set the adapter's quit flag, so the
     # batch loop checkpoints and exits (erp_boinc_wrapper.cpp:143-152)
     previous = adapter.install_signal_handlers() if threading.current_thread() is threading.main_thread() else {}
     try:
-        return Session(args, adapter, init_data=init_data).run()
+        return Session(args, adapter, init_data=init_data).run(n_mesh=n_mesh, dist=dist)
     finally:
         restore_signal_handlers(previous)
 
@@ -170,4 +208,9 @@ def run_search(args: DriverArgs, adapter: BoincAdapter | None = None) -> int:
         watchdog.disarm()
         tracing.finish(code)
         steptime.finish(code)
+        # the process's kernel launches, one gauge a kernel entry, in the run report
+        from ..ops import kernels
+
+        for name, n in kernels.launch_counts.items():
+            metrics.gauge(f"torch.kernel_launches.{name}").set(n)
         metrics.finish(code, context={"inputfile": args.inputfile, "templatebank": args.templatebank})

@@ -542,6 +542,7 @@ def _stage_fns(geom, device):
         x = fftprep_series(
             up(ts32), p[:, 0], p[:, 1], p[:, 2], p[:, 3],
             nsamples=geom.nsamples, n_unpadded=geom.n_unpadded, dt=geom.dt, exact_mean=geom.exact_mean,
+            exact_sin=not geom.use_lut,
         )
         return x[0].cpu().numpy()
 

@@ -2,9 +2,9 @@
 
 The reference survives hostile volunteer hosts by checkpointing and being
 restartable; a transient failure still costs the whole process.  This layer
-recovers IN-process where possible.  It is the first half of the JAX
-package's ``runtime/resilience.py`` (the shard leases of multi-host runs
-are not ported):
+recovers IN-process where possible, and the shard-lease board carries a
+multi-process search past the loss of a whole process.  Counterpart of
+the JAX package's ``runtime/resilience.py``:
 
 * :func:`classify` sorts exceptions into ``transient`` (a retry can win:
   device out-of-memory — ``torch.cuda.OutOfMemoryError``, cuFFT's
@@ -24,6 +24,10 @@ are not ported):
 * :class:`DispatchSnapshot` keeps a host copy of the (M, T) maxima state,
   refreshed only where the host already waits on the card, so a failed
   dispatch restarts from the last snapshot instead of from scratch.
+* :class:`LeaseBoard` (the host-loss rung): shard leases, heartbeats and
+  adoption on a directory every process can reach (``ERP_SHARD_DIR``), in
+  the JAX package's file formats, so a board one package writes the other
+  joins.
 
 Every recovery step lands in ``resilience.*`` metrics and flightrec events
 so a run report shows WHAT degraded, not just that the run finished.
@@ -35,15 +39,17 @@ only; callers rebuild device state from the numpy snapshots themselves.
 from __future__ import annotations
 
 import errno as _errno
+import json
 import os
 import random
 import sys
 import threading
 import time
+from dataclasses import dataclass, replace
 
 import numpy as np
 
-from . import flightrec, metrics, tracing
+from . import faultinject, flightrec, metrics, tracing, watchdog
 from . import logging as erplog
 from .faultinject import InjectedFault
 
@@ -51,6 +57,8 @@ ENV_BUDGET = "ERP_RETRY_BUDGET"  # per-run retries across all sites; 0 = off
 ENV_BASE_S = "ERP_RETRY_BASE_S"
 ENV_MAX_S = "ERP_RETRY_MAX_S"
 ENV_SNAPSHOT_S = "ERP_RESIL_SNAPSHOT_S"
+ENV_LEASE_TIMEOUT_S = "ERP_LEASE_TIMEOUT_S"  # stale heartbeat -> host dead
+ENV_LEASE_GRACE_S = "ERP_LEASE_GRACE_S"  # never-started host allowance
 
 DEFAULT_BUDGET = 8
 DEFAULT_BASE_S = 0.05
@@ -367,3 +375,419 @@ def release_device_memory() -> None:
     for i in range(torch.cuda.device_count()):
         torch.backends.cuda.cufft_plan_cache[i].clear()
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# Shard leases: the host-loss rung of the ladder.
+#
+# The classes above recover a single process from its own faults; the lease
+# board generalizes that to losing an entire HOST of a multi-process search.
+# It is a small directory protocol on a filesystem every host can reach
+# (ERP_SHARD_DIR) — deliberately not a torch.distributed collective, so a
+# dead host can never hang the survivors:
+#
+#   board.json           erp-shard-board/1: template count, the contiguous
+#                        per-shard ranges, and the bank identity.  Created
+#                        once with O_EXCL (first host wins); every other
+#                        host verifies identity against its own inputs.
+#   host-<id>.hb         heartbeat, freshness by mtime.  Older than
+#                        ERP_LEASE_TIMEOUT_S => the host is presumed dead.
+#   lease-<k>.json       erp-shard-lease/1: who owns shard k, at which
+#                        adoption epoch, how far it got (n_done), and where
+#                        its committed state lives.  Written atomically
+#                        (tmp + rename) only by the current owner.
+#   claim-<k>.<epoch>    empty O_EXCL marker: at most one host wins any
+#                        (shard, epoch) takeover, so two survivors racing
+#                        to adopt a dead host's shard cannot both own it.
+#
+# Epochs make ownership monotonic: every takeover (initial claim, restart
+# re-attach, or adoption from a dead host) bumps the epoch, and a slow
+# not-actually-dead former owner discovers the new epoch on its next
+# committed write and abandons the shard instead of double-writing.
+# --------------------------------------------------------------------------
+
+BOARD_SCHEMA = "erp-shard-board/1"
+LEASE_SCHEMA = "erp-shard-lease/1"
+HEARTBEAT_SCHEMA = "erp-heartbeat/2"
+MERGE_SHARD = -1  # pseudo-shard serializing the final cross-host merge
+
+DEFAULT_LEASE_TIMEOUT_S = 60.0
+
+
+class LeaseError(RuntimeError):
+    """Shard-board protocol violation (identity mismatch, foreign write)."""
+
+
+def lease_timeout_s() -> float:
+    return max(0.05, _env_float(ENV_LEASE_TIMEOUT_S, DEFAULT_LEASE_TIMEOUT_S))
+
+
+def lease_grace_s() -> float:
+    """Startup allowance before a host that never heartbeat at all is
+    declared dead (it may still be compiling)."""
+    return max(0.0, _env_float(ENV_LEASE_GRACE_S, 2.0 * lease_timeout_s()))
+
+
+@dataclass(frozen=True)
+class ShardLease:
+    """One shard's ownership record, as last read from the board."""
+
+    shard: int
+    start: int
+    stop: int
+    owner: str
+    epoch: int
+    n_done: int
+    complete: bool = False
+    released: bool = False
+    state_path: str | None = None
+
+    def to_doc(self) -> dict:
+        return {
+            "schema": LEASE_SCHEMA,
+            "shard": self.shard,
+            "start": self.start,
+            "stop": self.stop,
+            "owner": self.owner,
+            "epoch": self.epoch,
+            "n_done": self.n_done,
+            "complete": self.complete,
+            "released": self.released,
+            "state_path": self.state_path,
+        }
+
+    @staticmethod
+    def from_doc(doc: dict) -> "ShardLease":
+        if doc.get("schema") != LEASE_SCHEMA:
+            raise LeaseError(f"Bad lease schema: {doc.get('schema')!r}")
+        return ShardLease(
+            shard=int(doc["shard"]),
+            start=int(doc["start"]),
+            stop=int(doc["stop"]),
+            owner=str(doc["owner"]),
+            epoch=int(doc["epoch"]),
+            n_done=int(doc["n_done"]),
+            complete=bool(doc.get("complete", False)),
+            released=bool(doc.get("released", False)),
+            state_path=doc.get("state_path"),
+        )
+
+
+def read_heartbeat(path: str) -> dict | None:
+    """Parse a ``host-<id>.hb`` file into ``{"wall", "monotonic",
+    "mtime", "schema"}`` (None when absent/unreadable).
+
+    ``erp-heartbeat/2`` files carry a wall+monotonic pair; legacy
+    single-value files (one ``time.time()`` line) still parse, with
+    ``monotonic`` None and schema ``erp-heartbeat/1``.  ``mtime`` is the
+    shared filesystem's stamp of the same write, so ``wall - mtime``
+    estimates the writing host's clock offset."""
+    try:
+        st = os.stat(path)
+        with open(path, encoding="utf-8") as f:
+            text = f.read().strip()
+    except OSError:
+        return None
+    wall = monotonic = None
+    schema = "erp-heartbeat/1"
+    try:
+        doc = json.loads(text)
+    except ValueError:
+        doc = None
+    if isinstance(doc, dict):
+        schema = str(doc.get("schema") or HEARTBEAT_SCHEMA)
+        wall = doc.get("wall")
+        monotonic = doc.get("monotonic")
+    else:
+        try:  # legacy single-value form
+            wall = float(text.split()[0])
+        except (ValueError, IndexError):
+            pass
+    if not isinstance(wall, (int, float)):
+        return None
+    return {
+        "schema": schema,
+        "wall": float(wall),
+        "monotonic": (
+            float(monotonic) if isinstance(monotonic, (int, float)) else None
+        ),
+        "mtime": st.st_mtime,
+    }
+
+
+def _write_json_atomic(path: str, doc: dict) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(doc, f, sort_keys=True)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _read_json(path: str) -> dict | None:
+    """None when absent; retries a torn concurrent read briefly (writes
+    are atomic renames, so any persistent parse failure is corruption)."""
+    for _ in range(3):
+        try:
+            with open(path, encoding="utf-8") as f:
+                return json.load(f)
+        except FileNotFoundError:
+            return None
+        except (json.JSONDecodeError, OSError):
+            time.sleep(0.02)
+    raise LeaseError(f"Unreadable board file: {path}")
+
+
+class LeaseBoard:
+    """This host's view of (and handle on) the shard-lease directory."""
+
+    def __init__(
+        self,
+        root: str,
+        host_id: str,
+        timeout_s: float | None = None,
+        grace_s: float | None = None,
+    ):
+        self.root = root
+        self.host_id = host_id
+        self.timeout_s = lease_timeout_s() if timeout_s is None else timeout_s
+        self.grace_s = lease_grace_s() if grace_s is None else grace_s
+        self._lost_announced: set[str] = set()
+        os.makedirs(root, exist_ok=True)
+
+    # -- board ------------------------------------------------------------
+    def _board_path(self) -> str:
+        return os.path.join(self.root, "board.json")
+
+    def publish_board(
+        self, n_templates: int, ranges: list[tuple[int, int]], identity: dict
+    ) -> dict:
+        """Create the board (first host wins the O_EXCL race) or verify an
+        existing one describes the SAME search; a mismatch means two
+        different runs were pointed at one shard dir."""
+        doc = {
+            "schema": BOARD_SCHEMA,
+            "n_templates": int(n_templates),
+            "ranges": [[int(a), int(b)] for a, b in ranges],
+            "identity": identity,
+        }
+        path = self._board_path()
+        try:
+            fd = os.open(path + ".claim", os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            os.close(fd)
+            _write_json_atomic(path, doc)
+            return doc
+        except FileExistsError:
+            return self.wait_board(expect=doc)
+
+    def wait_board(
+        self, expect: dict | None = None, timeout_s: float = 30.0
+    ) -> dict:
+        """Poll for the board (the publisher may still be writing it)."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            doc = _read_json(self._board_path())
+            if doc is not None:
+                if doc.get("schema") != BOARD_SCHEMA:
+                    raise LeaseError(
+                        f"Bad board schema: {doc.get('schema')!r}"
+                    )
+                if expect is not None:
+                    for key in ("n_templates", "ranges", "identity"):
+                        if doc.get(key) != expect.get(key):
+                            raise LeaseError(
+                                f"Shard board mismatch on {key!r}: board has "
+                                f"{doc.get(key)!r}, this host derived "
+                                f"{expect.get(key)!r} — refusing to join a "
+                                f"different search's shard dir."
+                            )
+                return doc
+            if time.monotonic() >= deadline:
+                raise LeaseError(
+                    f"No shard board appeared in {self.root} within "
+                    f"{timeout_s:.0f}s."
+                )
+            time.sleep(0.05)
+
+    # -- heartbeats -------------------------------------------------------
+    def _hb_path(self, host_id: str) -> str:
+        return os.path.join(self.root, f"host-{host_id}.hb")
+
+    def heartbeat(self) -> None:
+        # the watchdog guard is what makes a wedged heartbeat *visible*:
+        # every other host only sees this file's mtime going stale, but
+        # the sick host itself must notice, self-fence, and step aside
+        with watchdog.guard("lease_io", op="heartbeat"):
+            faultinject.fault_point("lease_io", op="heartbeat")
+            path = self._hb_path(self.host_id)
+            # wall + monotonic pair (erp-heartbeat/2): the file's mtime
+            # is stamped by the shared filesystem's clock while `wall`
+            # is this host's, so wall - mtime estimates the per-host
+            # clock offset a cross-host timeline assembler needs, and
+            # `monotonic` lets it spot a wall clock that stepped mid-run
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(
+                    json.dumps(
+                        {
+                            "schema": HEARTBEAT_SCHEMA,
+                            "wall": round(time.time(), 3),
+                            "monotonic": round(time.monotonic(), 3),
+                        }
+                    )
+                    + "\n"
+                )
+
+    def read_heartbeat(self, host_id: str) -> dict | None:
+        return read_heartbeat(self._hb_path(host_id))
+
+    def host_alive(self, host_id: str) -> bool:
+        """Fresh heartbeat, or no heartbeat yet but still inside the
+        startup grace window (measured from board creation)."""
+        if host_id == self.host_id:
+            return True
+        try:
+            age = time.time() - os.stat(self._hb_path(host_id)).st_mtime
+            return age <= self.timeout_s
+        except FileNotFoundError:
+            pass
+        try:
+            board_age = time.time() - os.stat(self._board_path()).st_mtime
+        except FileNotFoundError:
+            return True  # board not up yet: nobody is declared dead
+        return board_age <= self.grace_s
+
+    def note_host_lost(self, host_id: str) -> None:
+        """Announce a dead host exactly once per run (counter + event)."""
+        if host_id in self._lost_announced:
+            return
+        self._lost_announced.add(host_id)
+        metrics.counter("resilience.host_lost").inc()
+        flightrec.record("host-lost", host=host_id)
+        # flightrec rings only persist in abnormal-exit dumps; the trace
+        # instant is what lands the detection in a clean survivor's
+        # per-host stream, where the fleet timeline assembler anchors
+        # the host-lost -> takeover -> adoption flow chain
+        tracing.instant("host-lost", host=host_id)
+        erplog.warn(
+            "Host %s heartbeat is stale (> %.1fs); declaring it lost and "
+            "adopting its unfinished shards.\n", host_id, self.timeout_s,
+        )
+
+    # -- leases -----------------------------------------------------------
+    def _lease_path(self, shard: int) -> str:
+        name = "merge" if shard == MERGE_SHARD else str(shard)
+        return os.path.join(self.root, f"lease-{name}.json")
+
+    def read_lease(self, shard: int) -> ShardLease | None:
+        doc = _read_json(self._lease_path(shard))
+        return None if doc is None else ShardLease.from_doc(doc)
+
+    def try_claim(
+        self,
+        shard: int,
+        start: int,
+        stop: int,
+        preferred_owner: str | None = None,
+    ) -> ShardLease | None:
+        """Try to take ownership of ``shard`` at the next epoch.
+
+        Ownership is takeable when the shard is unclaimed (and we are the
+        preferred owner, or the preferred owner is dead), explicitly
+        released, already ours (restart re-attach), or held by a host
+        whose heartbeat went stale — that last case is the rebalance rung
+        and is announced via ``resilience.host_lost``/``rebalance``.
+        Returns the new lease, or None when someone else owns it (losing
+        the O_EXCL race returns None too — the winner's lease will appear).
+
+        A self-fenced host (its own heartbeat writes breached the
+        watchdog's lease_io deadline) refuses every claim: its heartbeat
+        file is about to go stale, so any range it took would be adopted
+        by a survivor and computed twice."""
+        if watchdog.fenced():
+            metrics.counter("resilience.fence_refused").inc()
+            return None
+        cur = self.read_lease(shard)
+        if cur is None:
+            if preferred_owner not in (None, self.host_id) and self.host_alive(
+                preferred_owner
+            ):
+                return None
+            epoch, n_done, state_path = 1, start, None
+            adopted_from = (
+                preferred_owner
+                if preferred_owner not in (None, self.host_id)
+                else None
+            )
+        else:
+            if cur.complete:
+                return None
+            start, stop = cur.start, cur.stop  # board ranges are fixed
+            if cur.owner == self.host_id or cur.released:
+                adopted_from = None
+            elif not self.host_alive(cur.owner):
+                adopted_from = cur.owner
+            else:
+                return None
+            epoch, n_done, state_path = (
+                cur.epoch + 1, cur.n_done, cur.state_path,
+            )
+        claim = os.path.join(self.root, f"claim-{shard}.{epoch}")
+        with watchdog.guard("lease_io", op="claim", shard=shard):
+            faultinject.fault_point("lease_io", op="claim", shard=shard)
+            try:
+                fd = os.open(claim, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+                os.close(fd)
+            except FileExistsError:
+                return None
+            lease = ShardLease(
+                shard=shard, start=start, stop=stop, owner=self.host_id,
+                epoch=epoch, n_done=n_done, state_path=state_path,
+            )
+            _write_json_atomic(self._lease_path(shard), lease.to_doc())
+        if adopted_from is not None:
+            self.note_host_lost(adopted_from)
+            metrics.counter("resilience.rebalance").inc()
+            flightrec.record(
+                "rebalance", shard=shard, start=start, stop=stop,
+                n_done=n_done, from_host=adopted_from, to_host=self.host_id,
+            )
+            tracing.instant(
+                "adopt", shard=shard, epoch=epoch, n_done=n_done,
+                from_host=adopted_from, to_host=self.host_id,
+            )
+            erplog.warn(
+                "Adopted shard %d (templates [%d, %d), resuming at %d) "
+                "from lost host %s (epoch %d).\n",
+                shard, start, stop, n_done, adopted_from, epoch,
+            )
+        return lease
+
+    def update(self, lease: ShardLease, **changes) -> ShardLease | None:
+        """Commit owner-side progress (n_done/state_path/complete/released).
+
+        Re-reads the lease first: if another host adopted the shard at a
+        higher epoch (we were presumed dead), returns None and the caller
+        must abandon the shard — the adopter's state is now authoritative."""
+        if lease.owner != self.host_id:
+            raise LeaseError(
+                f"Host {self.host_id} cannot update a lease owned by "
+                f"{lease.owner}."
+            )
+        cur = self.read_lease(lease.shard)
+        if cur is not None and (
+            cur.epoch != lease.epoch or cur.owner != lease.owner
+        ):
+            erplog.warn(
+                "Lost lease on shard %d to %s (epoch %d > %d); abandoning.\n",
+                lease.shard, cur.owner, cur.epoch, lease.epoch,
+            )
+            metrics.counter("resilience.lease_lost").inc()
+            return None
+        new = replace(lease, **changes)
+        with watchdog.guard("lease_io", op="update", shard=new.shard):
+            faultinject.fault_point("lease_io", op="update", shard=new.shard)
+            _write_json_atomic(self._lease_path(new.shard), new.to_doc())
+        return new
+
+    def leases(self, n_shards: int) -> dict[int, ShardLease | None]:
+        return {k: self.read_lease(k) for k in range(n_shards)}

@@ -5,7 +5,9 @@ Counterpart of the reference package's ``runtime/roofline.py``, which
 models the TPU's MXU matmul cascade; here the model is of the port's own
 pipeline, one batch of ``batch`` templates at a time:
 
-* kernel A (``csrc/resample.cu``) with its statistics (n_steps, mean);
+* kernel A (``csrc/resample.cu``) with its statistics (n_steps, mean),
+  with the LUT sine or, with ``exact_sin`` (``--exact-sin``), CUDA's
+  ``sinf``;
 * kernel B (``csrc/fftprep.cu``), the mean-padded interleaved series;
 * the rfft (cuFFT) at one pass: the real input read once, the complex
   output written once (cuFFT's own passes at this size are not modelled);
@@ -35,6 +37,7 @@ where the caller already initialised CUDA.
 
 from __future__ import annotations
 
+import math
 import sys
 from dataclasses import dataclass
 
@@ -72,6 +75,22 @@ CARDS = {
 # add 2, the Taylor sine 9, del_t 3, the nearest index 3, the add into its
 # lane's sum 1; it has no conversions there (one a lane per run of 8)
 RESAMPLE_F32_PER_SAMPLE = 24
+# the exact-sine instantiation: the LUT argument (3), the LUT index (2) and
+# the Taylor sine (9) give way to CUDA's sinf, whose fast path (libdevice's
+# Cody-Waite reduction in three parts and the sine/cosine minimax pair,
+# both polynomials evaluated and one selected) is 2 multiplies, 9 fused
+# multiply-adds and ~7 compares and selects a sample, counted at the
+# float32 rate, and 2 conversions (the quadrant's round to int and back);
+# counted from the algorithm's steps, not from the compiled code
+SINF_F32 = 18
+SINF_CONVERSIONS = 2
+RESAMPLE_EXACT_F32_PER_SAMPLE = RESAMPLE_F32_PER_SAMPLE - 3 - 2 - 9 + SINF_F32
+# above |phase| > SINF_SLOW_PHASE sinf reduces by Payne-Hanek: 2/pi in six
+# 32-bit words, a wide integer product and add a word, the normalisation
+# and the conversion back: ~50 instructions more a sample (estimated from
+# the same algorithm's steps)
+SINF_SLOW_PHASE = 105615.0
+SINF_SLOW_F32 = 50
 # kernel C, per output column: 15 multipliers x 16 rows of adds, 16 masks,
 # ~31 maxima; the complex entry adds 3 multiplies and an add a bin read
 FOLD_F32_PER_COLUMN = 15 * 16 + 16 + 31
@@ -154,14 +173,30 @@ class StageCost:
         return max(b["bound_ms"], b.get("chain_ms", 0.0))
 
 
-def resample_cost(T: int, n_unpadded: int) -> StageCost:
+def sine_slow_samples(omega, psi0, n_samples: int, dt: float) -> int:
+    """How many of ``n_samples`` samples of the templates ``(omega,
+    psi0)`` (float sequences, omega > 0) have a phase ``omega * i * dt +
+    psi0`` at or above :data:`SINF_SLOW_PHASE`, where ``sinf`` takes its
+    slow reduction: what this run's data needs of it."""
+    total = 0
+    for om, ps in zip(omega, psi0):
+        first = math.ceil((SINF_SLOW_PHASE - float(ps)) / (float(om) * float(dt)))
+        total += max(0, n_samples - max(first, 0))
+    return total
+
+
+def resample_cost(T: int, n_unpadded: int, exact_sin: bool = False, slow_samples: int = 0) -> StageCost:
     """Kernel A at ``T`` templates: the series read once, the parameters
-    read, the samples and (n_steps, mean) written."""
+    read, the samples and (n_steps, mean) written; with ``exact_sin`` its
+    exact-sine instantiation, ``slow_samples`` of whose samples
+    (:func:`sine_slow_samples`) take sinf's slow reduction."""
     n = n_unpadded
+    per = RESAMPLE_EXACT_F32_PER_SAMPLE if exact_sin else RESAMPLE_F32_PER_SAMPLE
     return StageCost(
-        "resample" if T > 1 else "resample_t1", "resample",
+        ("resample" if T > 1 else "resample_t1") + ("_exact" if exact_sin else ""), "resample",
         bytes=n * F32 + T * 16 + T * n * F32 + T * 8,
-        f32_instr=T * n * RESAMPLE_F32_PER_SAMPLE,
+        f32_instr=T * n * per + (slow_samples * SINF_SLOW_F32 if exact_sin else 0),
+        conversions=T * n * SINF_CONVERSIONS if exact_sin else 0,
     )
 
 
@@ -199,17 +234,20 @@ def merge_cost(T: int, fund_hi: int) -> StageCost:
     return StageCost("merge", "merge", bytes=T * 5 * W * F32 + 4 * 5 * W * F32, f32_instr=2 * T * 5 * W)
 
 
-def exact_mean_cost(n_unpadded: int, n_steps) -> StageCost:
+def exact_mean_cost(n_unpadded: int, n_steps, exact_sin: bool = False, slow_samples: int = 0) -> StageCost:
     """The exact mean of the templates whose kernel-A n_steps are
     ``n_steps`` (what this run's data needs): the series read once, each
     template's parameters read and (n_steps, mean) written, A's
-    instructions for every sample below n_steps, and the longest
-    template's chain of dependent adds."""
+    instructions for every sample below n_steps (its exact-sine
+    instantiation's with ``exact_sin``, ``slow_samples`` of them on sinf's
+    slow reduction), and the longest template's chain of dependent adds."""
     steps = [max(int(s), 0) for s in n_steps]
+    per = RESAMPLE_EXACT_F32_PER_SAMPLE if exact_sin else RESAMPLE_F32_PER_SAMPLE
     return StageCost(
-        "serial_mean", "serial_mean",
+        "serial_mean_exact" if exact_sin else "serial_mean", "serial_mean",
         bytes=n_unpadded * F32 + len(steps) * 24,
-        f32_instr=float(sum(steps)) * RESAMPLE_F32_PER_SAMPLE,
+        f32_instr=float(sum(steps)) * per + (slow_samples * SINF_SLOW_F32 if exact_sin else 0),
+        conversions=float(sum(steps)) * SINF_CONVERSIONS if exact_sin else 0.0,
         chain_adds=float(max(steps, default=0)),
         per="run",
     )
@@ -222,24 +260,26 @@ def pipeline_costs(
     harm_hi: int,
     batch: int,
     n_steps=None,
+    exact_sin: bool = False,
 ) -> list[StageCost]:
     """The stages of one batch of ``batch`` templates of the main path, in
     pipeline order, and with ``n_steps`` (kernel A's n_steps of every
-    template of an unwhitened run) the exact mean of the run.  ``harm_hi``
+    template of an unwhitened run) the exact mean of the run; ``exact_sin``
+    takes the exact-sine instantiations (their fast path).  ``harm_hi``
     is part of the reference package's signature; the fold reads its own
     prefix of 16 W + 16 bins, which covers it."""
     if harm_hi > nsamples // 2 + 1:
         raise ValueError("harm_hi beyond the spectrum")
     T = int(batch)
     costs = [
-        resample_cost(T, n_unpadded),
+        resample_cost(T, n_unpadded, exact_sin=exact_sin),
         fftprep_cost(T, n_unpadded, nsamples),
         rfft_cost(T, nsamples),
         fold_cost(T, nsamples, fund_hi),
         merge_cost(T, fund_hi),
     ]
     if n_steps is not None:
-        costs.append(exact_mean_cost(n_unpadded, n_steps))
+        costs.append(exact_mean_cost(n_unpadded, n_steps, exact_sin=exact_sin))
     return costs
 
 
@@ -252,6 +292,7 @@ def roofline_report(
     n_steps=None,
     measured_templates_per_sec: float | None = None,
     card: str | None = None,
+    exact_sin: bool = False,
 ) -> dict:
     """The model as a JSON-serialisable dict: each stage's bytes,
     instructions and least time, the attainable templates/s (a batch's
@@ -272,7 +313,7 @@ def roofline_report(
             out["measured_templates_per_sec"] = float(measured_templates_per_sec)
         return out
     peaks = CARDS[key]
-    costs = pipeline_costs(nsamples, n_unpadded, fund_hi, harm_hi, batch, n_steps=n_steps)
+    costs = pipeline_costs(nsamples, n_unpadded, fund_hi, harm_hi, batch, n_steps=n_steps, exact_sin=exact_sin)
     stages = []
     for c in costs:
         b = c.bound(peaks)

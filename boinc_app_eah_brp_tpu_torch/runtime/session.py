@@ -10,9 +10,14 @@ segments with the BOINC progress callback (checkpoint cadence,
 screensaver, suspend, quit, the watchdog's abort), writes the final
 checkpoint, turns (M, T) into the toplist, rescores the winners through
 the host oracle and writes the result file.  Counterpart of the JAX
-package's ``runtime/session.py`` on one device, with its spans, metrics,
-flight-recorder events, watchdog guards and retried writes under the same
-names.
+package's ``runtime/session.py``, with its spans, metrics, flight-recorder
+events, watchdog guards and retried writes under the same names.  The
+search runs on one device, or with ``n_mesh > 1`` sharded over a mesh of
+devices (``parallel/sharded_search.py``), or with a multi-process ``dist``
+config as one process of an elastic search (``parallel/elastic.py``):
+there only the merge winner writes the checkpoint and the result and
+rescores, and the committed shard states on the board are the durable
+resume point.
 
 A resident server (``runtime/scheduler.py``) builds one Session per
 workunit with a :class:`SessionEnv` snapshot of the env knobs, a scoped
@@ -212,11 +217,15 @@ class Session:
             fields.setdefault("corr_id", self.corr_id)
         self.obs.flightrec.record(event, **fields)
 
-    def prepare(self) -> "Session":
+    def prepare(self, n_mesh: int = 1, dist=None) -> "Session":
         """Parse, upload and (with ``-W``) whiten the workunit, read the
         bank and the checkpoint, and choose the batch, on one timeline span
         closed on the thread that opened it (a server prepares on its prep
-        thread); a failure closes it with its error."""
+        thread); a failure closes it with its error.  ``n_mesh`` is the
+        width of the device mesh (1: one device) and ``dist`` the
+        multi-process config (``parallel/distributed.py``; None: one
+        process), both from the driver."""
+        self._n_mesh, self._dist = int(n_mesh), dist
         with tracing.span("setup"):
             return self._prepare()
 
@@ -232,7 +241,7 @@ class Session:
             state_to_natural,
         )
 
-        args = self.args
+        args, dist = self.args, self._dist
         self._obs_record("session-prepare", inputfile=args.inputfile, templatebank=args.templatebank)
         self.dev = resolve_device(args.device)
 
@@ -248,10 +257,11 @@ class Session:
         self.template_total = template_total
 
         # checkpoint resume (demod_binary.c:546-652), newest good generation
+        self.process_count = dist.num_processes if dist is not None else 1
         resumed = (
             load_resumable_checkpoint(
                 args.checkpointfile, template_total, args.inputfile,
-                bank_path=args.templatebank, process_count=1,
+                bank_path=args.templatebank, process_count=self.process_count,
             )
             if args.checkpointfile
             else None
@@ -273,10 +283,12 @@ class Session:
 
         # poison-range quarantine (runtime/watchdog.py): template windows
         # that wedged or crashed the worker K times are skipped, loudly,
-        # and named in the checkpoint and result provenance
+        # and named in the checkpoint and result provenance.  One process
+        # only: in an elastic run the survivors adopt a wedged range, and a
+        # per-process tally would punch gaps the others would have filled
         quarantined: list[tuple[int, int]] = []
         incident_path = watchdog.default_incident_path(args.checkpointfile)
-        if incident_path:
+        if incident_path and dist is None:
             quarantined = [
                 (max(0, a), min(template_total, b))
                 for a, b in watchdog.IncidentLog(incident_path).quarantined()
@@ -307,6 +319,7 @@ class Session:
             # the card for the whole bank ahead (ops/resample.py::
             # exact_mean_params, from models/search.py::run_bank)
             exact_mean=not cfg.white,
+            use_lut=args.use_lut,
         )
 
         # whitening + RFI zapping (demod_binary.c:856-1079), or the raw series
@@ -406,12 +419,16 @@ class Session:
 
         args, adapter, bank, geom, derived = self.args, self.adapter, self.bank, self.geom, self.derived
         template_total, quarantined, batch_size = self.template_total, self.quarantined, self.batch_size
+        n_mesh, dist = self._n_mesh, self._dist
+        from ..parallel.distributed import shard_ranges
 
         # background rescoring of the winners seen at each checkpoint, so the
         # end-of-run oracle pass only scores what won after the last one;
-        # not worth its threads for a small bank or on a single core
+        # not worth its threads for a small bank or on a single core.  An
+        # elastic run rescores on the merge winner only, at the end: a
+        # process's checkpoint-time toplist is one shard's
         rescorer = None
-        if args.rescore and template_total >= 256 and (os.cpu_count() or 1) >= 2:
+        if args.rescore and template_total >= 256 and (os.cpu_count() or 1) >= 2 and dist is None:
             rescorer = IncrementalRescorer(self.host_series, derived, derived.t_obs)
             erplog.debug("Rescore overlap armed (checkpoint cadence).\n")
 
@@ -434,7 +451,12 @@ class Session:
         d2h_bytes = metrics.counter("search.d2h_bytes", unit="B")
         stall_s = metrics.counter("search.drain_stall_s", unit="s")
         stall_ms = metrics.histogram("search.drain_stall_ms", metrics.LATENCY_BUCKETS_MS, unit="ms")
-        topology = topology_record(1, quarantined=quarantined)
+        # an elastic run's progress lives in the shard states on the board;
+        # the global checkpoint is written only by the merge winner, after
+        # the merge, so processes never race on one checkpoint path
+        allow_global_ckpt = dist is None
+        shard_layout = shard_ranges(template_total, dist.num_processes) if dist is not None else None
+        topology = topology_record(self.process_count, shard_layout, quarantined=quarantined)
         snap = None  # the current segment's recovery point (resilience.DispatchSnapshot)
 
         def drain(fetch, stop: int):
@@ -455,7 +477,7 @@ class Session:
             return M_host, T_host
 
         def checkpoint_now(n_done: int, M_now, T_now) -> None:
-            if not args.checkpointfile and rescorer is None:
+            if not allow_global_ckpt or (not args.checkpointfile and rescorer is None):
                 return
             with tracing.span("checkpoint", n_done=n_done), profiling.annotate("erp:checkpoint"):
                 # host copies now: the next batch overwrites the device state
@@ -542,7 +564,9 @@ class Session:
         profiling.device_memory_status("search setup")
         # the card's attainable bound (runtime/roofline.py; the reference
         # logs its GFLOPS estimate the same way, cuda_utilities.c:163-182)
-        roof = roofline_report(geom.nsamples, geom.n_unpadded, geom.fund_hi, geom.harm_hi, batch=batch_size)
+        roof = roofline_report(
+            geom.nsamples, geom.n_unpadded, geom.fund_hi, geom.harm_hi, batch=batch_size, exact_sin=not geom.use_lut
+        )
         if roof["peaks"] is None:
             erplog.debug("Roofline (%s): card not modelled.\n", roof["card"])
         else:
@@ -553,7 +577,7 @@ class Session:
         metrics.gauge("search.batch_size").set(int(batch_size))
         flightrec.record(
             "run-config", template_total=int(template_total), start_template=int(self.start_template),
-            batch_size=int(batch_size), n_mesh=1,
+            batch_size=int(batch_size), n_mesh=int(n_mesh),
         )
         self._obs_record(
             "session-search", template_total=int(template_total), start_template=int(self.start_template),
@@ -563,20 +587,62 @@ class Session:
         # bounded [start, stop) window (templates >= stop are masked)
         segments = watchdog.runnable_segments(template_total, quarantined, start=self.start_template)
         state = self.state
+        elastic_result = None
         try:
             # ERP_STEPTIME_PROFILE=<dir> or --profile-dir/ERP_PROFILE_DIR
             # capture the loop with torch.profiler
             with steptime.maybe_capture_profile(), profiling.trace(args.profile_dir), profiling.phase("template loop"):
-                for seg_a, seg_b in segments:
-                    if resilience.policy() is not None:
-                        snap = resilience.DispatchSnapshot(state, seg_a)
-                    state = run_bank(
-                        self.ts, bank.P, bank.tau, bank.psi0, geom, batch_size=batch_size, state=state,
-                        start_template=seg_a, stop_template=seg_b, progress_cb=progress_cb, snapshot=snap,
-                        step_cache=step_cache,
+                if dist is not None:
+                    # one process of an elastic search: it runs (and, when a
+                    # peer dies, adopts) template-range shards under leases;
+                    # whichever process wins the merge lease merges
+                    from ..parallel import make_mesh, run_bank_elastic
+                    from ..parallel.elastic import board_identity
+
+                    erplog.info(
+                        "Elastic search: host %s of %d, %d-device local mesh, shard board at %s.\n",
+                        dist.host_id, dist.num_processes, n_mesh, dist.shard_dir,
                     )
-                    if interrupted:
-                        break
+                    max_shard = max([b - a for a, b in shard_layout] or [1])
+                    per_dev = max(1, min(batch_size, -(-max(1, max_shard) // n_mesh)))
+                    elastic_result = run_bank_elastic(
+                        self.ts, bank.P, bank.tau, bank.psi0, geom, make_mesh(n_mesh, platform=self.dev.type), dist,
+                        board_identity(args.inputfile, args.templatebank, template_total),
+                        per_device_batch=per_dev, state=state, progress_cb=progress_cb,
+                    )
+                    if elastic_result.state is not None:
+                        state = tuple(torch.from_numpy(a).to(self.dev) for a in elastic_result.state)
+                elif n_mesh > 1:
+                    # the bank sharded over the mesh; checkpoints, progress,
+                    # screensaver and resume through the same state and
+                    # callback (bitwise run_bank's, tests/test_torch_parallel.py)
+                    from ..parallel import make_mesh, run_bank_sharded
+
+                    erplog.info("Sharding template bank over a %d-device mesh.\n", n_mesh)
+                    # a global batch (n_mesh x per_dev) no larger than the
+                    # remaining bank, so a small bank is not mostly padding
+                    per_dev = min(batch_size, -(-max(1, template_total - self.start_template) // n_mesh))
+                    mesh = make_mesh(n_mesh, platform=self.dev.type)
+                    for seg_a, seg_b in segments:
+                        if resilience.policy() is not None:
+                            snap = resilience.DispatchSnapshot(state, seg_a)
+                        state = run_bank_sharded(
+                            self.ts, bank.P, bank.tau, bank.psi0, geom, mesh, per_device_batch=per_dev, state=state,
+                            start_template=seg_a, stop_template=seg_b, progress_cb=progress_cb, snapshot=snap,
+                        )
+                        if interrupted:
+                            break
+                else:
+                    for seg_a, seg_b in segments:
+                        if resilience.policy() is not None:
+                            snap = resilience.DispatchSnapshot(state, seg_a)
+                        state = run_bank(
+                            self.ts, bank.P, bank.tau, bank.psi0, geom, batch_size=batch_size, state=state,
+                            start_template=seg_a, stop_template=seg_b, progress_cb=progress_cb, snapshot=snap,
+                            step_cache=step_cache,
+                        )
+                        if interrupted:
+                            break
             # a search on the CPU: the per-stage device lane of the Chrome
             # export is estimated from the dispatch windows and the roofline
             # (runtime/devicecost.py); on the card the profiler measures it
@@ -584,10 +650,12 @@ class Session:
                 n_dev = devicecost.emit_estimated_timeline(geom, batch_size)
                 if n_dev:
                     erplog.debug("Synthesized %d estimated device-lane records.\n", n_dev)
-            if interrupted:
+            if interrupted or (elastic_result is not None and elastic_result.interrupted):
                 erplog.warn("Quit requested! Exiting prematurely...\n")
                 if rescorer is not None:
                     rescorer.abort()
+                # elastic: no global checkpoint, the committed shard states
+                # on the board are the resume point
                 checkpoint_now(last_done, *state)
                 if watchdog.abort_requested():
                     # the checkpoint is committed: exit with the temporary-exit
@@ -597,6 +665,12 @@ class Session:
                     )
                 self._obs_record("session-interrupted", last_done=last_done)
                 return 0
+            if elastic_result is not None and not elastic_result.merged:
+                # another process won the merge lease and writes the result
+                erplog.info("Host %s done: all shards committed; the merge winner writes the result.\n", dist.host_id)
+                return 0
+            # the merge winner is the only writer from here on
+            allow_global_ckpt = True
 
             # final checkpoint (demod_binary.c:1495-1499), then the toplist
             erplog.debug("Search done!\n")
@@ -644,10 +718,14 @@ class Session:
         result = ResultFile(candidates=emitted, t_obs=derived.t_obs, header=header)
         with tracing.span("result-write"), watchdog.guard("result_write"):
             resilience.call_with_retry(lambda: write_result_file(args.outputfile, result), site="result_write")
+        if elastic_result is not None:
+            # the result is durable: completing the merge lease tells the
+            # waiting processes, and any later adopter, the search is done
+            elastic_result.finalize_done()
         erplog.info("Data processing finished successfully!\n")
         self._obs_record("session-done", outputfile=args.outputfile)
         return 0
 
-    def run(self) -> int:
+    def run(self, n_mesh: int = 1, dist=None) -> int:
         """prepare + execute."""
-        return self.prepare().execute()
+        return self.prepare(n_mesh=n_mesh, dist=dist).execute()

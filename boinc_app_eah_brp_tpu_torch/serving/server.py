@@ -83,7 +83,7 @@ def _geometry_proxy(args) -> tuple:
     per-class degradation ladders; correctness never depends on it."""
     return (
         args.templatebank, args.f0, args.padding, args.fA, args.window,
-        args.white, args.batch_size, args.device,
+        args.white, args.use_lut, args.batch_size, args.device,
     )
 
 

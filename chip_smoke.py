@@ -78,11 +78,26 @@ Phases:
    the tap proof, counts reset just before (kernel C's float-power entry
    is the harmonic-sum tap); (4) the roofline model's report with the
    whitened loop's fraction of its attainable rate;
-12. print the kernel table as one JSON line (launches from the whitened
+12. the exact sine and ``parallel/`` (g): (1) the exact-sine
+   instantiations of kernel A (T = 32 and 1) and of the exact mean against
+   their plain versions (bitwise expected; else the differing samples are
+   counted and held to the CPU tests' tie rule), timed beside the LUT
+   launches with their bounds, on bank200 and on a bank of orbits of
+   4-15 ms (sinf's slow reduction); phase 5's command line with
+   ``--exact-sin`` and the health checks (so A1 runs in the sentinel
+   probe), counts reset just before: the injected template's rank and how
+   many rows differ from phase 5's; (2) ``run_bank_sharded`` over one and
+   over SHARDS shards on cuda:0, whitened and unwhitened, bitwise
+   ``run_bank``'s, with each loop's templates/s; ``--mesh 1`` gives phase
+   5's rows and ``--mesh 2`` RADPUL_EVAL; (3) N_HOSTS processes of one
+   elastic search on the card, one SIGKILLed after its first shard commit:
+   the survivors adopt its shard, one writes phase 5's rows;
+13. print the kernel table as one JSON line (launches from the whitened
    run; the serial mean's from the unwhitened one, A1's from the health
-   run, C's float-power entry's from the audits), the `bounds` line of
-   the package's roofline model (``runtime/roofline.py``), the runs'
-   numbers, and last ``{"ok": true, "device": {...}}``.
+   run, C's float-power entry's from the audits, the exact-sine ones from
+   the ``--exact-sin`` run), the `bounds` line of the package's roofline
+   model (``runtime/roofline.py``), the runs' numbers, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero; so does a machine without a CUDA card.
 """
@@ -124,6 +139,11 @@ KERNEL_ROWS = {
     "fold_spectrum": ("boinc_app_eah_brp_tpu/ops/pallas_sumspec.py:126", "fold.cu"),
     # no Pallas kernel: the JAX package's host pass host_exact_mean_params
     "serial_mean": ("boinc_app_eah_brp_tpu/models/search.py:413", "resample.cu"),
+    # the exact-sine instantiations (--exact-sin): XLA's jnp.sin branch of
+    # _del_t and the host pass's np.sin branch, no Pallas kernel either
+    "resample_exact": ("boinc_app_eah_brp_tpu/ops/resample.py:48", "resample.cu"),
+    "resample_t1_exact": ("boinc_app_eah_brp_tpu/ops/resample.py:48", "resample.cu"),
+    "serial_mean_exact": ("boinc_app_eah_brp_tpu/models/search.py:442", "resample.cu"),
 }
 # the kernels the search's main path must launch; the unwhitened run
 # launches these and the serial mean
@@ -132,12 +152,23 @@ UNWHITENED_PATH = MAIN_PATH + ("serial_mean",)
 # the phase whose launches a kernel's row reports: the sentinel probe runs
 # kernel A at T = 1 (phase f, health), the precision audit's harmonic-sum
 # tap kernel C's float-power entry (phase f, audit)
-LAUNCHES_FROM = {"serial_mean": "unwhitened", "resample_t1": "health", "fold": "audit"}
+LAUNCHES_FROM = {
+    "serial_mean": "unwhitened", "resample_t1": "health", "fold": "audit",
+    "resample_exact": "exact_sin", "resample_t1_exact": "exact_sin", "serial_mean_exact": "exact_sin",
+}
+EXACT_SIN = ("resample_exact", "resample_t1_exact", "serial_mean_exact")
+EXACT_SIN_PATH = ("resample_exact", "resample_t1_exact", "fftprep", "fold_spectrum", "serial_mean_exact")
 QUIT_AFTER = 3  # batches before the interrupted run quits
 TILE = 33  # the exact mean is also run on bank200 tiled this often: 6,600 templates
 OOM_BATCH = 1024  # a batch the card cannot hold at this width (~153 MB a template)
 HANG_DEADLINE_S = 10  # the supervised run's dispatch deadline
 SERVE_MEM_SLACK = 64 << 20  # device memory a served workunit may leave above the post-warm value
+SHARDS = 3  # the mesh of phase (g) repeats cuda:0 this often
+N_HOSTS, VICTIM = 3, 1  # the elastic processes of phase (g), and the one killed
+# longer than the merge winner's rescoring and result write (seconds at this
+# width), during which it writes no heartbeat: a shorter one lets a survivor
+# adopt the merge
+LEASE_TIMEOUT_S = 20
 
 
 class CheckFailed(Exception):
@@ -1186,6 +1217,298 @@ def run_health_precision(torch, geom, bank, workdir: str, wu: str, unwhite_rows,
     return out
 
 
+def _hold_exact_sin(torch, name, got, want, params, n, dt) -> int:
+    """Kernel against plain version, exact-sine: bitwise expected; else the
+    count of differing samples, each of which must lie in the tie band of
+    the CPU tests (``ops/resample.py::sine_ties``).  Returns the count."""
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return 0
+    from boinc_app_eah_brp_tpu_torch.ops.resample import sine_ties
+
+    flips = (got[0] != want[0]).cpu().numpy()
+    band = sine_ties([p.cpu().numpy() for p in params.T], n, dt)
+    print(json.dumps({"exact_sin_flips": {"kernel": name, "samples": int(flips.sum()), "band": int(band.sum())}}))
+    check(not (flips & ~band).any(), f"{name}: samples differ from the plain version outside the sine ties")
+    return int(flips.sum())
+
+
+def check_exact_sin(torch, dev, geom, bank, samples, measured: dict) -> dict:
+    """Phase (g1): the exact-sine instantiations of kernel A (T = 32 and 1)
+    and of the exact mean against their plain versions at the production
+    width, timed beside the LUT launches of phase 3, with their bounds;
+    then the same launches on a bank of orbits below 16 ms, whose phases
+    pass sinf's slow-reduction threshold.  Adds the three kernel rows to
+    ``measured``."""
+    from boinc_app_eah_brp_tpu_torch.models import search
+    from boinc_app_eah_brp_tpu_torch.ops import resample
+    from boinc_app_eah_brp_tpu_torch.runtime import roofline
+
+    n = geom.n_unpadded
+    kw = dict(n_unpadded=n, dt=geom.dt, exact_sin=True)
+    ts = torch.from_numpy(np.random.default_rng(SEED).normal(0.0, 1.0, n).astype(np.float32)).to(dev)
+    ts_u = torch.from_numpy(samples).to(dev)
+    rng = np.random.default_rng(SEED + 2)
+    banks = {
+        "bank200": (bank.P, bank.tau, bank.psi0),
+        # orbits of 4-15 ms (light companions): every phase past 105,615 rad
+        # after 67-250 s of the 274.6 s series
+        "short_P": (np.linspace(4e-3, 15e-3, BATCH), np.linspace(1e-5, 3e-4, BATCH), rng.uniform(0, 2 * np.pi, BATCH)),
+    }
+    out, flips = {}, {}
+    for bname, (P, tau, psi0) in banks.items():
+        allp = resample.stream_params(*search.bank_params_host(P, tau, psi0, geom.dt), device=dev)
+        for name, p_ in (("resample_exact", allp[:BATCH]), ("resample_t1_exact", allp[17:18].contiguous())):
+            got = resample.resample_stream(ts, p_, **kw)
+            want = resample.resample_stream_plain(ts, p_, **kw)
+            torch.cuda.synchronize()
+            flips[f"{bname}/{name}"] = _hold_exact_sin(torch, name, got, want, p_, n, geom.dt)
+            slow = roofline.sine_slow_samples(p_[:, 1].cpu().numpy(), p_[:, 2].cpu().numpy(), n, geom.dt)
+            row = dict(
+                max_abs_err=max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want)),
+                ms=time_ms(torch, lambda: resample.resample_stream(ts, p_, **kw), 20 if p_.shape[0] > 1 else 50),
+                plain_ms=time_ms(torch, lambda: resample.resample_stream_plain(ts, p_, **kw), 3),
+                library_ms=None,
+                slow_samples=slow,
+                **roofline.resample_cost(p_.shape[0], n, exact_sin=True, slow_samples=slow).bound(),
+            )
+            del got, want
+            out[f"{bname}/{name}"] = row
+        # the exact mean of the unwhitened workunit: bank200's 200 templates
+        # (as the main path takes them, in one launch), the short orbits' 32
+        got = resample.exact_mean_params(ts_u, allp, **kw)
+        t0 = time.perf_counter()
+        want = resample.exact_mean_params_plain(ts_u, allp, **kw)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(got[0], want[0]), f"exact-sine exact mean kernel != plain version (n_steps, {bname})")
+        check(
+            torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)),
+            f"exact-sine exact mean kernel != plain version (mean, {bname})",
+        )
+        ns_a = torch.cat([resample.resample_stream(ts_u, allp[s : s + BATCH].contiguous(), **kw)[1]
+                          for s in range(0, allp.shape[0], BATCH)])
+        check(torch.equal(got[0], ns_a), f"exact-sine exact mean n_steps != kernel A's ({bname})")
+        slow = roofline.sine_slow_samples(allp[:, 1].cpu().numpy(), allp[:, 2].cpu().numpy(), n, geom.dt)
+        out[f"{bname}/serial_mean_exact"] = dict(
+            max_abs_err=float((got[1] - want[1]).abs().max()),
+            ms=time_ms(torch, lambda: resample.exact_mean_params(ts_u, allp, **kw), 3),
+            plain_ms=plain_ms,
+            library_ms=None,
+            slow_samples=slow,
+            **roofline.exact_mean_cost(n, got[0].cpu().numpy(), exact_sin=True, slow_samples=slow).bound(),
+        )
+    for name in EXACT_SIN:
+        measured[name] = out[f"bank200/{name}"]
+    lut = {"resample_exact": "resample", "resample_t1_exact": "resample_t1", "serial_mean_exact": "serial_mean"}
+    return dict(
+        flips=flips,
+        ms={k: v["ms"] for k, v in out.items()},
+        bound_ms={k: v["bound_ms"] for k, v in out.items()},
+        slow_samples={k: v["slow_samples"] for k, v in out.items()},
+        lut_ms={v: measured[v]["ms"] for v in lut.values()},
+    )
+
+
+def run_exact_sin_cli(torch, workdir: str, wu: str, P_inj: float, tau_inj: float, unwhite_rows) -> dict:
+    """Phase (g1): phase 5's command line with ``--exact-sin``, the batch
+    checks and a checkpoint (so a sentinel probe, whose one-template search
+    is A1) every batch, counts reset just before and read just after: the
+    exact-sine kernels run and the LUT ones do not; the injected template
+    is among the candidates."""
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.runtime import health
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
+
+    cand = os.path.join(workdir, "exact_sin.cand")
+    argv = (
+        f"-i {wu} -o {cand} -t {BANK} -c {os.path.join(workdir, 'exact_sin.cpt')} -P {PADDING} -f {F0} -A {FA} "
+        f"-B {WINDOW} --batch {BATCH} --device {DEVICE} --exact-sin"
+    ).split()
+    with _env({health.HEALTH_EVERY_ENV: str(BATCH), "ERP_CHECKPOINT_PERIOD": "0"}):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+    check(rc == 0, f"the --exact-sin run exited with {rc}")
+    for name in EXACT_SIN_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched by the --exact-sin run")
+    for name in ("resample", "resample_t1", "serial_mean"):
+        check(launches[name] == 0, f"the --exact-sin run launched the LUT kernel {name}")
+    rows = _candidate_rows(cand)
+    rank = _injected_rank(rows, P_inj, tau_inj)
+    check(rank is not None, f"injected template (P={P_inj}, tau={tau_inj}) not among the --exact-sin candidates")
+    n = min(len(rows), len(unwhite_rows))
+    differ = int((rows[:n] != unwhite_rows[:n]).any(axis=1).sum()) + abs(len(rows) - len(unwhite_rows))
+    return dict(wall_s=wall, injected_rank=rank, n_candidates=len(rows), rows_differing_from_lut=differ,
+                launches=launches)
+
+
+def run_sharded(torch, geom, bank, workdir: str, wu: str, zap: str, unwhite_rows) -> dict:
+    """Phase (g2): run_bank_sharded over one and over SHARDS shards on
+    cuda:0 (a mesh that repeats the card) on the production workunit,
+    whitened and unwhitened: (M, T) bitwise run_bank's, each loop's
+    templates/s beside run_bank's, counts reset just before each; then the
+    command line with --mesh 1 (phase 5's rows) and --mesh 2 (RADPUL_EVAL
+    on a one-card machine)."""
+    from boinc_app_eah_brp_tpu_torch.io import read_workunit, read_zaplist
+    from boinc_app_eah_brp_tpu_torch.models.search import run_bank
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.ops.whiten import whiten_and_zap
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+    from boinc_app_eah_brp_tpu_torch.parallel import make_mesh, run_bank_sharded
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
+    from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EVAL
+
+    wu_data = read_workunit(wu)
+    cfg = SearchConfig(f0=F0, padding=PADDING, fA=FA, window=WINDOW, white=True)
+    derived = DerivedParams.derive(wu_data.nsamples, float(wu_data.header["tsample"]), cfg)
+    series = {
+        "whitened": (geom, whiten_and_zap(wu_data.samples, derived, cfg, read_zaplist(zap), device=DEVICE)),
+        "unwhitened": (dataclasses.replace(geom, exact_mean=True), torch.from_numpy(wu_data.samples).to(DEVICE)),
+    }
+    out = {}
+    for kind, (g, ts) in series.items():
+        runs = {"run_bank": lambda: run_bank(ts, bank.P, bank.tau, bank.psi0, g, batch_size=BATCH)}
+        for k in (1, SHARDS):
+            mesh = make_mesh(devices=[DEVICE] * k)
+            runs[f"mesh{k}"] = lambda mesh=mesh: run_bank_sharded(
+                ts, bank.P, bank.tau, bank.psi0, g, mesh, per_device_batch=BATCH
+            )
+        ref, res = None, {}
+        for name in ("run_bank", "mesh1", f"mesh{SHARDS}", f"mesh{SHARDS}", "mesh1", "run_bank"):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            M, T = runs[name]()
+            torch.cuda.synchronize()
+            dt_s = time.perf_counter() - t0
+            if ref is None:
+                ref = (M.clone(), T.clone())
+            check(torch.equal(M, ref[0]) and torch.equal(T, ref[1]), f"{kind} {name}: (M, T) differs from run_bank's")
+            r = res.setdefault(name, {"templates_per_s": [], "launches": dict(kernels.launch_counts)})
+            r["templates_per_s"].append(len(bank) / dt_s)
+        for name, r in res.items():
+            for k in (UNWHITENED_PATH if kind == "unwhitened" else MAIN_PATH):
+                check(r["launches"][k] > 0, f"{kind} {name} did not launch {k}")
+        out[kind] = res
+        del ts
+    torch.cuda.empty_cache()
+
+    def cli(name, extra):
+        return cli_main((
+            f"-i {wu} -o {os.path.join(workdir, name + '.cand')} -t {BANK} -c {os.path.join(workdir, name + '.cpt')} "
+            f"-P {PADDING} -f {F0} -A {FA} -B {WINDOW} --batch {BATCH} --device {DEVICE} {extra}"
+        ).split())
+
+    check(cli("mesh1", "--mesh 1") == 0, "the --mesh 1 run failed")
+    check(np.array_equal(_candidate_rows(os.path.join(workdir, "mesh1.cand")), unwhite_rows),
+          "the --mesh 1 run's rows differ from phase 5's")
+    rc = cli("mesh2", "--mesh 2")
+    check(rc == RADPUL_EVAL, f"--mesh 2 on a one-card machine exited with {rc}, not RADPUL_EVAL")
+    out["cli"] = {"mesh1_rows_equal": True, "mesh2_rc": rc}
+    return out
+
+
+def _wait_for_shard_commit(shard_dir: str, shard: int, proc, timeout_s: float) -> None:
+    """Until ``lease-<shard>.json`` records committed progress inside its
+    range; fails if the owner exits first or the time runs out."""
+    path = os.path.join(shard_dir, f"lease-{shard}.json")
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+            if not doc["complete"] and doc.get("state_path") and doc["n_done"] > doc["start"]:
+                return
+        except (OSError, ValueError, KeyError):
+            pass
+        check(proc.poll() is None, f"process {shard} exited ({proc.returncode}) before its first shard commit")
+        time.sleep(0.05)
+    raise CheckFailed(f"process {shard} made no shard commit in {timeout_s} s")
+
+
+def run_elastic(workdir: str, wu: str, unwhite_rows) -> dict:
+    """Phase (g3): N_HOSTS ``python -m boinc_app_eah_brp_tpu_torch``
+    processes on the one card run phase 5's command line as one elastic
+    search (one shard board, commits every batch); process VICTIM wedges at
+    its second batch (an injected dispatch hang) after its first shard
+    commit and is killed with SIGKILL.  The survivors must adopt its shard
+    and exit 0, exactly one must write the candidate file, with phase 5's
+    rows.  Prints each process's wall, kernel launches, adoptions and peak
+    device memory from its run report."""
+    shard_dir = os.path.join(workdir, "shards")
+    base = dict(
+        os.environ, PYTHONPATH=REPO, ERP_NUM_PROCESSES=str(N_HOSTS), ERP_SHARD_DIR=shard_dir,
+        ERP_LEASE_TIMEOUT_S=str(LEASE_TIMEOUT_S), ERP_LEASE_GRACE_S="120", ERP_SHARD_COMMIT_S="0",
+        ERP_ELASTIC_WAIT_S="600",
+    )
+    procs, logs, t_start, t_end = {}, [], {}, {}
+    try:
+        for h in range(N_HOSTS):
+            env = dict(base, ERP_PROCESS_ID=str(h), ERP_METRICS_FILE=os.path.join(workdir, f"elastic{h}.jsonl"))
+            if h == VICTIM:
+                env.update(ERP_FAULT_SPEC="dispatch:hang@n=2", ERP_FAULT_HANG_S="900")
+            argv = (
+                f"-i {wu} -o {os.path.join(workdir, f'elastic{h}.cand')} -t {BANK} "
+                f"-c {os.path.join(workdir, f'elastic{h}.cpt')} -P {PADDING} -f {F0} -A {FA} -B {WINDOW} "
+                f"--batch {BATCH} --device {DEVICE}"
+            ).split()
+            logs.append(open(os.path.join(workdir, f"elastic{h}.log"), "w"))
+            t_start[h] = time.perf_counter()
+            procs[h] = subprocess.Popen(
+                [sys.executable, "-m", "boinc_app_eah_brp_tpu_torch", *argv], env=env, cwd=workdir,
+                stdout=subprocess.DEVNULL, stderr=logs[-1], start_new_session=True,
+            )
+        _wait_for_shard_commit(shard_dir, VICTIM, procs[VICTIM], 300)
+        os.killpg(procs[VICTIM].pid, signal.SIGKILL)
+        procs[VICTIM].wait(timeout=60)
+        t_end[VICTIM] = time.perf_counter()
+        deadline = time.monotonic() + 600
+        while len(t_end) < N_HOSTS and time.monotonic() < deadline:
+            for h, p in procs.items():
+                if h not in t_end and p.poll() is not None:
+                    t_end[h] = time.perf_counter()
+            time.sleep(0.05)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for f in logs:
+            f.close()
+    for h, p in procs.items():
+        if h != VICTIM:
+            check(p.returncode == 0, f"elastic process {h} exited with {p.returncode}: "
+                  + open(os.path.join(workdir, f"elastic{h}.log")).read()[-2000:])
+    written = [h for h in range(N_HOSTS) if os.path.exists(os.path.join(workdir, f"elastic{h}.cand"))]
+    check(len(written) == 1 and written[0] != VICTIM, f"candidate files written by {written}, not by one survivor")
+    check(np.array_equal(_candidate_rows(os.path.join(workdir, f"elastic{written[0]}.cand")), unwhite_rows),
+          "the elastic run's rows differ from phase 5's")
+    per = {}
+    for h in range(N_HOSTS):
+        row = {"wall_s": t_end[h] - t_start[h], "killed": h == VICTIM}
+        if h != VICTIM:
+            rep = _report(os.path.join(workdir, f"elastic{h}.jsonl"))
+            counters = {k: v["value"] for k, v in rep["metrics"]["counters"].items()}
+            gauges = {k: v["value"] for k, v in rep["metrics"]["gauges"].items()}
+            row.update(
+                launches={
+                    k.rsplit(".", 1)[1]: int(v) for k, v in gauges.items() if k.startswith("torch.kernel_launches.")
+                },
+                adoptions=counters.get("resilience.rebalance", 0),
+                shards_run=counters.get("elastic.shards_run", 0),
+                peak_device_bytes=[d["peak_bytes_in_use"] for d in rep.get("devices", [])],
+            )
+            for k in UNWHITENED_PATH:
+                check(row["launches"].get(k, 0) > 0, f"elastic process {h} did not launch {k}")
+        per[h] = row
+    adoptions = sum(r.get("adoptions", 0) for r in per.values())
+    check(adoptions >= 1, "no survivor adopted the killed process's shard")
+    return dict(writer=written[0], adoptions=adoptions, processes=per)
+
+
 def main() -> int:
     try:
         import torch
@@ -1246,6 +1569,14 @@ def main() -> int:
             torch, geom, bank, workdir, wu, _candidate_rows(os.path.join(workdir, "unwhitened.cand")),
             run["search_loop_templates_per_s"],
         )
+        torch.cuda.empty_cache()
+        unwhite_rows = _candidate_rows(os.path.join(workdir, "unwhitened.cand"))
+        exact = check_exact_sin(torch, dev, geom, bank, read_workunit(wu).samples, measured)
+        torch.cuda.empty_cache()
+        exact["cli"] = run_exact_sin_cli(torch, workdir, wu, P_inj, tau_inj, unwhite_rows)
+        torch.cuda.empty_cache()
+        sharded = run_sharded(torch, geom, bank, workdir, wu, zap, unwhite_rows)
+        elastic = run_elastic(workdir, wu, unwhite_rows)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1258,6 +1589,7 @@ def main() -> int:
         "unwhitened": unwhite["launches"],
         "health": health_f["health_run"]["launches"],
         "audit": health_f["audit_launches"],
+        "exact_sin": exact["cli"]["launches"],
     }
     for name, (replaces, src) in KERNEL_ROWS.items():
         m = measured[name]
@@ -1285,6 +1617,9 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"roofline": health_f.pop("roofline")}))
     print(json.dumps({"health_precision": health_f}))
+    print(json.dumps({"exact_sin": exact}))
+    print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"elastic": elastic}))
     print(json.dumps({"kernels": rows}))
     print(
         json.dumps(

@@ -389,3 +389,76 @@ def test_precision_audit_on_the_card(dev):
     # the harmonic-sum tap is kernel C's float-power entry, the resample tap A at T = 1
     assert kernels.launch_counts["fold"] > before["fold"]
     assert kernels.launch_counts["resample_t1"] > before["resample_t1"]
+
+
+def _slow_sine_rows(dev):
+    """Orbits of 0.2 and 0.5 ms: past ~3.5 and ~8.4 s of the series every
+    phase exceeds 105,615 rad, where CUDA's sinf takes its slow reduction."""
+    return resample.stream_params([1e-6, 2e-6], [3.1e4, 1.26e4], [0.4, 5.0], [0.0, 0.0], device=dev)
+
+
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("n", [1 << 16, 70002, (1 << 23) + 2])
+def test_exact_sin_resample_matches_plain(dev, n, T):
+    """Kernel A's exact-sine instantiation (``sinf``) bitwise against its
+    plain version (``torch.sin`` on the card), for bank templates, for cuts
+    around a unit edge and for phases on sinf's slow path; its own launch
+    counts."""
+    ts = torch.from_numpy(np.random.default_rng(n + 1).normal(0, 1, n).astype(np.float32)).to(dev)
+    for params in (_params([0, 5, 17, 57, 199], dev), _edge_rows(n, dev), _slow_sine_rows(dev)):
+        params = params[:T].contiguous()
+        key = "resample_t1_exact" if params.shape[0] == 1 else "resample_exact"
+        before = dict(kernels.launch_counts)
+        got = resample.resample_stream(ts, params, n_unpadded=n, dt=DT, exact_sin=True)
+        assert kernels.launch_counts[key] == before[key] + 1
+        assert kernels.launch_counts["resample"] == before["resample"]
+        want = resample.resample_stream_plain(ts, params, n_unpadded=n, dt=DT, exact_sin=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N", [1, 33])
+def test_exact_sin_exact_mean_matches_plain(dev, N):
+    """The exact-sine exact mean bitwise against its plain version, its
+    n_steps equal to kernel A's exact-sine ones; counted as
+    ``serial_mean_exact``."""
+    n = 70002
+    ts = _positive_series(n, 7 + N, dev)
+    params = torch.cat([_params(list(range(N)), dev), _slow_sine_rows(dev)])
+    before = dict(kernels.launch_counts)
+    got = resample.exact_mean_params(ts, params, n_unpadded=n, dt=DT, exact_sin=True)
+    assert kernels.launch_counts["serial_mean_exact"] == before["serial_mean_exact"] + 1
+    assert kernels.launch_counts["serial_mean"] == before["serial_mean"]
+    _assert_exact_mean_equal(got, resample.exact_mean_params_plain(ts, params, n_unpadded=n, dt=DT, exact_sin=True))
+    assert torch.equal(got[0], resample.resample_stream(ts, params, n_unpadded=n, dt=DT, exact_sin=True)[1])
+
+
+@pytest.mark.parametrize("exact_mean", [False, True])
+def test_two_shard_mesh_on_one_card_matches_run_bank(dev, exact_mean):
+    """run_bank_sharded over two shards on the one card (a mesh that
+    repeats it) gives run_bank's (M, T) bitwise, whitened and unwhitened."""
+    import dataclasses
+
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+    from boinc_app_eah_brp_tpu_torch.parallel import make_mesh, run_bank_sharded
+
+    n = 1 << 16
+    b = np.loadtxt(BANK200)[:23]
+    d = DerivedParams.derive(n, DT * 1e6, SearchConfig(padding=3.0, f0=400.0, window=1000))
+    geom = search.SearchGeometry.from_derived(
+        d,
+        max_slope=search.max_slope_for_bank(b[:, 0], b[:, 1]),
+        lut_step=search.lut_step_for_bank(b[:, 0], DT),
+        lut_tiles=search.lut_tiles_for_bank(b[:, 0], b[:, 2], n, DT),
+        exact_mean=exact_mean,
+    )
+    ts = _positive_series(n, 3, dev) if exact_mean else torch.from_numpy(
+        np.random.default_rng(3).normal(0, 1, n).astype(np.float32)
+    ).to(dev)
+    ref = search.run_bank(ts, b[:, 0], b[:, 1], b[:, 2], geom, batch_size=4)
+    got = run_bank_sharded(ts, b[:, 0], b[:, 1], b[:, 2], geom, make_mesh(devices=[dev, dev]), per_device_batch=2)
+    assert all(torch.equal(x, y) for x, y in zip(ref, got))
+    exact = dataclasses.replace(geom, use_lut=False)
+    ref = search.run_bank(ts, b[:, 0], b[:, 1], b[:, 2], exact, batch_size=4)
+    got = run_bank_sharded(ts, b[:, 0], b[:, 1], b[:, 2], exact, make_mesh(devices=[dev, dev]), per_device_batch=2)
+    assert all(torch.equal(x, y) for x, y in zip(ref, got))

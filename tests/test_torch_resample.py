@@ -22,8 +22,19 @@ JAX package's host pass (``host_exact_mean_params``), as are its n_steps
 and kernel A's; one ``BankStep`` on an exact-mean geometry is held against
 JAX ``make_bank_step`` as the whitened step is in ``test_torch_search.py``
 (M to rtol 1e-5, T equal).
+
+The exact-sine resampler (``exact_sin=True``, the JAX package's
+``use_lut=False``): XLA's ``jnp.sin``, NumPy's ``np.sin`` and
+``torch.sin`` on the CPU are three float32 sines a few ulp apart, so a
+gathered sample (or the trailing-run test) may flip only where the float64
+tie distance lies within what ``torch_parity.SINE_ULPS`` (4) ulp of the
+sine and one ulp of the phase can move (``torch_parity.sine_ties``); every
+other sample and n_steps are bitwise, the pad mean to MEAN_RTOL against
+XLA's pairwise sum, and the exact mean bitwise against the JAX package's
+host pass wherever a template's head has no flip.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -54,9 +65,12 @@ from boinc_app_eah_brp_tpu_torch.oracle import resample as port_oracle
 from boinc_app_eah_brp_tpu_torch.ops import resample as port
 from boinc_app_eah_brp_tpu_torch.ops.sincos import sincos_lut_unwrapped
 from fixtures import synthetic_timeseries
-from torch_parity import DT, contraction_ties
+from torch_parity import DT, SINE_ULPS, contraction_ties, sine_ties
 
 MEAN_RTOL = 1e-4
+# the sine-tie band (torch_parity.sine_ties) is wider than the contraction
+# ties: at 2^14 samples one ulp of i - del_t alone is ~1e-3 of a sample
+SINE_TIE_SHARE = 1e-2
 MAX_SLOPE = 0.00390625
 LUT_STEP = 1.52587890625e-05
 BANK200 = os.path.join(os.path.dirname(__file__), "golden", "bank200.txt")
@@ -86,12 +100,13 @@ def _jax_kw(n, padding):
     return dict(_kw(n, padding), max_slope=MAX_SLOPE, lut_step=LUT_STEP, lut_tiles=1024)
 
 
-def _assert_equal_but_ties(got, want, ties):
-    """got == want bitwise, except where ``ties`` marks a contraction tie."""
+def _assert_equal_but_ties(got, want, ties, max_share=1e-3):
+    """got == want bitwise, except where ``ties`` marks a tie (contraction
+    ties by default, at most ``max_share`` of the samples)."""
     got, want = np.asarray(got), np.asarray(want)
     bad = (got != want) & ~ties
     assert not bad.any(), f"{bad.sum()} mismatches outside contraction ties"
-    assert ties.mean() < 1e-3
+    assert ties.mean() < max_share
 
 
 def test_bank_params_match():
@@ -135,9 +150,9 @@ def test_stream_and_stats_match_pallas(n, padding, renorm):
     np.testing.assert_allclose(mean.numpy(), np.asarray(w_mean), rtol=MEAN_RTOL)
 
 
-def _assert_padded_match(got, want, n_steps, mean, ties):
-    """(even, odd) outputs: equal below n_steps but for contraction ties,
-    the pad within MEAN_RTOL."""
+def _assert_padded_match(got, want, n_steps, mean, ties, max_share=1e-3):
+    """(even, odd) outputs: equal below n_steps but for ties (contraction
+    ties by default), the pad within MEAN_RTOL."""
     ge, go = (np.asarray(a) for a in got)
     we, wo = (np.asarray(a) for a in want)
     T, half_out = ge.shape
@@ -148,7 +163,7 @@ def _assert_padded_match(got, want, n_steps, mean, ties):
             head = i[:, p] < n_steps[t]
             tie = np.zeros(half_out, dtype=bool)
             tie[: min(half, half_out)] = ties[t, p, :half_out]
-            _assert_equal_but_ties(g[head], w[head], tie[head])
+            _assert_equal_but_ties(g[head], w[head], tie[head], max_share)
             np.testing.assert_allclose(g[~head], w[~head], rtol=MEAN_RTOL)
             np.testing.assert_array_equal(g[~head], np.full((~head).sum(), mean[t]))
 
@@ -528,3 +543,130 @@ def test_exact_mean_bank_step_matches_jax_step():
     pM, pT = step(torch.from_numpy(ts), B, len(P))
     np.testing.assert_allclose(pM.numpy(), np.asarray(M), rtol=1e-5)
     np.testing.assert_array_equal(pT.numpy(), np.asarray(T))
+
+
+def _exact_sin_problem(n, rows, seed):
+    ts, ev, od = _series(n, seed=seed)
+    params = _bank(rows)
+    return ts, ev, od, params
+
+
+def _flips(got, want, ties):
+    """The mismatches of ``got`` against ``want``; each must be a tie."""
+    got, want = np.asarray(got), np.asarray(want)
+    bad = got != want
+    assert not (bad & ~ties).any(), f"{int((bad & ~ties).sum())} mismatches outside the sine ties"
+    return int(bad.sum())
+
+
+@pytest.mark.parametrize("n,padding", [(1 << 14, 1.5), (10000, 1.0)])
+def test_exact_sin_stream_matches_xla(n, padding):
+    """Kernel A's exact-sine plain version against the JAX package's
+    vmapped ``resample_split(use_lut=False)`` (XLA's ``jnp.sin``): samples
+    bitwise but at sine ties, n_steps equal, the pad within MEAN_RTOL."""
+    ts, ev, od, params = _exact_sin_problem(n, [0, 1, 2, 7, 57, 150, 199], seed=21)
+    kw = _kw(n, padding)
+    got = port.resample_fftprep_batch(
+        torch.from_numpy(ts), *(torch.from_numpy(p) for p in params), exact_sin=True, **kw
+    )
+    we, wo = jax.vmap(
+        lambda a, b, c, d: xla_resample_split(
+            jnp.asarray(ev), jnp.asarray(od), a, b, c, d, use_lut=False, **_jax_kw(n, padding)
+        )
+    )(*(jnp.asarray(p) for p in params))
+    raw, n_steps, mean = port.resample_stream(
+        torch.from_numpy(ts), port.stream_params(*params), n_unpadded=n, dt=DT, exact_sin=True
+    )
+    ties = sine_ties(params, n)
+    _assert_padded_match(got, (we, wo), n_steps.numpy(), mean.numpy(), ties, SINE_TIE_SHARE)
+    # the unpadded samples alone, counted
+    w_raw = np.stack([np.asarray(we)[:, : n // 2], np.asarray(wo)[:, : n // 2]], axis=1)
+    head = (2 * np.arange(n // 2)[None, None, :] + np.arange(2)[None, :, None]) < n_steps.numpy()[:, None, None]
+    assert _flips(raw.numpy()[head], w_raw[head], ties[head]) <= int(ties.sum())
+
+
+def test_exact_sin_single_template_matches_xla():
+    """The T = 1 launch (A1's exact-sine instantiation)."""
+    n = 1 << 14
+    ts, ev, od, params = _exact_sin_problem(n, [17], seed=22)
+    got = port.resample_split(
+        torch.from_numpy(ts), *(torch.from_numpy(p[0:1]) for p in params), **_kw(n, 1.5), exact_sin=True
+    )
+    want = xla_resample_split(
+        jnp.asarray(ev), jnp.asarray(od), *(jnp.float32(p[0]) for p in params), use_lut=False, **_jax_kw(n, 1.5)
+    )
+    _, n_steps, mean = port.resample_stream(
+        torch.from_numpy(ts), port.stream_params(*params), n_unpadded=n, dt=DT, exact_sin=True
+    )
+    _assert_padded_match(
+        [g[None] for g in got], [np.asarray(w)[None] for w in want], n_steps.numpy(), mean.numpy(),
+        sine_ties(params, n), SINE_TIE_SHARE,
+    )
+
+
+def test_exact_sin_exact_mean_matches_jax_host_pass():
+    """The exact-sine exact mean (its plain version) against the JAX
+    package's host pass at ``use_lut=False`` (``np.sin``): n_steps equal,
+    the samples equal but at sine ties, and the mean bitwise for every
+    template none of whose samples flipped (within rtol 1e-6 otherwise:
+    one flipped sample of ~1.6e4)."""
+    n = 1 << 14
+    b = np.loadtxt(BANK200)[EXACT_ROWS]
+    P, tau, psi0 = b[:, 0], b[:, 1], b[:, 2]
+    ts = (_series(n, seed=23)[0] + 3.0).astype(np.float32)
+    params = _bank(EXACT_ROWS)
+    jgeom, _ = _exact_geoms(n, P, tau, psi0, padding=1.5, window=200)
+    jgeom = dataclasses.replace(jgeom, use_lut=False)
+    want_n, want_mean = jax_search.host_exact_mean_params(ts, list(zip(*params)), jgeom)
+    rows = port.stream_params(*params)
+    n_steps, mean = port.exact_mean_params(torch.from_numpy(ts), rows, n_unpadded=n, dt=DT, exact_sin=True)
+    np.testing.assert_array_equal(n_steps.numpy(), want_n)
+    # the host pass's samples, its np.sin chain written out
+    f32 = np.float32
+    tau32, om, psi, s0 = (np.asarray(p, f32)[:, None] for p in params)
+    i_f = np.arange(n, dtype=f32)[None, :]
+    ph = (om * (i_f * f32(DT)).astype(f32) + psi).astype(f32)
+    del_t = (tau32 * np.sin(ph).astype(f32) * (f32(1.0) / f32(DT)) - s0).astype(f32)
+    want = ts[np.clip((i_f - del_t + f32(0.5)).astype(np.int32), 0, n - 1)].reshape(len(EXACT_ROWS), n // 2, 2)
+    got = port.resample_stream(torch.from_numpy(ts), rows, n_unpadded=n, dt=DT, exact_sin=True)[0].numpy()
+    head = (2 * np.arange(n // 2)[None, None, :] + np.arange(2)[None, :, None]) < want_n[:, None, None]
+    flipped = (got != want.transpose(0, 2, 1)) & head
+    assert not (flipped & ~sine_ties(params, n)).any()
+    clean = ~flipped.any(axis=(1, 2))
+    assert mean.numpy()[clean].tobytes() == want_mean[clean].tobytes()
+    np.testing.assert_allclose(mean.numpy(), want_mean, rtol=1e-6)
+
+
+def test_exact_sin_exact_mean_is_the_serial_mean_of_its_samples():
+    """Inside the port the exact-sine exact mean is the serial mean of
+    kernel A's exact-sine samples, bitwise, with A's n_steps (what the
+    card's kernels are held to in ``chip_smoke.py``)."""
+    n = 1 << 13
+    ts = torch.from_numpy((_series(n, seed=24)[0] + 3.0).astype(np.float32))
+    rows = port.stream_params(*_bank([3, 40, 120]))
+    raw, ns_a, _ = port.resample_stream(ts, rows, n_unpadded=n, dt=DT, exact_sin=True)
+    n_steps, mean = port.exact_mean_params(ts, rows, n_unpadded=n, dt=DT, exact_sin=True)
+    assert torch.equal(n_steps, ns_a)
+    assert port.serial_mean_plain(raw, ns_a).numpy().tobytes() == mean.numpy().tobytes()
+
+
+def test_exact_sin_needs_no_lut_range():
+    """Phases far past the LUT's tiled range (an orbit of 5 ms over the
+    series: ~10^3 rad at 2^13 samples, to ~10^6 at the production t_obs)
+    resample with the exact sine: the plain version against a float64
+    sine, equal but at ties of ``SINE_ULPS`` ulp."""
+    n = 1 << 13
+    ts = _series(n, seed=25)[0]
+    P = np.array([5e-3, 7.3e-3, 11e-3])
+    params = bank_params_host(P, np.array([2e-4, 1e-4, 3e-4]), np.array([0.3, 2.0, 6.0]), DT)
+    raw, n_steps, _ = port.resample_stream(
+        torch.from_numpy(ts), port.stream_params(*params), n_unpadded=n, dt=DT, exact_sin=True
+    )
+    f32 = np.float32
+    tau, om, psi, s0 = (np.asarray(p, f32)[:, None] for p in params)
+    i_f = np.arange(n, dtype=f32)[None, :]
+    phase = om * (i_f * f32(DT)) + psi
+    del_t = (tau * np.sin(phase.astype(np.float64)).astype(f32) * (f32(1.0) / f32(DT)) - s0).astype(f32)
+    idx = np.clip((i_f - del_t + f32(0.5)).astype(np.int32), 0, n - 1)
+    want = ts[idx].reshape(3, n // 2, 2).transpose(0, 2, 1)
+    _flips(raw.numpy(), want, sine_ties(params, n, ulps=SINE_ULPS))

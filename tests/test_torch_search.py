@@ -10,12 +10,16 @@ Tolerances:
   XLA on the CPU fuses a multiply-add the reference does not, gathers a
   different sample, and moves every bin of that template by ~1%;
 * the candidate files of the two drivers are compared with the
-  validator's tolerance (``io/validate.py::compare_candidate_rows``).
+  validator's tolerance (``io/validate.py::compare_candidate_rows``);
+* the exact-sine step (``use_lut=False``) against JAX ``make_bank_step``
+  at ``use_lut=False`` (XLA's ``jnp.sin``) as the LUT step, on templates
+  without a sine tie at this length (``torch_parity.sine_ties``).
 """
 
 import dataclasses
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ import torch
 from boinc_app_eah_brp_tpu.io import parse_result_file as jax_parse
 from boinc_app_eah_brp_tpu.io.validate import compare_candidate_rows
 from boinc_app_eah_brp_tpu.models import search as jax_search
+from boinc_app_eah_brp_tpu.ops.resample import resample_split as xla_resample_split
 from boinc_app_eah_brp_tpu.oracle.pipeline import DerivedParams as JaxDerived
 from boinc_app_eah_brp_tpu.oracle.pipeline import SearchConfig as JaxConfig
 from boinc_app_eah_brp_tpu.runtime.driver import DriverArgs as JaxArgs
@@ -40,7 +45,7 @@ from boinc_app_eah_brp_tpu_torch.runtime.cli import main, parse_args
 from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
 from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EFILE, RADPUL_EMISC, RADPUL_EVAL
 from fixtures import small_bank, synthetic_timeseries
-from torch_parity import DT, contraction_ties
+from torch_parity import DT, contraction_ties, sine_ties
 
 M_RTOL = 1e-5
 BANK200 = os.path.join(os.path.dirname(__file__), "golden", "bank200.txt")
@@ -184,20 +189,30 @@ def test_cli_runs_the_slice(workdir):
 
 
 @pytest.mark.parametrize(
-    "argv,code",
+    "argv,want",
     [
-        ("--mesh 2", RADPUL_EMISC),
+        ("--mesh 2", {"mesh_devices": 2, "device": "cuda"}),
+        ("--mesh 2 -D 0", RADPUL_EVAL),
+        ("--mesh 0", RADPUL_EVAL),
         ("--supervised 3", RADPUL_EMISC),
         ("--rescore", RADPUL_EMISC),
-        ("--exact-sin", RADPUL_EMISC),
+        ("--exact-sin", {"use_lut": False}),
         ("-P 0.5", RADPUL_EVAL),
         ("--batch 0", RADPUL_EVAL),
         ("--bogus", RADPUL_EMISC),
     ],
 )
-def test_cli_refuses_what_the_slice_does_not_honour(argv, code):
+def test_cli_refuses_what_the_slice_does_not_honour(argv, want):
+    """The JAX package's range checks and exit codes (an int), or the
+    fields a flag the port honours parses to (a dict): ``--mesh`` and
+    ``--exact-sin`` are honoured, ``-D`` with ``--mesh N>1`` and ``--mesh 0``
+    are RADPUL_EVAL, as in the JAX driver."""
     base = "-i a.bin4 -o o.cand -t t.bank ".split()
-    assert parse_args(base + argv.split()) == code
+    got = parse_args(base + argv.split())
+    if isinstance(want, dict):
+        assert isinstance(got, DriverArgs) and {k: getattr(got, k) for k in want} == want
+    else:
+        assert got == want
 
 
 def test_cli_parses_the_jax_default_surface():
@@ -223,3 +238,74 @@ def test_entry_points_default_to_cuda(monkeypatch):
         search.init_state(search.SearchGeometry.from_derived(d))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         search.state_from_jax(np.zeros((5, 8), np.float32), np.zeros((5, 8), np.int32))
+
+
+def test_exact_sin_runs_a_bank_the_lut_refuses():
+    """An orbit of 0.3 s at 500 us moves the LUT index 0.1 a sample, past
+    the default geometry's bound: both packages refuse it with the LUT and
+    search it with the exact sine.  One exact-sine BankStep against the JAX
+    step at ``use_lut=False``: M to rtol 1e-5, T equal."""
+    n, B = 1 << 12, 3
+    rng = np.random.default_rng(31)
+    P = rng.uniform(0.3, 0.6, 6)
+    tau = rng.uniform(1e-3, 4e-3, 6)
+    psi0 = rng.uniform(0.0, 2 * np.pi, 6)
+    params = search.bank_params_host(P, tau, psi0, DT)
+    ts = np.random.default_rng(12).normal(0.0, 1.0, n).astype(np.float32)
+    # the templates whose gathered samples are the JAX package's (its
+    # jnp.sin and fused del_t): a flip may only be a tie
+    raw, n_steps, _ = resample.resample_stream(
+        torch.from_numpy(ts), resample.stream_params(*params), n_unpadded=n, dt=DT, exact_sin=True
+    )
+    ev, od = jax.vmap(
+        lambda a, b, c, d: xla_resample_split(
+            jnp.asarray(ts[0::2]), jnp.asarray(ts[1::2]), a, b, c, d, nsamples=n, n_unpadded=n, dt=DT,
+            use_lut=False, max_slope=0.5,
+        )
+    )(*(jnp.asarray(p) for p in params))
+    head = (2 * np.arange(n // 2)[None, None, :] + np.arange(2)[None, :, None]) < n_steps.numpy()[:, None, None]
+    flips = (raw.numpy() != np.stack([np.asarray(ev), np.asarray(od)], axis=1)) & head
+    assert not (flips & ~(sine_ties(params, n) | contraction_ties(params, n))).any()
+    keep = ~flips.any(axis=(1, 2))
+    P, tau, psi0 = P[keep], tau[keep], psi0[keep]
+    assert len(P) >= B
+    cfg = dict(padding=1.5, window=200, f0=250.0)
+    jgeom = jax_search.SearchGeometry.from_derived(JaxDerived.derive(n, DT * 1e6, JaxConfig(**cfg)), max_slope=0.5)
+    geom = search.SearchGeometry.from_derived(DerivedParams.derive(n, DT * 1e6, SearchConfig(**cfg)), max_slope=0.5)
+    for validate, g in ((jax_search.validate_bank_bounds, jgeom), (search.validate_bank_bounds, geom)):
+        with pytest.raises(ValueError, match="LUT-index step"):
+            validate(g, P, tau, psi0)
+        validate(dataclasses.replace(g, use_lut=False), P, tau, psi0)
+    jgeom, geom = (dataclasses.replace(g, use_lut=False) for g in (jgeom, geom))
+    jbank = jax_search.upload_bank(jax_search.bank_params_host(P[:B], tau[:B], psi0[:B], DT), B)
+    M, T = jax_search.init_state(jgeom)
+    jstep = jax_search.make_bank_step(jgeom, B)
+    M, T = jstep(jax_search.prepare_ts(jgeom, ts), *jbank, jnp.int32(0), jnp.int32(B), M, T)
+    pM, pT = search.run_bank(torch.from_numpy(ts), P[:B], tau[:B], psi0[:B], geom, batch_size=B)
+    np.testing.assert_allclose(pM.numpy(), np.asarray(M), rtol=M_RTOL)
+    np.testing.assert_array_equal(pT.numpy(), np.asarray(T))
+
+
+@pytest.mark.parametrize("white", [True, False])
+def test_exact_sin_cli_matches_jax_driver(workdir, white):
+    """``--exact-sin`` through both drivers, whitened and unwhitened (the
+    JAX package's exact-sine host pass is its own best effort), compared
+    with the validator's tolerance; the port's rows also equal its LUT
+    rows on this bank of orbits of seconds within the same tolerance."""
+    common = dict(inputfile=workdir["wu"], templatebank=workdir["bank"], window=200, batch_size=2, white=white)
+    if white:
+        common["zaplistfile"] = workdir["zap"]
+    argv = f"-i {workdir['wu']} -o {workdir['port']} -t {workdir['bank']} -B 200 --batch 2 --device cpu --exact-sin"
+    if white:
+        argv += f" -W -l {workdir['zap']}"
+    parsed = parse_args(argv.split())
+    assert parsed.use_lut is False
+    assert run_search(parsed) == 0
+    assert jax_run_search(JaxArgs(outputfile=workdir["jax"], use_lut=False, mesh_devices=1, **common)) == 0
+    got, want = parse_result_file(workdir["port"]), jax_parse(workdir["jax"])
+    assert got.done and want.done and len(got.lines) > 0
+    diff = compare_candidate_rows(got.lines, want.lines, t_obs=4096 * DT)
+    assert diff.ok, diff.report()
+    lut = workdir["port"] + ".lut"
+    assert run_search(DriverArgs(outputfile=lut, device="cpu", **common)) == 0
+    assert compare_candidate_rows(parse_result_file(lut).lines, got.lines, t_obs=4096 * DT).ok

@@ -3,6 +3,8 @@
 import numpy as np
 
 from boinc_app_eah_brp_tpu.oracle.sincos import sincos_lut_lookup as oracle_sincos
+from boinc_app_eah_brp_tpu_torch.ops.resample import SINE_ULPS
+from boinc_app_eah_brp_tpu_torch.ops.resample import sine_ties as port_sine_ties
 
 DT = 500e-6  # sample time of the test workunits (s)
 
@@ -22,3 +24,10 @@ def contraction_ties(params, n):
     idx = [np.clip((i_f - d + f32(0.5)).astype(np.int32), 0, n - 1) for d in (del_u, del_f)]
     T = tau.shape[0]
     return (idx[0] != idx[1]).reshape(T, n // 2, 2).transpose(0, 2, 1)
+
+
+def sine_ties(params, n, ulps=SINE_ULPS):
+    """bool[T, 2, n//2]: samples where two exact-sine resamplers whose
+    float32 sines are ``ulps`` ulp apart may gather differently (the tie
+    rule of the exact-sine parity tests; ``ops/resample.py::sine_ties``)."""
+    return port_sine_ties(params, n, DT, ulps)

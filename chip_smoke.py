@@ -92,7 +92,23 @@ Phases:
    5's rows and ``--mesh 2`` RADPUL_EVAL; (3) N_HOSTS processes of one
    elastic search on the card, one SIGKILLed after its first shard commit:
    the survivors adopt its shard, one writes phase 5's rows;
-13. print the kernel table as one JSON line (launches from the whitened
+13. the fabric and crash-resume (h): (1) a ``fabric.ServerBackend`` on
+   the card, warmed for the unwhitened class at ``--batch 32``, computes
+   the volunteer fabric's two references, phase 5's workunit and phase
+   (e)'s second one, counts reset just before: their rows must be phase
+   5's and phase (e)'s, with no build and no plan after warm-up and A, B,
+   C and the exact mean launched; then one ``Fabric`` runs 32 volunteer
+   streams with every adversary kind over 16 workunits, with result
+   corruption and validator crashes armed, held to every gate of
+   ``tools/fabric_soak.py`` (all granted, byte-identical to the
+   references, no lie credited, every liar caught, the replica overhead
+   and ``FLEET_BASELINE.json``'s SLOs, every verdict and report
+   validated); (2) ``tools/chaos_soak.py``'s kill/resume soak on phase
+   5's workunit at ``--batch 4``: four SIGKILL/SIGTERM cycles with
+   checkpoint-write EIO armed, a corrupted checkpoint that the resume
+   must skip for the generation before, and a final file byte-identical
+   to the uninterrupted run's;
+14. print the kernel table as one JSON line (launches from the whitened
    run; the serial mean's from the unwhitened one, A1's from the health
    run, C's float-power entry's from the audits, the exact-sine ones from
    the ``--exact-sin`` run), the `bounds` line of the package's roofline
@@ -169,6 +185,11 @@ N_HOSTS, VICTIM = 3, 1  # the elastic processes of phase (g), and the one killed
 # width), during which it writes no heartbeat: a shorter one lets a survivor
 # adopt the merge
 LEASE_TIMEOUT_S = 20
+FABRIC_STREAMS, FABRIC_WUS = 32, 16  # the fabric of phase (h1)
+# phase (h2)'s batch: 50 batches of bank200, each followed by a checkpoint
+# (~40 ms of host toplist and write a checkpoint), so the loop outlasts
+# dozens of the soak's 50 ms checkpoint polls
+KILL_BATCH, KILL_CYCLES = 4, 4
 
 
 class CheckFailed(Exception):
@@ -426,23 +447,13 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
 
 
 def synthetic_workunit(path: str, geom, bank, inject: int = INJECT, seed: int = SEED) -> tuple[float, float]:
-    """A 4-bit workunit of N_UNPADDED samples: N(4, 1) noise plus a pulse
-    train whose arrival times follow bank row ``inject``'s orbit, made from
-    ``seed``.  Returns the template's (P, tau)."""
-    from boinc_app_eah_brp_tpu_torch.io import write_workunit
+    """A 4-bit workunit of N_UNPADDED samples at TSAMPLE_US: N(4, 1) noise
+    plus a pulse train whose arrival times follow bank row ``inject``'s
+    orbit, made from ``seed`` (``tools/_inputs.py::production_workunit``).
+    Returns the template's (P, tau)."""
+    from boinc_app_eah_brp_tpu_torch.tools import _inputs
 
-    P, tau, psi0 = bank.P[inject], bank.tau[inject], bank.psi0[inject]
-    rng = np.random.default_rng(seed)
-    dt = TSAMPLE_US * 1e-6
-    i = np.arange(N_UNPADDED, dtype=np.float64)
-    t = i * dt
-    # detector sample i sees pulsar time f^-1(i), f(j) = j - del_t[j]
-    del_t = (tau * np.sin(2 * np.pi / P * t + psi0) - tau * np.sin(psi0)) / dt
-    t_pulsar = np.interp(i, i - del_t, i) * dt
-    pulse = 0.4 * (np.cos(2 * np.pi * 123.4567 * t_pulsar) > 0.95)
-    x = np.clip(np.round(pulse + rng.normal(4.0, 1.0, N_UNPADDED)), 0, 15)
-    write_workunit(path, x.astype(np.float32), tsample_us=TSAMPLE_US, scale=1.0)
-    return float(np.float32(P)), float(np.float32(tau))
+    return _inputs.production_workunit(path, bank, inject, seed, n_samples=N_UNPADDED)
 
 
 def _remove_checkpoints(cp: str) -> None:
@@ -1054,9 +1065,10 @@ def run_health_precision(torch, geom, bank, workdir: str, wu: str, unwhite_rows,
     audit on the card, and the roofline's attainable rate."""
     from boinc_app_eah_brp_tpu_torch.models import search
     from boinc_app_eah_brp_tpu_torch.ops import kernels
-    from boinc_app_eah_brp_tpu_torch.runtime import flightrec, health, metrics, precision, roofline
+    from boinc_app_eah_brp_tpu_torch.runtime import flightrec, health, precision, roofline
     from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
     from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EVAL
+    from boinc_app_eah_brp_tpu_torch.tools import precision_audit
 
     def argv(name, extra=""):
         return (
@@ -1190,13 +1202,9 @@ def run_health_precision(torch, geom, bank, workdir: str, wu: str, unwhite_rows,
     audits = {}
     kernels.reset_launch_counts()
     for name, n in (("ci", precision.CI_SAMPLES), ("n2e20", 1 << 20)):
-        metrics.configure(force=True)
-        try:
-            t0 = time.perf_counter()
-            doc = precision.run_audit(*precision.ci_fixture(n), batch_size=precision.CI_BATCH, device=DEVICE)
-            audit_s = time.perf_counter() - t0
-        finally:
-            metrics.finish(0)
+        t0 = time.perf_counter()
+        doc = precision_audit.fresh_audit(("f32", "bf16"), DEVICE, n)
+        audit_s = time.perf_counter() - t0
         check(precision.validate_precision_audit(doc) == [], f"the {name} audit does not validate")
         tap = doc["lanes"]["f32"]["tap"]
         check(tap["byte_identical"] and tap["recompiles_in_window"] == 0, f"the {name} audit's tap proof failed: {tap}")
@@ -1509,6 +1517,114 @@ def run_elastic(workdir: str, wu: str, unwhite_rows) -> dict:
     return dict(writer=written[0], adoptions=adoptions, processes=per)
 
 
+def run_fabric(torch, workdir: str, wu: str, unwhite_rows, serve_b_rows) -> dict:
+    """Phase (h1): a ServerBackend on the card, warmed for the unwhitened
+    class at BATCH, computes the fabric's two payload references: phase
+    5's workunit and phase (e)'s second one.  Counts reset just before.
+    Their rows must be phase 5's and phase (e)'s; the backend must make no
+    build and no plan after warm-up.  Then one Fabric runs FABRIC_STREAMS
+    volunteer streams (every adversary kind, result-report corruption
+    and validator crashes armed) over FABRIC_WUS workunits, held to every
+    gate of ``tools/fabric_soak.py``."""
+    from boinc_app_eah_brp_tpu_torch.fabric import ServerBackend
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import parse_args
+    from boinc_app_eah_brp_tpu_torch.runtime.scheduler import WarmSpec
+    from boinc_app_eah_brp_tpu_torch.runtime.session import Session
+    from boinc_app_eah_brp_tpu_torch.tools import fabric_soak
+
+    fdir = os.path.join(workdir, "fabric")
+    os.makedirs(fdir)
+
+    def args(path, name):
+        return parse_args(
+            f"-i {path} -o {os.path.join(fdir, name + '.cand')} -t {BANK} -c {os.path.join(fdir, name + '.cpt')} "
+            f"-P {PADDING} -f {F0} -A {FA} -B {WINDOW} --batch {BATCH} --device {DEVICE}".split()
+        )
+
+    probe = Session(args(wu, "probe")).prepare()
+    spec = WarmSpec(probe.geom, BATCH)
+    probe.release()
+    del probe
+    t0 = time.perf_counter()
+    backend = ServerBackend(name="smoke-fabric", warm_specs=[spec], device=DEVICE)
+    warm_s = time.perf_counter() - t0
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        refs = {
+            "A": backend.compute(args(wu, "refA"), corr_id="ref-A"),
+            "B": backend.compute(args(os.path.join(workdir, "serve2.bin4"), "refB"), corr_id="ref-B"),
+        }
+        refs_s = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        stats = backend.stats()
+    finally:
+        backend.close()
+    check(np.array_equal(_candidate_rows(os.path.join(fdir, "refA.cand")), unwhite_rows),
+          "the fabric's reference A differs from phase 5's rows")
+    check(np.array_equal(_candidate_rows(os.path.join(fdir, "refB.cand")), serve_b_rows),
+          "the fabric's reference B differs from phase (e)'s second workunit's rows")
+    check(stats["ok"] == 2 and stats["recompiles_after_warmup"] == 0,
+          f"the backend built or planned after warm-up, or failed: {stats}")
+    for k in UNWHITENED_PATH:
+        check(launches[k] > 0, f"kernel {k} was not launched by the fabric's references")
+    check(launches["serial_mean"] == 2, f"the references took the exact mean {launches['serial_mean']} times")
+
+    derived = DerivedParams.derive(N_UNPADDED, TSAMPLE_US, SearchConfig(f0=F0, padding=PADDING, fA=FA, window=WINDOW))
+    with _env({"ERP_QUORUM_KEY": f"chip-smoke-{os.urandom(8).hex()}"}):
+        try:
+            soak = fabric_soak.soak(fdir, refs, t_obs=derived.t_obs, streams=FABRIC_STREAMS, n_wus=FABRIC_WUS,
+                                    seed=SEED % 1000)
+        except fabric_soak.SoakFailed as e:
+            raise CheckFailed(f"fabric: {e}") from e
+    fleet = soak["fleet"]
+    return dict(
+        warm_s=warm_s,
+        references_s=refs_s,
+        launches=launches,
+        backend_recompiles_after_warmup=stats["recompiles_after_warmup"],
+        backend_wus_per_hour_per_chip=stats["wus_per_hour_per_chip"],
+        fabric_wall_s=soak["wall_s"],
+        granted_wus_per_hour_per_chip=FABRIC_WUS / (refs_s + soak["wall_s"]) * 3600.0,
+        grant_latency_s={k: fleet["grant_latency_s"][k] for k in ("n", "p50", "p95", "max")},
+        validation_latency_s={k: fleet["validation_latency_s"][k] for k in ("p50", "p95")},
+        replica_overhead=fleet["reissue_overhead"],
+        adversaries=fleet["adversaries"],
+        summary=soak["summary"],
+        verdicts=soak["verdicts"],
+        backend=stats,
+    )
+
+
+def run_kill_resume(workdir: str, wu: str) -> dict:
+    """Phase (h2): ``tools/chaos_soak.py``'s kill/resume soak on phase 5's
+    workunit at KILL_BATCH with a checkpoint every batch: KILL_CYCLES
+    SIGKILL/SIGTERM cycles with checkpoint-write EIO armed, the live
+    checkpoint corrupted once (the resume must fall back a generation),
+    and a final run byte-identical to the uninterrupted one."""
+    from boinc_app_eah_brp_tpu_torch.tools import _inputs, chaos_soak
+
+    kdir = os.path.join(workdir, "kill_resume")
+    os.makedirs(kdir)
+
+    def make(out, cp):
+        return _inputs.cli_cmd(wu, BANK, out, cp, "-P", str(PADDING), "-f", str(F0), "-A", str(FA), "-B",
+                               str(WINDOW), "--batch", str(KILL_BATCH), "--device", DEVICE)
+
+    t0 = time.perf_counter()
+    try:
+        out = chaos_soak.kill_resume(kdir, make, cycles=KILL_CYCLES, seed=SEED % 1000, timeout_s=300)
+    except chaos_soak.SoakFailed as e:
+        raise CheckFailed(f"kill/resume: {e}") from e
+    check(out["corrupted"] and out["fallback_seen"], "the corrupt-checkpoint fallback was not exercised")
+    check(sum(1 for r in out["runs"] if r["resumed_at"]) >= KILL_CYCLES - 1 and out["final"]["resumed_at"],
+          f"the runs did not resume from their checkpoints: {out['runs']}, {out['final']}")
+    return dict(batch=KILL_BATCH, wall_s=time.perf_counter() - t0, **out)
+
+
 def main() -> int:
     try:
         import torch
@@ -1577,6 +1693,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         sharded = run_sharded(torch, geom, bank, workdir, wu, zap, unwhite_rows)
         elastic = run_elastic(workdir, wu, unwhite_rows)
+        t0 = time.perf_counter()
+        fabric = run_fabric(torch, workdir, wu, unwhite_rows, _candidate_rows(os.path.join(workdir, "serve_b.cand")))
+        torch.cuda.empty_cache()
+        kill = run_kill_resume(workdir, wu)
+        phase_h_s = time.perf_counter() - t0
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1620,6 +1741,21 @@ def main() -> int:
     print(json.dumps({"exact_sin": exact}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"elastic": elastic}))
+    print(json.dumps({"fabric": fabric}))
+    print(json.dumps({"kill_resume": kill, "phase_h_s": phase_h_s}))
+    print(
+        f"fabric: backend recompiles after warm-up {fabric['backend_recompiles_after_warmup']}, "
+        f"{fabric['backend_wus_per_hour_per_chip']} WUs/hour/chip (backend), "
+        f"{fabric['granted_wus_per_hour_per_chip']:.1f} granted WUs/hour/chip (references + fabric), "
+        f"grant latency p50 {fabric['grant_latency_s']['p50']} s p95 {fabric['grant_latency_s']['p95']} s, "
+        f"replica overhead {fabric['replica_overhead']['ratio']}x"
+    )
+    print(
+        f"kill/resume: batch {kill['batch']}, {len(kill['runs'])} cycles, resumes "
+        + ", ".join(f"{r['signal']} at {r['killed_at']} after {r['wall_s']:.2f} s (from {r['resumed_at']})"
+                    for r in kill["runs"])
+        + f", final from {kill['final']['resumed_at']} in {kill['final']['wall_s']:.2f} s, byte-identical"
+    )
     print(json.dumps({"kernels": rows}))
     print(
         json.dumps(

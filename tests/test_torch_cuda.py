@@ -462,3 +462,36 @@ def test_two_shard_mesh_on_one_card_matches_run_bank(dev, exact_mean):
     ref = search.run_bank(ts, b[:, 0], b[:, 1], b[:, 2], exact, batch_size=4)
     got = run_bank_sharded(ts, b[:, 0], b[:, 1], b[:, 2], exact, make_mesh(devices=[dev, dev]), per_device_batch=2)
     assert all(torch.equal(x, y) for x, y in zip(ref, got))
+
+
+def test_server_backend_on_the_card_gives_the_cli_rows(dev, tmp_path, monkeypatch):
+    """The fabric's ServerBackend on the card returns a candidate file
+    whose rows are the command line's on the same workunit."""
+    from boinc_app_eah_brp_tpu_torch.fabric import ServerBackend
+    from boinc_app_eah_brp_tpu_torch.io import parse_result_file
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import main
+    from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs
+    from boinc_app_eah_brp_tpu_torch.tools import _inputs
+
+    monkeypatch.setenv("ERP_RESULT_DATE", _inputs.RESULT_DATE)
+    wu = _inputs.fixture_workunit(str(tmp_path / "wu.bin4"), f_signal=33.0)
+    bank = _inputs.fixture_bank(str(tmp_path / "bank.dat"))
+    argv = f"-i {wu} -o {tmp_path / 'cli.cand'} -t {bank} -c {tmp_path / 'cli.cpt'} -B 200 --batch 2 --device cuda"
+    assert main(argv.split()) == 0
+    with ServerBackend(name="t-card") as backend:
+        data = backend.compute(DriverArgs(inputfile=wu, outputfile=str(tmp_path / "srv.cand"), templatebank=bank,
+                                          checkpointfile=str(tmp_path / "srv.cpt"), window=200, batch_size=2))
+        assert backend.stats()["ok"] == 1
+    assert data == open(tmp_path / "srv.cand", "rb").read()
+    assert np.array_equal(parse_result_file(str(tmp_path / "srv.cand")).lines,
+                          parse_result_file(str(tmp_path / "cli.cand")).lines)
+
+
+def test_fabric_soak_on_the_card(dev, tmp_path, monkeypatch):
+    """The fabric soak at its small size with the references on the card."""
+    from boinc_app_eah_brp_tpu_torch.tools import fabric_soak
+
+    monkeypatch.setenv("ERP_QUORUM_KEY", "card-test-key")
+    monkeypatch.setenv("ERP_RESULT_DATE", "2008-11-12T00:00:00+00:00")
+    monkeypatch.setenv("ERP_FABRIC_BACKEND", "server")
+    assert fabric_soak.main(["--streams", "16", "--wus", "8", "--device", "cuda", "--workdir", str(tmp_path)]) == 0

@@ -37,6 +37,19 @@ with FleetServer(name="probe", device="cpu") as server:
                                     window=100, batch_size=2, device="cpu"))
 assert res.ok, res
 assert open("out3.cand").read().endswith("%DONE%\\n")
+# the fabric's server backend over the same tier, and the tools' checks
+from boinc_app_eah_brp_tpu_torch.fabric import ServerBackend
+from boinc_app_eah_brp_tpu_torch.tools import report_check
+with ServerBackend(name="probe-fabric", device="cpu") as backend:
+    data = backend.compute(DriverArgs(inputfile="wu.bin4", outputfile="out4.cand", templatebank="bank.dat",
+                                      window=100, batch_size=2))
+assert data.endswith(b"%DONE%\\n")
+from boinc_app_eah_brp_tpu_torch.fabric import HostModel, Replica, validate_single
+open("r.cand", "wb").write(HostModel(host_id=3).compute("wu", data, 7)[0])
+out = validate_single("wu", Replica(host_id=3, path="r.cand", bank_epoch=7), 2048 * 500e-6, expected_epoch=7,
+                      outdir="verdicts")
+assert out.granted, out.doc
+assert report_check.check_path(out.path) == ("erp-quorum/1", [])
 assert "jax" not in sys.modules, "jax imported"
 assert not [m for m in sys.modules if m.startswith("boinc_app_eah_brp_tpu.")
             or m == "boinc_app_eah_brp_tpu"], "JAX package imported"
@@ -96,11 +109,35 @@ def test_serving_imports_neither_torch_nor_jax():
         assert (PORT / "serving" / f"{m}.py").is_file()
 
 
+FABRIC = ("hosts", "validator", "workfabric")
+TOOLS = ("_inputs", "fleet_report", "report_check", "fabric_soak", "fleet_bench", "chaos_soak",
+         "serving_chaos", "precision_audit")
+
+
+def test_fabric_and_tools_import_neither_torch_nor_jax():
+    """The fabric (hosts, validator, scheduler) and the tools are host
+    code: importing them loads neither torch nor jax; torch comes in with
+    a ServerBackend or a tool's first run."""
+    probe = (
+        "import sys\n"
+        "import boinc_app_eah_brp_tpu_torch.fabric, boinc_app_eah_brp_tpu_torch.tools\n"
+        + "".join(f"import boinc_app_eah_brp_tpu_torch.fabric.{m}\n" for m in FABRIC)
+        + "".join(f"import boinc_app_eah_brp_tpu_torch.tools.{m}\n" for m in TOOLS)
+        + "bad = [m for m in sys.modules if m in ('torch', 'jax') or m.startswith('boinc_app_eah_brp_tpu.')]\n"
+        + "assert not bad, bad\nprint('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", probe], env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    for sub, names in (("fabric", FABRIC), ("tools", TOOLS)):
+        for m in names:
+            assert (PORT / sub / f"{m}.py").is_file()
+
+
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"boinc_app_eah_brp_tpu\.|from jax|import jax")
-    offenders = [
-        str(p.relative_to(REPO))
-        for p in sorted(PORT.rglob("*"))
-        if p.suffix in (".py", ".cu", ".cuh") and pattern.search(p.read_text())
-    ]
+    scanned = [p for p in sorted(PORT.rglob("*")) if p.suffix in (".py", ".cu", ".cuh")]
+    offenders = [str(p.relative_to(REPO)) for p in scanned if pattern.search(p.read_text())]
     assert not offenders, offenders
+    for sub in ("fabric", "tools"):
+        assert any(p.parent.name == sub for p in scanned), sub

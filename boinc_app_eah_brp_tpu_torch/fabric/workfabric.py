@@ -643,9 +643,16 @@ class Fabric:
             # unjudged and escalate until an agreeing pair exists
             pass
         old = wu.target
-        wu.target = min(
-            self.config.max_target,
-            max(wu.target, len(wu.reported()) + 1, self.config.quorum),
+        # the ceiling bounds the escalation, never progress: a round
+        # without agreement always asks for one replica more than are
+        # still in play.  Capped at max_target, four plausible replicas
+        # that pairwise disagree (an honest one, two reorders and a gap
+        # liar, since the port's validator grants no reordered pair)
+        # would hold the WU PENDING with nothing to issue; this way
+        # max_replicas_per_wu is what ends a WU that never agrees
+        wu.target = max(
+            min(self.config.max_target, max(wu.target, self.config.quorum)),
+            len(wu.reported()) + 1,
         )
         if wu.target != old:
             self._fr.record(

@@ -359,19 +359,27 @@ class BankStep(nn.Module):
         with stage_scope("sumspec"):
             sums = sumspec_spectrum(F, nsamples=g.nsamples, fund_hi=g.fund_hi, harm_hi=g.harm_hi)
         del F  # sums: (B, 5, W)
-        unmasked = sums if self.with_health else None
+        valid = self.merge(sums, t_offset, n_total)
+        if not self.with_health:
+            return self.M, self.T
+        return self.M, self.T, batch_health_vec(sums, valid, self.M)
+
+    @torch.no_grad()
+    def merge(self, sums: torch.Tensor, t_offset: int, n_total: int) -> torch.Tensor:
+        """Merge a batch's (B, 5, W) sums of templates ``t_offset`` on into
+        the (M, T) state in place: slots at or past ``n_total`` masked to
+        the sentinel, the batch's max and its first argmax, kept where they
+        beat M (ties keep the earlier template).  Returns the valid-slot
+        mask, bool[B]."""
         with stage_scope("merge"):
-            valid = torch.arange(t_offset, t_offset + B, device=sums.device) < n_total
-            sums = torch.where(valid[:, None, None], sums, torch.full_like(sums[:1], NEG_SENTINEL))
-            bmax = sums.amax(dim=0)
-            barg = sums.argmax(dim=0).to(torch.int32)  # first index of the max in the batch
+            valid = torch.arange(t_offset, t_offset + sums.shape[0], device=sums.device) < n_total
+            masked = torch.where(valid[:, None, None], sums, torch.full_like(sums[:1], NEG_SENTINEL))
+            bmax = masked.amax(dim=0)
+            barg = masked.argmax(dim=0).to(torch.int32)  # first index of the max in the batch
             better = bmax > self.M
             self.M.copy_(torch.where(better, bmax, self.M))
             self.T.copy_(torch.where(better, barg + t_offset, self.T))
-        if unmasked is None:
-            return self.M, self.T
-        del sums, bmax, barg, better
-        return self.M, self.T, batch_health_vec(unmasked, valid, self.M)
+        return valid
 
 
 def template_sumspec(ts: torch.Tensor, P: float, tau: float, psi0: float, geom: SearchGeometry) -> torch.Tensor:

@@ -4,7 +4,16 @@ Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, in the package's git-ignored ``build/`` directory, at first
 use; all sources build at once, one ``nvcc`` process each.  The libraries
 are keyed by a hash of their source and flags, so an edited kernel
-rebuilds and an unchanged one is reused.  ctypes binds every pointer and
+rebuilds and an unchanged one is reused.
+
+A deployed host has no ``nvcc``: ``$ERP_KERNEL_DIR`` (a deployment
+bundle's ``__main__`` sets it to the bundle directory,
+``tools/make_bundle.py``) names a directory of prebuilt libraries, and
+then nothing is built.  A library there is used only when its name carries
+the digest of the sources this package holds (read with ``pkgutil``, so
+the check works inside a zipapp); a missing or mismatched library raises,
+naming the file expected, and :data:`build_listeners` are told that no
+source was compiled.  ctypes binds every pointer and
 the stream as ``c_void_p``; each C entry returns ``cudaGetLastError()``
 and :func:`check` raises when it is not 0.
 
@@ -27,8 +36,10 @@ that created them.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
+import pkgutil
 import shutil
 import subprocess
 import threading
@@ -37,6 +48,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
+
+KERNEL_DIR_ENV = "ERP_KERNEL_DIR"
 
 SOURCES = ("resample", "fftprep", "fold")
 KERNELS = (
@@ -76,7 +89,8 @@ _SIGNATURES = {
 
 launch_counts = {name: 0 for name in KERNELS}
 # callables told (sources compiled, wall seconds) after each build that ran
-# nvcc (the metrics layer's kernel-build counters)
+# nvcc, and (0, 0.0) when the libraries were loaded from $ERP_KERNEL_DIR
+# (the metrics layer's kernel-build counters)
 build_listeners: list = []
 # callables told the number of cuFFT plans a transform of planned_fft just
 # created, on its thread (the metrics layer's plan counters)
@@ -101,18 +115,52 @@ def _nvcc() -> str:
     return path
 
 
+def library_name(name: str) -> str:
+    """``lib<name>-<digest>.so``: the digest is of the source this package
+    holds and the flags, read through the package loader (a plain file or
+    a zipapp member alike)."""
+    key = pkgutil.get_data(__package__.rpartition(".")[0], f"csrc/{name}.cu") + " ".join(NVCC_FLAGS).encode()
+    return f"lib{name}-{hashlib.sha1(key).hexdigest()[:12]}.so"
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        key = f.read() + " ".join(NVCC_FLAGS).encode()
-    digest = hashlib.sha1(key).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    return os.path.join(BUILD_DIR, library_name(name))
+
+
+def kernel_dir() -> str | None:
+    """The directory of prebuilt libraries (``$ERP_KERNEL_DIR``), or None
+    when the libraries are built here at first use."""
+    return os.environ.get(KERNEL_DIR_ENV) or None
+
+
+def shipped_paths(directory: str) -> dict[str, str]:
+    """Each source's library in ``directory``; raises, naming the file
+    expected, when one is missing (a library of other sources there is
+    named too)."""
+    out = {}
+    for name in SOURCES:
+        path = os.path.join(directory, library_name(name))
+        if not os.path.isfile(path):
+            others = sorted(os.path.basename(p) for p in glob.glob(os.path.join(directory, f"lib{name}-*.so")))
+            raise RuntimeError(
+                f"kernel library {path} is missing"
+                + (f" ({', '.join(others)} there was built from other sources)" if others else "")
+                + f": build it on a machine with nvcc and a card from these sources, or unset ${KERNEL_DIR_ENV}"
+            )
+        out[name] = path
+    return out
 
 
 def build() -> float:
     """Compile every kernel library that is not built yet, all in
     parallel; returns the wall seconds and keeps ptxas's resource report
     of each in :data:`ptxas_report`.  Raises with nvcc's output when a
-    source does not compile."""
+    source does not compile.  With ``$ERP_KERNEL_DIR`` set nothing is
+    compiled: the libraries there are checked (:func:`shipped_paths`) and
+    0.0 is returned."""
+    if kernel_dir() is not None:
+        shipped_paths(kernel_dir())
+        return 0.0
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = []
@@ -149,18 +197,27 @@ def build() -> float:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building all kernels first
-    when any is missing."""
+    when any is missing; with ``$ERP_KERNEL_DIR`` set, the prebuilt ones
+    there (:func:`shipped_paths`)."""
     with _lock:
         if name not in _libs:
-            build()
+            shipped = kernel_dir()
+            if shipped is not None:
+                paths = shipped_paths(shipped)
+            else:
+                build()
+                paths = {n: library_path(n) for n in SOURCES}
             for n in SOURCES:
                 if n in _libs:
                     continue
-                lib = ctypes.CDLL(library_path(n))
+                lib = ctypes.CDLL(paths[n])
                 for fn, argtypes in _SIGNATURES[n].items():
                     getattr(lib, fn).argtypes = argtypes
                     getattr(lib, fn).restype = ctypes.c_int
                 _libs[n] = lib
+            if shipped is not None:
+                for fn in build_listeners:
+                    fn(0, 0.0)
         return _libs[name]
 
 

@@ -5,6 +5,11 @@ inherently serial stage, and it stays on the host as in the reference
 (``demod_binary.c:856-1079``).  The library is compiled with ``g++`` into
 the package's git-ignored ``build/`` directory at first use.  A build or
 load failure raises: there is no other median to fall back to.
+
+``$ERP_RNGMED_LIB`` names a prebuilt library (a deployment bundle ships
+one, ``tools/make_bundle.py``) and is exclusive, as in the JAX package:
+when it is set, that file is loaded and nothing is built or probed
+elsewhere; a path that does not load raises.
 """
 
 from __future__ import annotations
@@ -17,12 +22,14 @@ import threading
 
 import numpy as np
 
+from ..runtime import logging as erplog
 from .kernels import BUILD_DIR
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE = os.path.join(_REPO, "native", "erp_rngmed.cpp")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 N_THREADS = min(os.cpu_count() or 1, 16)
+LIB_ENV = "ERP_RNGMED_LIB"
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -33,27 +40,44 @@ def _library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        with open(SOURCE, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-        path = os.path.join(BUILD_DIR, f"liberp_rngmed-{digest}.so")
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                ["g++", *CXX_FLAGS, SOURCE, "-o", tmp],
-                capture_output=True, text=True,
-            )
-            if proc.returncode:
-                raise RuntimeError(f"building {SOURCE} failed:\n{proc.stderr}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
+        path = os.environ.get(LIB_ENV) or _built_library()
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError as e:
+            raise RuntimeError(f"the native running median {path} does not load: {e}") from e
         lib.erp_rngmed.restype = ctypes.c_int
         lib.erp_rngmed.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
             ctypes.c_void_p, ctypes.c_int32,
         ]
         _lib = lib
+        erplog.debug("Running median library: %s\n", path)
         return lib
+
+
+def load() -> str:
+    """Load the library now (building it first where ``$ERP_RNGMED_LIB``
+    is unset and it is missing); returns its file.  Raises as a median
+    would."""
+    return _library()._name
+
+
+def _built_library() -> str:
+    """The library compiled from ``SOURCE``, built first when missing."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+    path = os.path.join(BUILD_DIR, f"liberp_rngmed-{digest}.so")
+    if not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            ["g++", *CXX_FLAGS, SOURCE, "-o", tmp],
+            capture_output=True, text=True,
+        )
+        if proc.returncode:
+            raise RuntimeError(f"building {SOURCE} failed:\n{proc.stderr}")
+        os.replace(tmp, path)
+    return path
 
 
 def running_median(x: np.ndarray, window: int) -> np.ndarray:

@@ -14,7 +14,14 @@ on the card (the default):
   a durable ``FleetServer``;
 * ``precision_audit`` — the stage-wise audit against the f64 oracle;
 * ``fleet_report`` — the ``erp-fleet-report/1`` rollup of a fabric run;
-* ``report_check`` — schema checks of every artifact the port writes.
+* ``report_check`` — schema checks of every artifact the port writes;
+* ``bench`` — templates/s of the batched step on the JAX bench's
+  production problem (one JSON line; no CPU fallback);
+* ``batch_sweep`` and ``stagebench`` — the loop at a ladder of batches
+  (the autobatch's artifact) and each stage of the step alone;
+* ``trace_report`` — the stall table of a host trace (``ERP_TRACE_FILE``);
+* ``make_app_info`` and ``make_bundle`` — the BOINC deployment bundle for
+  ``sm_90a`` hosts, with the prebuilt kernel libraries.
 
 Run one as ``python -m boinc_app_eah_brp_tpu_torch.tools.<name>``.
 Importing the package loads no torch.

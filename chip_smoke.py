@@ -23,7 +23,8 @@ Phases:
    of dependent adds, and its time at the tiled bank), and a copy of the
    first port's eager statistics, rfft, the eager power epilogue and a
    whole batch step, whitened and unwhitened (its means computed ahead),
-   are timed alone;
+   are timed alone, and the merge into (M, T) and the host running median
+   over one spectrum (the stages of ``tools/stagebench.py``);
 4. run the search end to end through the command line on a seeded
    synthetic 4-bit workunit with a binary-pulsar signal injected at one
    bank template, whitened, with a checkpoint file and oracle rescoring,
@@ -108,7 +109,24 @@ Phases:
    checkpoint-write EIO armed, a corrupted checkpoint that the resume
    must skip for the generation before, and a final file byte-identical
    to the uninterrupted run's;
-14. print the kernel table as one JSON line (launches from the whitened
+14. the port's bench, the production problem and the bundle (i): (1)
+   ``python -m boinc_app_eah_brp_tpu_torch.tools.bench`` through its
+   orchestrator (probe, child) at the autobatch's batch and at
+   ``BENCH_BATCH=32``: one JSON line each, backend ``cuda``, a rate above
+   0 and the card's name; (2) the bench's problem (the seeded 2^22-sample
+   workunit and 6,662-template bank) written to disk and run by the
+   command line in a subprocess at the default batch, whitened and then
+   unwhitened, with ``--metrics-file`` and ``ERP_TRACE_FILE``: ``%DONE%``,
+   7 columns, at most 100 candidates, the rescoring overlap armed; the
+   wall, the loop's templates/s (from the trace) and the rescoring split
+   between the overlap and the end-of-run pass (``tools/trace_report.py``
+   and the run report); (3) ``tools/make_bundle.py`` into a directory
+   outside the repository, and the bundle's ``erp_wrapper`` running
+   ``python3 eah_brp_worker.pyz`` there with no ``PYTHONPATH`` on phase
+   4's whitened command line: phase 4's candidate rows byte for byte, no
+   kernel built in the worker (its run report's ``torch.kernel_builds``
+   0), kernels A, B and C launched, the median from the bundle;
+15. print the kernel table as one JSON line (launches from the whitened
    run; the serial mean's from the unwhitened one, A1's from the health
    run, C's float-power entry's from the audits, the exact-sine ones from
    the ``--exact-sin`` run), the `bounds` line of the package's roofline
@@ -190,6 +208,8 @@ FABRIC_STREAMS, FABRIC_WUS = 32, 16  # the fabric of phase (h1)
 # (~40 ms of host toplist and write a checkpoint), so the loop outlasts
 # dozens of the soak's 50 ms checkpoint polls
 KILL_BATCH, KILL_CYCLES = 4, 4
+# phase (i3)'s worker command, as the bundle's app_info.xml gives it to the wrapper
+BUNDLE_WORKER = "python3 eah_brp_worker.pyz"
 
 
 class CheckFailed(Exception):
@@ -408,7 +428,16 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
         library_ms=None,
         **roofline.fold_cost(T, nsamples, geom.fund_hi, complex_input=False).bound(),
     )
-    del ps, sums, sums_p
+    # the whitening's host running median over one spectrum, alone
+    # (tools/stagebench.py's running_median_ms)
+    from boinc_app_eah_brp_tpu_torch.ops import native_median
+
+    spectrum = ps[0].cpu().numpy()
+    native_median.load()  # its first use builds the library: not the median's time
+    t0 = time.perf_counter()
+    native_median.running_median(spectrum, WINDOW)
+    stages["running_median_ms"] = (time.perf_counter() - t0) * 1e3
+    del ps, sums, sums_p, spectrum
 
     # C on the complex spectrum, the main path's entry: the power epilogue
     # (3 multiplies and an add a bin) inside the fold
@@ -424,7 +453,10 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
         library_ms=None,
         **roofline.fold_cost(T, nsamples, geom.fund_hi).bound(),
     )
-    del F, sums, sums_p
+    # the merge into (M, T) alone, on these sums (tools/stagebench.py's merge_ms)
+    merge_step = search.BankStep(geom, torch.zeros((2 * T, 4), device=dev), T)
+    stages["merge_ms"] = time_ms(torch, lambda: merge_step.merge(sums, 0, len(bank)), 20)
+    del F, sums, sums_p, merge_step
 
     # one whole batch step (A with its statistics, B, rfft, power + C, merge)
     bank_dev = search.upload_bank(
@@ -1625,6 +1657,163 @@ def run_kill_resume(workdir: str, wu: str) -> dict:
     return dict(batch=KILL_BATCH, wall_s=time.perf_counter() - t0, **out)
 
 
+def run_bench_tool(workdir: str) -> dict:
+    """Phase (i1): the port's bench through its orchestrator, at the
+    autobatch's batch (with the host trace, so the payload carries its
+    stall table) and at BENCH_BATCH=32."""
+    import torch
+
+    out = {}
+    for name, env in (
+        ("autobatch", {"ERP_TRACE_FILE": os.path.join(workdir, "bench.trace.jsonl")}),
+        ("batch32", {"BENCH_BATCH": "32"}),
+    ):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "boinc_app_eah_brp_tpu_torch.tools.bench"],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, **env), capture_output=True, text=True, timeout=900,
+        )
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        check(proc.returncode == 0 and len(lines) == 1,
+              f"the bench ({name}) exited {proc.returncode} with {len(lines)} lines: {proc.stdout[-500:]} {proc.stderr[-2000:]}")
+        payload = json.loads(lines[0])
+        check(payload.get("backend") == "cuda" and (payload.get("value") or 0) > 0
+              and payload.get("card") == torch.cuda.get_device_name(0),
+              f"the bench's payload ({name}) is not a measurement on this card: {lines[0][:500]}")
+        check(payload["unit"] == "templates/sec" and payload["metric"].startswith("orbital templates/sec/chip"),
+              f"the bench's metric ({name}) is not the JAX bench's: {payload['metric']}")
+        out[name] = dict(payload, orchestrator_wall_s=wall)
+        print(json.dumps({f"bench_{name}": out[name]}), flush=True)
+    check(out["batch32"]["batch"] == 32, f"BENCH_BATCH=32 ran batch {out['batch32']['batch']}")
+    return out
+
+
+def _first_drain_after(spans, t_us: float):
+    """The first main-lane ``drain`` span that starts at or after ``t_us``."""
+    drains = [s for s in spans if s["name"] == "drain" and s.get("tid") == "MainThread" and s["ts_us"] >= t_us]
+    return min(drains, key=lambda s: s["ts_us"]) if drains else None
+
+
+def run_production(workdir: str) -> dict:
+    """Phase (i2): the bench's production problem written to disk and run
+    by the command line in a subprocess at the default batch, whitened
+    and unwhitened, with the metrics report and the host trace; the
+    rescoring split from the trace (``tools/trace_report.py``) and the
+    run report."""
+    from boinc_app_eah_brp_tpu_torch.tools import bench, trace_report
+
+    pdir = os.path.join(workdir, "production")
+    t0 = time.perf_counter()
+    problem = bench.synthetic_problem()
+    files = bench.write_problem(problem, pdir)
+    out = {"problem_s": time.perf_counter() - t0, "templates": len(problem.P), "cpu_count": os.cpu_count()}
+    for name, white in (("whitened", True), ("unwhitened", False)):
+        cand, mfile = os.path.join(pdir, f"{name}.cand"), os.path.join(pdir, f"{name}.metrics.jsonl")
+        trace = os.path.join(pdir, f"{name}.trace.jsonl")
+        args = [a for a in files["args"] if white or a != "-W"] + (["-l", files["zap"]] if white else [])
+        argv = [sys.executable, "-m", "boinc_app_eah_brp_tpu_torch", "-i", files["wu"], "-o", cand, "-t", files["bank"],
+                "-c", os.path.join(pdir, f"{name}.cpt"), *args, "--metrics-file", mfile, "--device", DEVICE]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=pdir, env=dict(os.environ, PYTHONPATH=REPO, ERP_TRACE_FILE=trace),
+                              capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        check(proc.returncode == 0, f"the production run ({name}) exited {proc.returncode}: {log[-3000:]}")
+        text = open(cand).read()
+        lines = [ln for ln in text.splitlines() if ln and not ln.startswith("%")]
+        check(text.endswith("%DONE%\n") and all(len(ln.split()) == 7 for ln in lines),
+              f"the production run's ({name}) candidate file is malformed")
+        # the synthetic workunit is noise: unwhitened, no template clears
+        # the threshold (so on the CPU at 2^16 samples too); an empty
+        # candidate file is a valid result
+        check(len(lines) <= 100 and (len(lines) > 0 or not white),
+              f"the production run ({name}) wrote {len(lines)} candidates")
+        check("Rescore overlap armed" in log, f"the production run ({name}) did not arm the rescoring overlap")
+        report = _report(mfile)
+        phases = report["metrics"]["phases"]
+        counters = {k: v["value"] for k, v in report["metrics"]["counters"].items()}
+        loaded = trace_report.load_trace(trace)
+        table = trace_report.stall_table(loaded)
+        # the loop on the card: from the loop's first enqueue to the end of
+        # the first drain after the last one (the final checkpoint's copy)
+        loop = next(s for s in loaded["spans"] if s["name"] == "template loop")
+        drain = _first_drain_after(loaded["spans"], loop["end_us"])
+        check(drain is not None, f"no drain after the production run's ({name}) loop")
+        loop_s = (drain["end_us"] - loop["ts_us"]) / 1e6
+        rescored = [ln.strip() for ln in log.splitlines() if "winning templates through the host oracle" in ln]
+        out[name] = dict(
+            wall_s=wall,
+            batch=report["metrics"]["gauges"]["autobatch.batch_size"]["value"],
+            loop_s=loop_s,
+            loop_templates_per_s=len(problem.P) / loop_s,
+            n_candidates=len(lines),
+            rescore_overlap_feed_s=table["background_busy_s"].get("rescore-feed", 0.0),
+            rescore_finalize_s=table["categories"].get("rescore-feed", {}).get("self_s", 0.0),
+            rescore_end_pass_s=phases.get("oracle rescore", {}).get("wall_s", 0.0),
+            rescore_observes=counters.get("rescore.observes", 0),
+            rescore_submitted=counters.get("rescore.submitted", 0),
+            rescored_line=rescored[-1] if rescored else None,
+            whitening_s=phases.get("whitening", {}).get("wall_s"),
+            trace_coverage=table["coverage"],
+            stall_categories={k: v["self_s"] for k, v in table["categories"].items()},
+        )
+        print(json.dumps({f"production_{name}": out[name]}), flush=True)
+    return out
+
+
+def run_bundle(workdir: str) -> dict:
+    """Phase (i3): the deployment bundle built from this run's kernel
+    libraries into a directory outside the repository, and its
+    ``erp_wrapper`` running the zipapp worker there on phase 4's whitened
+    command line, with no ``PYTHONPATH`` and no kernel or median
+    directory in the environment."""
+    import tempfile
+
+    from boinc_app_eah_brp_tpu_torch.tools import make_bundle
+
+    bdir = tempfile.mkdtemp(prefix="erp-bundle-")
+    try:
+        t0 = time.perf_counter()
+        names = make_bundle.make_bundle(bdir)
+        bundle_s = time.perf_counter() - t0
+        env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "ERP_KERNEL_DIR", "ERP_RNGMED_LIB")}
+        env["ERP_METRICS_FILE"] = os.path.join(bdir, "worker.metrics.jsonl")
+        argv = [
+            os.path.join(bdir, "erp_wrapper"), "--worker", BUNDLE_WORKER,
+            "-i", os.path.join(workdir, "smoke.bin4"), "-o", "out.cand", "-c", "out.cpt", "-t", BANK,
+            "-l", os.path.join(workdir, "smoke.zap"), "-W", "-P", str(PADDING), "-f", str(F0), "-A", str(FA),
+            "-B", str(WINDOW), "--batch", str(BATCH), "--stderr-file", "stderr.txt",
+            "--shmem", os.path.join(bdir, "shm"),
+        ]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=bdir, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        archive = open(os.path.join(bdir, "stderr.txt")).read() if os.path.exists(os.path.join(bdir, "stderr.txt")) else ""
+        check(proc.returncode == 0, f"the bundle's wrapper exited {proc.returncode}: {proc.stderr[-2000:]} {archive[-2000:]}")
+
+        def row_text(path):
+            return [ln for ln in open(path).read().splitlines() if ln and not ln.startswith("%")]
+
+        _candidate_rows(os.path.join(bdir, "out.cand"))
+        check(row_text(os.path.join(bdir, "out.cand")) == row_text(os.path.join(workdir, "smoke.cand")),
+              "the bundle's candidate rows differ from phase 4's")
+        report = _report(env["ERP_METRICS_FILE"])
+        counters = {k: v["value"] for k, v in report["metrics"]["counters"].items()}
+        gauges = {k: v["value"] for k, v in report["metrics"]["gauges"].items()}
+        check(counters.get("torch.kernel_builds") == 0,
+              f"the bundle's worker did not record 0 kernel builds: {counters.get('torch.kernel_builds')}")
+        launches = {k: gauges.get(f"torch.kernel_launches.{k}", 0) for k in MAIN_PATH}
+        for k, n in launches.items():
+            check(n > 0, f"kernel {k} was not launched by the bundle's worker")
+        check(f"Running median library: {os.path.join(bdir, 'liberp_rngmed.so')}" in archive + proc.stdout,
+              "the bundle's worker did not load the bundle's median")
+        return dict(bundle_s=bundle_s, files=names, wall_s=wall, kernel_builds=0, launches=launches,
+                    rows_equal_phase4=True)
+    finally:
+        shutil.rmtree(bdir, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1698,6 +1887,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         kill = run_kill_resume(workdir, wu)
         phase_h_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        bench_i = run_bench_tool(workdir)
+        production = run_production(workdir)
+        bundle = run_bundle(workdir)
+        phase_i_s = time.perf_counter() - t0
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1755,6 +1950,21 @@ def main() -> int:
         + ", ".join(f"{r['signal']} at {r['killed_at']} after {r['wall_s']:.2f} s (from {r['resumed_at']})"
                     for r in kill["runs"])
         + f", final from {kill['final']['resumed_at']} in {kill['final']['wall_s']:.2f} s, byte-identical"
+    )
+    print(json.dumps({"bundle": bundle, "phase_i_s": phase_i_s}))
+    for name in ("whitened", "unwhitened"):
+        r = production[name]
+        print(
+            f"production {name}: {production['templates']} templates at batch {r['batch']} "
+            f"({production['cpu_count']} cores): wall {r['wall_s']:.2f} s, loop {r['loop_s']:.3f} s = "
+            f"{r['loop_templates_per_s']:.1f} templates/s; rescoring: overlap feed {r['rescore_overlap_feed_s']:.3f} s "
+            f"({r['rescore_observes']} observes, {r['rescore_submitted']} scored), finalize wait "
+            f"{r['rescore_finalize_s']:.3f} s, end-of-run pass {r['rescore_end_pass_s']:.3f} s"
+        )
+    print(
+        f"bench: {bench_i['autobatch']['value']} templates/s at batch {bench_i['autobatch']['batch']} "
+        f"({bench_i['autobatch']['n_batches']} batches), {bench_i['batch32']['value']} at batch 32; "
+        f"bundle: rows equal phase 4's, 0 kernel builds, launches {bundle['launches']}; phase (i) {phase_i_s:.1f} s"
     )
     print(json.dumps({"kernels": rows}))
     print(

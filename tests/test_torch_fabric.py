@@ -240,6 +240,43 @@ def test_reorder_among_capped_fa_rows_is_granted_by_jax_not_by_the_port(tmp_path
     assert pfb.compare_replicas(out.loaded[out.winner], out.loaded[0])[0] is None
 
 
+def test_four_disagreeing_replicas_at_the_ceiling_still_issue_one_more(tmp_path):
+    """An honest replica, two reorders of the capped rows and a gap liar
+    all pass the intrinsic checks and no two agree under the port's
+    validator.  With the target at ``max_target`` (4) the scheduler
+    still issues a fifth replica; an honest one makes the strict pair
+    and the WU is granted with the reference's bytes, the three liars
+    rejected.  (Capped at the ceiling, the WU stayed PENDING with
+    nothing to issue: a threaded soak at the production width hung on it.)"""
+    from boinc_app_eah_brp_tpu_torch.io.results import split_result_sections
+
+    capped = ref_bytes([(400 + i, 3000.0 - 10.0 * i, 4) for i in range(40)])
+    cfg = pfb.FabricConfig(t_obs=T_OBS, bank_epoch=EPOCH, deadline_s=3600.0, seed=0,
+                           reissue_base_s=0.0, reissue_max_s=0.0)
+    assert cfg.max_target == 4
+    fabric = pfb.Fabric(cfg, [pfb.WorkUnit(wu_id="wu0", payload="A", epoch=EPOCH, target=cfg.quorum)],
+                        {"A": capped}, str(tmp_path))
+    hosts = [pfb.HostModel(host_id=i + 1, kind=k, seed=0, date_iso=DATE)
+             for i, k in enumerate(("honest", "reorder", "gap_liar", "reorder", "honest"))]
+    rows = {}
+    for host in hosts[:4]:
+        a = fabric.request_work(host.host_id)
+        assert a is not None, f"host {host.host_id} ({host.kind}) was given nothing"
+        payload, epoch, _ = host.compute(a.wu_id, capped, EPOCH)
+        rows[host.host_id] = split_result_sections(payload.decode())[1]
+        fabric.report(a, payload, epoch)
+    assert len({tuple(rows[h]) for h in (1, 2, 4)}) == 3  # the two reorders differ from each other too
+    wu = fabric._wus["wu0"]
+    assert wu.state == "pending" and len(wu.reported()) == 4 and wu.target == 5
+    a = fabric.request_work(hosts[4].host_id)
+    assert a is not None
+    fabric.report(a, *hosts[4].compute(a.wu_id, capped, EPOCH)[:2])
+    assert fabric.done() and fabric.summary()["granted"] == 1
+    assert (split_result_sections(open(wu.granted_path).read())[1]
+            == split_result_sections(capped.decode())[1])
+    assert sorted(x.host_id for x in wu.assignments if x.state == "invalid") == [2, 3, 4]
+
+
 @pytest.mark.parametrize("key", [None, "shared-secret"])
 @pytest.mark.parametrize("signer,verifier", [("port", "jax"), ("jax", "port")])
 def test_verdict_signature_verifies_across_packages(monkeypatch, key, signer, verifier):

@@ -70,7 +70,7 @@ def test_port_cpu_path_imports_no_jax(tmp_path):
 RUNTIME_LAYERS = (
     "percentiles", "metrics", "tracing", "flightrec", "obs", "profiling", "steptime",
     "autobatch", "faultinject", "resilience", "watchdog", "supervise", "errors", "scheduler",
-    "health", "devicecost", "roofline", "precision",
+    "health", "devicecost", "roofline", "precision", "artifacts",
 )
 SERVING = ("journal", "slo", "introspect", "server")
 
@@ -111,7 +111,8 @@ def test_serving_imports_neither_torch_nor_jax():
 
 FABRIC = ("hosts", "validator", "workfabric")
 TOOLS = ("_inputs", "fleet_report", "report_check", "fabric_soak", "fleet_bench", "chaos_soak",
-         "serving_chaos", "precision_audit")
+         "serving_chaos", "precision_audit", "trace_report", "bench", "batch_sweep", "stagebench",
+         "make_app_info", "make_bundle")
 
 
 def test_fabric_and_tools_import_neither_torch_nor_jax():

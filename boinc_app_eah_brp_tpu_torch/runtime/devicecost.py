@@ -67,6 +67,8 @@ KERNEL_STAGES = (
     ("fftprep_kernel", "fftprep"),
     ("fold_kernel", "fold"),
     ("fft", "rfft"),
+    # cuFFT's real-to-complex post-pass (the last of an R2C's kernels)
+    ("postprocess_kernel", "rfft"),
 )
 
 def scope_name(stage: str) -> str:
@@ -113,8 +115,8 @@ def scoped(stage: str):
 def stage_of_kernel(name) -> str | None:
     """The stage a CUDA kernel belongs to: the kernels of ``csrc/`` by
     their symbols, cuFFT's by their names (``regular_fft``,
-    ``vector_fft``, ...); None for anything else (the merge's elementwise
-    kernels, copies)."""
+    ``vector_fft``, ..., and an R2C's ``postprocess_kernel``); None for
+    anything else (the merge's elementwise kernels, copies)."""
     if not isinstance(name, str):
         return None
     for key, stage in KERNEL_STAGES:
@@ -167,25 +169,35 @@ def estimate_device_records(
     one span per stage, widths proportional to the fractions in ``model``
     (:func:`stage_time_model`).  Every span carries ``estimated: True``
     and the lane says so, so a trace reader cannot mistake it for a
-    measured profile."""
+    measured profile.  A span never ends past its window: the widths are
+    rounded to 0.1 us, and their sum may round above the window, where the
+    next window's first span begins (the JAX package's version lets the
+    last span run over, and the Chrome export's nesting breaks)."""
     records = []
     for ctx, ts_us, end_us in windows:
         span = max(0.0, float(end_us) - float(ts_us))
         if span <= 0.0:
             continue
         t = float(ts_us)
+        window_end = round(float(end_us), 1)
         for row in model:
             dur = round(span * row["fraction"], 1)
             if dur < 0.1:  # sub-us stage: a 0-width B/E pair helps nobody
                 continue
+            start, end = round(t, 1), round(t + dur, 1)
+            if end > window_end:
+                end = window_end
+                dur = round(end - start, 1)
+                if dur < 0.1:
+                    continue
             records.append(
                 {
                     "name": SCOPE_PREFIX + row["scope"],
                     "tid": lane,
                     "ctx": ctx,
-                    "ts_us": round(t, 1),
+                    "ts_us": start,
                     "dur_us": dur,
-                    "end_us": round(t + dur, 1),
+                    "end_us": end,
                     "args": {"estimated": True, "bound": row["bound"]},
                 }
             )

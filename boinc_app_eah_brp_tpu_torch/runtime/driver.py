@@ -127,32 +127,35 @@ def _select_devices(args: DriverArgs, init_data) -> tuple[str, int]:
 
 
 def _run_search(args: DriverArgs, adapter: BoincAdapter) -> int:
-    from .initdata import load_init_data
-    from .session import Session
+    # the process's start on the host timeline: the session's modules
+    # (torch with them), the multi-process identity and the devices
+    with tracing.span("startup"):
+        from .initdata import load_init_data
+        from .session import Session
 
-    erplog.info("Starting data processing...\n")
-    # the fault-injection schedule, loudly (a malformed ERP_FAULT_SPEC is a
-    # usage error: RADPUL_EVAL through the ValueError mapping), and a fresh
-    # retry budget for every resilience site
-    if faultinject.configure():
-        erplog.warn("Fault injection armed: ERP_FAULT_SPEC=%s\n", os.environ.get(faultinject.ENV_SPEC, ""))
-    resilience.begin_run()
-    # multi-process identity (parallel/distributed.py) before the devices
-    from ..parallel import distributed
+        erplog.info("Starting data processing...\n")
+        # the fault-injection schedule, loudly (a malformed ERP_FAULT_SPEC is a
+        # usage error: RADPUL_EVAL through the ValueError mapping), and a fresh
+        # retry budget for every resilience site
+        if faultinject.configure():
+            erplog.warn("Fault injection armed: ERP_FAULT_SPEC=%s\n", os.environ.get(faultinject.ENV_SPEC, ""))
+        resilience.begin_run()
+        # multi-process identity (parallel/distributed.py) before the devices
+        from ..parallel import distributed
 
-    dist = distributed.initialize()
-    if dist is not None and dist.shard_dir is None:
-        raise RadpulError(
-            RADPUL_EVAL,
-            f"Multi-host run ({distributed.ENV_NUM_PROCESSES}={dist.num_processes}) needs "
-            f"{distributed.ENV_SHARD_DIR} pointing at a directory every host can reach.",
-        )
-    # BOINC slot: device assignment and user/host provenance
-    # (cuda_utilities.c:53-85, demod_binary.c:1591-1605)
-    init_data = load_init_data()
-    if init_data is None:
-        erplog.warn("User/host details unavailable...\n")
-    device, n_mesh = _select_devices(args, init_data)
+        dist = distributed.initialize()
+        if dist is not None and dist.shard_dir is None:
+            raise RadpulError(
+                RADPUL_EVAL,
+                f"Multi-host run ({distributed.ENV_NUM_PROCESSES}={dist.num_processes}) needs "
+                f"{distributed.ENV_SHARD_DIR} pointing at a directory every host can reach.",
+            )
+        # BOINC slot: device assignment and user/host provenance
+        # (cuda_utilities.c:53-85, demod_binary.c:1591-1605)
+        init_data = load_init_data()
+        if init_data is None:
+            erplog.warn("User/host details unavailable...\n")
+        device, n_mesh = _select_devices(args, init_data)
     args = replace(args, device=device)
     # graceful quit: SIGTERM/SIGINT set the adapter's quit flag, so the
     # batch loop checkpoints and exits (erp_boinc_wrapper.cpp:143-152)

@@ -63,6 +63,8 @@ STEPTIME_EVENTS_ENV = "ERP_STEPTIME_EVENTS"
 STEPTIME_PROFILE_ENV = "ERP_STEPTIME_PROFILE"
 
 STEPTIME_SCHEMA = "erp-steptime/1"
+REPORT_SCHEMA = "erp-step-report/1"
+BASELINE_SCHEMA = "erp-steptime-baseline/1"
 
 _DEFAULT_RING = 65536
 
@@ -566,7 +568,8 @@ def maybe_capture_profile():
 
 
 # ---------------------------------------------------------------------------
-# validation (the same check as the JAX package's steptime.validate_stream)
+# validation (the same checks as the JAX package's steptime.validate_stream
+# and validate_step_report)
 
 
 def _is_num(v) -> bool:
@@ -629,4 +632,65 @@ def validate_stream(lines: list[dict]) -> list[str]:
         errs.append(f"{finishes} finish records (expected exactly 1)")
     elif lines[-1].get("kind") != "finish":
         errs.append("finish record is not the last line")
+    return errs
+
+
+def _check_block(block, path: str, errs: list[str]) -> None:
+    if not isinstance(block, dict):
+        errs.append(f"{path} missing or not an object")
+        return
+    for key in ("n", "p50", "p95", "p99", "mean", "max"):
+        if not _is_num(block.get(key)):
+            errs.append(f"{path}.{key} missing or not numeric")
+
+
+def validate_step_report(doc) -> list[str]:
+    """Structural check of an ``erp-step-report/1`` reconciliation
+    artifact (``tools/step_report.py``)."""
+    errs: list[str] = []
+    if not isinstance(doc, dict):
+        return ["not a JSON object"]
+    if doc.get("schema") != REPORT_SCHEMA:
+        errs.append(
+            f"schema is {doc.get('schema')!r}, expected {REPORT_SCHEMA!r}"
+        )
+    if not doc.get("backend"):
+        errs.append("missing backend")
+    if not _is_num(doc.get("generated_unix")):
+        errs.append("missing numeric generated_unix")
+    meas = doc.get("measured")
+    if not isinstance(meas, dict):
+        errs.append("missing measured object")
+    else:
+        for key in ("windows", "templates", "templates_per_sec"):
+            if not _is_num(meas.get(key)):
+                errs.append(f"measured.{key} missing or not numeric")
+        _check_block(meas.get("step_ms"), "measured.step_ms", errs)
+    model = doc.get("modeled")
+    if not isinstance(model, dict):
+        errs.append("missing modeled object")
+    elif not _is_num(model.get("templates_per_sec")):
+        errs.append("modeled.templates_per_sec missing or not numeric")
+    stages = doc.get("stages")
+    if not isinstance(stages, list) or not stages:
+        errs.append("missing non-empty stages list")
+    else:
+        for i, row in enumerate(stages):
+            if not isinstance(row, dict) or not row.get("stage"):
+                errs.append(f"stage row {i}: missing stage name")
+                continue
+            for key in ("modeled_fraction", "measured_ms_per_window"):
+                if not _is_num(row.get(key)):
+                    errs.append(f"stage {row['stage']}: missing numeric {key}")
+            frac = row.get("modeled_fraction")
+            if _is_num(frac) and not (0.0 <= frac <= 1.0):
+                errs.append(
+                    f"stage {row['stage']}: modeled_fraction {frac} "
+                    "outside [0, 1]"
+                )
+    if doc.get("device_lane") not in ("measured", "modeled-split"):
+        errs.append(
+            "device_lane must be 'measured' or 'modeled-split' "
+            f"(got {doc.get('device_lane')!r})"
+        )
     return errs

@@ -15,7 +15,10 @@ Each path is routed by its ``schema`` to the port's own validator:
   (``runtime/precision.py``);
 * ``erp-trace/1`` JSONL streams and their Chrome exports
   (``runtime/tracing.py``);
-* ``erp-steptime/1`` streams (``runtime/steptime.py``);
+* ``erp-steptime/1`` streams (``runtime/steptime.py``) and
+  ``erp-step-report/1`` reconciliations (``tools/step_report.py``);
+* ``erp-fleet-timeline/1`` merged-timeline sidecars
+  (``tools/fleet_timeline.py``);
 * ``erp-serving-slo/1`` heartbeat streams (``serving/slo.py``) and
   ``erp-serving-journal/1`` WU journals (``serving/journal.py``).
 
@@ -23,7 +26,9 @@ Usage:
     python -m boinc_app_eah_brp_tpu_torch.tools.report_check PATH [PATH ...]
 
 Exit 0 when every path validates, 1 otherwise.  Host code: imports no
-torch.
+torch.  The JAX router's ``erp-hlo-attrib/1`` and ``erp-cost-ledger/1``
+are XLA artifacts with no counterpart here.  ``tools/metrics_report.py
+--check`` is this router.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..fabric.validator import QUORUM_SCHEMA, validate_quorum_verdict
 from ..runtime import flightrec, metrics, precision, steptime, tracing, watchdog
 from ..serving import journal, slo
 from .fleet_report import FLEET_SCHEMA, validate_fleet_report
+from .fleet_timeline import TIMELINE_SCHEMA, validate_fleet_timeline
 
 # one-document artifacts, by schema
 _DOCS = {
@@ -45,6 +51,7 @@ _DOCS = {
     FLEET_SCHEMA: validate_fleet_report,
     precision.PRECISION_SCHEMA: precision.validate_precision_audit,
     precision.PRECISION_BASELINE_SCHEMA: precision.validate_precision_baseline,
+    steptime.REPORT_SCHEMA: steptime.validate_step_report,
 }
 
 
@@ -98,6 +105,8 @@ def check_path(path: str) -> tuple[str, list[str]]:
         schema = doc.get("schema")
         if schema in _DOCS:
             return schema, _DOCS[schema](doc)
+        if schema == TIMELINE_SCHEMA and "traceEvents" not in doc:
+            return schema, validate_fleet_timeline(doc)
         if schema == journal.JOURNAL_SCHEMA:
             # a fully compacted journal is one close record
             return schema, journal.validate_journal(path)

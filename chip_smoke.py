@@ -126,7 +126,25 @@ Phases:
    4's whitened command line: phase 4's candidate rows byte for byte, no
    kernel built in the worker (its run report's ``torch.kernel_builds``
    0), kernels A, B and C launched, the median from the bundle;
-15. print the kernel table as one JSON line (launches from the whitened
+15. the port's last tools (j): (1) ``tools/smoke.py``'s default gate on
+   phase 4's workunit and bank200 at the production width (unwhitened,
+   window 1000, batch 32) on the card, every check green (exit 0, the
+   artifacts' schemas, >= 95% of the wall in named spans, the checkpoint
+   audit, health checks every batch with no violation, no black box, the
+   precision artifacts) and A, B, C and the exact mean launched (its run
+   report); (2) ``tools/step_report.py`` on the same problem, counts
+   reset just before, inside ``torch.profiler``: ``device_lane``
+   "measured", each stage's measured ms beside phase 3's, the rfft
+   stage's cuFFT kernels with their launches and ms a window; (3) the
+   readers through their command lines: ``metrics_report`` renders and
+   diffs (i2)'s run reports, ``blackbox_report --check`` (f)'s dump,
+   ``fleet_timeline --check --min-coverage 0.95 --require-adoption`` the
+   elastic run of (g3) (each process traced), ``bench_history`` (i1)'s
+   bench lines and (2)'s report; (4) ``tools/smoke.py --hosts 2`` and
+   ``--fabric`` on the card at the smoke's fixture size, A, B, C and the
+   exact mean launched (the hosts' and the fabric reference's run
+   reports);
+16. print the kernel table as one JSON line (launches from the whitened
    run; the serial mean's from the unwhitened one, A1's from the health
    run, C's float-power entry's from the audits, the exact-sine ones from
    the ``--exact-sin`` run), the `bounds` line of the package's roofline
@@ -1478,7 +1496,11 @@ def run_elastic(workdir: str, wu: str, unwhite_rows) -> dict:
     and exit 0, exactly one must write the candidate file, with phase 5's
     rows.  Prints each process's wall, kernel launches, adoptions and peak
     device memory from its run report."""
-    shard_dir = os.path.join(workdir, "shards")
+    # the run directory phase (j3)'s fleet timeline assembles: the shard
+    # board and each process's host trace
+    edir = os.path.join(workdir, "elastic")
+    shard_dir = os.path.join(edir, "shards")
+    os.makedirs(edir)
     base = dict(
         os.environ, PYTHONPATH=REPO, ERP_NUM_PROCESSES=str(N_HOSTS), ERP_SHARD_DIR=shard_dir,
         ERP_LEASE_TIMEOUT_S=str(LEASE_TIMEOUT_S), ERP_LEASE_GRACE_S="120", ERP_SHARD_COMMIT_S="0",
@@ -1487,7 +1509,8 @@ def run_elastic(workdir: str, wu: str, unwhite_rows) -> dict:
     procs, logs, t_start, t_end = {}, [], {}, {}
     try:
         for h in range(N_HOSTS):
-            env = dict(base, ERP_PROCESS_ID=str(h), ERP_METRICS_FILE=os.path.join(workdir, f"elastic{h}.jsonl"))
+            env = dict(base, ERP_PROCESS_ID=str(h), ERP_METRICS_FILE=os.path.join(workdir, f"elastic{h}.jsonl"),
+                       ERP_TRACE_FILE=os.path.join(edir, f"trace-host{h}.jsonl"))
             if h == VICTIM:
                 env.update(ERP_FAULT_SPEC="dispatch:hang@n=2", ERP_FAULT_HANG_S="900")
             argv = (
@@ -1678,6 +1701,8 @@ def run_bench_tool(workdir: str) -> dict:
         check(proc.returncode == 0 and len(lines) == 1,
               f"the bench ({name}) exited {proc.returncode} with {len(lines)} lines: {proc.stdout[-500:]} {proc.stderr[-2000:]}")
         payload = json.loads(lines[0])
+        with open(os.path.join(workdir, "bench_lines.jsonl"), "a") as f:  # phase (j3)'s bench_history reads them
+            f.write(lines[0] + "\n")
         check(payload.get("backend") == "cuda" and (payload.get("value") or 0) > 0
               and payload.get("card") == torch.cuda.get_device_name(0),
               f"the bench's payload ({name}) is not a measurement on this card: {lines[0][:500]}")
@@ -1814,6 +1839,168 @@ def run_bundle(workdir: str) -> dict:
         shutil.rmtree(bdir, ignore_errors=True)
 
 
+def _tool(argv: list, name: str, out_dir: str) -> subprocess.CompletedProcess:
+    """``python -m boinc_app_eah_brp_tpu_torch.tools.<argv[0]> argv[1:]``,
+    its output kept in ``out_dir/<name>.out``; fails on a non-zero exit."""
+    proc = subprocess.run([sys.executable, "-m", f"boinc_app_eah_brp_tpu_torch.tools.{argv[0]}", *argv[1:]],
+                          cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                          timeout=600)
+    with open(os.path.join(out_dir, f"{name}.out"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"{' '.join(argv)} exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    return proc
+
+
+def run_smoke_gate(workdir: str, wu: str) -> dict:
+    """Phase (j1): ``tools/smoke.py``'s default gate on phase 4's workunit
+    and bank200 at the production width (padding 3, f0 400 Hz, ``-A
+    0.08``, window 1000, batch 32), on the card: every check of the gate,
+    and A, B, C and the exact mean launched (the run report's gauges)."""
+    from boinc_app_eah_brp_tpu_torch.tools import smoke
+
+    gdir = os.path.join(workdir, "smoke_gate")
+    os.makedirs(gdir)
+    try:
+        res = smoke.gate(gdir, wu, BANK, window=WINDOW, batch=BATCH, device=DEVICE,
+                         search_args=("-P", str(PADDING), "-f", str(F0), "-A", str(FA)))
+    except smoke.SmokeFailed as e:
+        raise CheckFailed(f"(j1) the smoke gate: {e}") from None
+    for k in UNWHITENED_PATH:
+        check(res["launches"].get(k, 0) > 0, f"(j1) the smoke gate's run did not launch {k}")
+    return res
+
+
+def run_step_report(workdir: str, wu: str, measured: dict) -> dict:
+    """Phase (j2): ``tools/step_report.py`` on the production problem
+    (phase 4's workunit, bank200, unwhitened, window 1000, batch 32) with
+    the measured lane, counts reset just before: ``device_lane``
+    "measured", each of resample, fftprep, rfft and fold measured above
+    0, the document valid under ``report_check``; its stage table beside
+    phase 3's ms of A, B, C and the rfft, and the rfft stage's cuFFT
+    kernels."""
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs
+    from boinc_app_eah_brp_tpu_torch.tools import report_check, step_report
+
+    sdir = os.path.join(workdir, "step_report")
+    os.makedirs(sdir)
+
+    def args(prefix):
+        return DriverArgs(
+            inputfile=wu, outputfile=os.path.join(sdir, f"{prefix}.cand"), templatebank=BANK,
+            checkpointfile=os.path.join(sdir, f"{prefix}.cpt"), f0=F0, padding=PADDING, fA=FA, window=WINDOW,
+            batch_size=BATCH, device=DEVICE,
+        )
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        doc = step_report.run(args("warm"), args("wu"), sdir)
+    except RuntimeError as e:
+        raise CheckFailed(f"(j2) step_report: {e}") from None
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    for k in UNWHITENED_PATH:
+        check(launches.get(k, 0) > 0, f"(j2) the step report's sessions did not launch {k}")
+    path = os.path.join(sdir, "step_report.json")
+    step_report.write_json(path, doc)
+    check(report_check.check_path(path) == (step_report.REPORT_SCHEMA, []),
+          f"(j2) the step report does not validate: {report_check.check_path(path)}")
+    check(doc["device_lane"] == "measured", f"(j2) device_lane is {doc['device_lane']!r}")
+    stages = {s["stage"]: s for s in doc["stages"]}
+    for name in ("resample", "fftprep", "rfft", "fold_spectrum"):
+        check(stages[name]["measured_ms_per_window"] > 0, f"(j2) no measured time for stage {name}")
+    device = doc.get("device") or {}
+    rfft_kernels = [k for k in device.get("kernels", []) if k["stage"] == "rfft"]
+    check(rfft_kernels, "(j2) the rfft stage holds no cuFFT kernel")
+    other = sorted((k for k in device.get("kernels", []) if k["stage"] == "other"), key=lambda k: -k["ms"])
+    print(json.dumps({"rfft_kernels": rfft_kernels, "other_kernels": other[:10]}), flush=True)
+    print(step_report.render(doc), flush=True)
+    phase3 = {
+        "resample": measured["resample"]["ms"], "fftprep": measured["fftprep"]["ms"],
+        "rfft": measured["stages"]["rfft_ms"], "fold_spectrum": measured["fold_spectrum"]["ms"],
+    }
+    for name, ms in phase3.items():
+        print(f"(j2) {name}: measured {stages[name]['measured_ms_per_window']} ms a window "
+              f"({doc['measured']['step_ms']['mean']} ms mean step), phase 3 {ms:.4f} ms a call at T = {BATCH}; "
+              f"{stages[name]['measured_gb_per_sec']} GB/s at the roofline's bytes", flush=True)
+    return dict(
+        path=path, wall_s=wall, launches=launches, device_lane=doc["device_lane"], measured=doc["measured"],
+        modeled=doc["modeled"], stages=doc["stages"], device={k: v for k, v in device.items() if k != "kernels"},
+        rfft_kernels=rfft_kernels, phase3_ms=phase3,
+    )
+
+
+def run_readers(workdir: str, step_json: str) -> dict:
+    """Phase (j3): the host readers on what the earlier phases left, each
+    through its command line: ``metrics_report`` renders (i2)'s whitened
+    run report and diffs it against the unwhitened one,
+    ``blackbox_report --check`` the NaN-abort dump of (f),
+    ``fleet_timeline --check --min-coverage 0.95 --require-adoption`` the
+    elastic run of (g3), and ``bench_history`` (i1)'s bench lines and
+    (j2)'s step report."""
+    rdir = os.path.join(workdir, "readers")
+    os.makedirs(rdir)
+    pdir = os.path.join(workdir, "production")
+    white, unwhite = (os.path.join(pdir, f"{n}.metrics.jsonl.report.json") for n in ("whitened", "unwhitened"))
+    out = {}
+    t0 = time.perf_counter()
+    text = _tool(["metrics_report", white], "metrics_render", rdir).stdout
+    check("Phases:" in text and "template loop" in text, "(j3) metrics_report rendered no phase table")
+    out["metrics_render_lines"] = len(text.splitlines())
+    text = _tool(["metrics_report", "--diff", white, unwhite], "metrics_diff", rdir).stdout
+    out["metrics_diff_rows"] = len(text.splitlines()) - 3
+    dumps = sorted(glob.glob(os.path.join(workdir, "blackbox", "erp-blackbox-*.json")))
+    check(dumps, "(j3) phase (f) left no black-box dump")
+    text = _tool(["blackbox_report", "--check", dumps[-1]], "blackbox_check", rdir).stdout
+    _tool(["blackbox_report", dumps[-1]], "blackbox_render", rdir)
+    out["blackbox_check"] = text.strip().splitlines()[-1]
+    edir = os.path.join(workdir, "elastic")
+    text = _tool(["fleet_timeline", edir, "--check", "--min-coverage", "0.95", "--require-adoption"],
+                 "fleet_timeline", rdir).stdout
+    with open(os.path.join(edir, "fleet-timeline.json")) as f:
+        side = json.load(f)
+    out["fleet_timeline"] = dict(
+        hosts={h: {k: v[k] for k in ("clean", "coverage", "events", "clock_offset_s")} for h, v in side["hosts"].items()},
+        adoptions=[{k: a[k] for k in ("shard", "epoch", "from_host", "to_host", "latency_s")} for a in side["adoptions"]],
+        gaps=len(side["gaps"]),
+    )
+    text = _tool(["bench_history", "--bench-lines", os.path.join(workdir, "bench_lines.jsonl"),
+                  "--step-reports", step_json, "--json", os.path.join(rdir, "bench_history.json")],
+                 "bench_history", rdir).stdout
+    check("Port bench lines" in text and "Step reports" in text, "(j3) bench_history showed no port rows")
+    out["readers_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_smoke_modes(workdir: str) -> dict:
+    """Phase (j4): ``tools/smoke.py --hosts 2`` and ``--fabric`` on the card
+    at the smoke's own fixture size, each through its command line; A, B,
+    C and the exact mean launched by the hosts (their run reports) and by
+    the fabric's reference run (its run report)."""
+    from boinc_app_eah_brp_tpu_torch.tools import smoke
+
+    mdir = os.path.join(workdir, "smoke_modes")
+    os.makedirs(mdir)
+    out = {}
+    for name, argv, reports in (
+        ("hosts", ["--hosts", "2"], ["metrics-host0.jsonl", "metrics-host1.jsonl"]),
+        ("fabric", ["--fabric"], ["reference.metrics.jsonl"]),
+    ):
+        t0 = time.perf_counter()
+        proc = _tool(["smoke", *argv, "--device", DEVICE, "--workdir", os.path.join(mdir, name)], f"smoke_{name}", mdir)
+        last = proc.stdout.strip().splitlines()[-1]
+        check(last.startswith("smoke: PASS"), f"(j4) smoke {' '.join(argv)}: {last}")
+        launches = {}
+        for r in reports:
+            for k, n in smoke._launches(_report(os.path.join(mdir, name, r))).items():
+                launches[k] = launches.get(k, 0) + n
+        for k in UNWHITENED_PATH:
+            check(launches.get(k, 0) > 0, f"(j4) smoke {' '.join(argv)} did not launch {k}")
+        out[name] = dict(wall_s=time.perf_counter() - t0, result=last, launches=launches)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1893,6 +2080,15 @@ def main() -> int:
         production = run_production(workdir)
         bundle = run_bundle(workdir)
         phase_i_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gate_j = run_smoke_gate(workdir, wu)
+        torch.cuda.empty_cache()
+        step_j = run_step_report(workdir, wu, measured)
+        torch.cuda.empty_cache()
+        readers_j = run_readers(workdir, step_j["path"])
+        modes_j = run_smoke_modes(workdir)
+        phase_j_s = time.perf_counter() - t0
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1965,6 +2161,18 @@ def main() -> int:
         f"bench: {bench_i['autobatch']['value']} templates/s at batch {bench_i['autobatch']['batch']} "
         f"({bench_i['autobatch']['n_batches']} batches), {bench_i['batch32']['value']} at batch 32; "
         f"bundle: rows equal phase 4's, 0 kernel builds, launches {bundle['launches']}; phase (i) {phase_i_s:.1f} s"
+    )
+    print(json.dumps({"smoke_gate": gate_j}))
+    print(json.dumps({"step_report": step_j}))
+    print(json.dumps({"readers": readers_j}))
+    print(json.dumps({"smoke_modes": modes_j, "phase_j_s": phase_j_s}))
+    print(
+        f"smoke gate (j1): wall {gate_j['wall_s']:.2f} s, trace coverage {gate_j['coverage']:.4f}, health checks "
+        f"{gate_j['health_checks']}, launches " + ", ".join(f"{k} {gate_j['launches'].get(k, 0)}" for k in UNWHITENED_PATH)
+        + f"; step report (j2) {step_j['wall_s']:.2f} s, {step_j['device_lane']}, "
+        f"{step_j['measured']['templates_per_sec']} templates/s over {step_j['measured']['windows']} windows; "
+        f"--hosts 2 {modes_j['hosts']['wall_s']:.1f} s, --fabric {modes_j['fabric']['wall_s']:.1f} s; "
+        f"phase (j) {phase_j_s:.1f} s"
     )
     print(json.dumps({"kernels": rows}))
     print(

@@ -495,3 +495,35 @@ def test_fabric_soak_on_the_card(dev, tmp_path, monkeypatch):
     monkeypatch.setenv("ERP_RESULT_DATE", "2008-11-12T00:00:00+00:00")
     monkeypatch.setenv("ERP_FABRIC_BACKEND", "server")
     assert fabric_soak.main(["--streams", "16", "--wus", "8", "--device", "cuda", "--workdir", str(tmp_path)]) == 0
+
+
+def test_step_report_measures_the_card(dev, tmp_path, monkeypatch):
+    """``tools/step_report.py`` on the card: the measured lane from
+    ``torch.profiler``, an rfft stage made of cuFFT's kernels, and a
+    document the validator accepts."""
+    from boinc_app_eah_brp_tpu_torch.runtime import steptime
+    from boinc_app_eah_brp_tpu_torch.tools import _inputs, step_report
+
+    monkeypatch.setenv("ERP_RESULT_DATE", _inputs.RESULT_DATE)
+    work = str(tmp_path)
+    doc = step_report.run(step_report.fixture_args(work, "warm", "cuda"),
+                          step_report.fixture_args(work, "wu", "cuda"), work)
+    assert steptime.validate_step_report(doc) == []
+    assert doc["device_lane"] == "measured" and doc["backend"] == torch.cuda.get_device_name(dev)
+    stages = {s["stage"]: s["measured_ms_per_window"] for s in doc["stages"]}
+    for name in ("resample", "fftprep", "rfft", "fold_spectrum"):
+        assert stages[name] > 0, name
+    rfft = [k for k in doc["device"]["kernels"] if k["stage"] == "rfft"]
+    assert rfft and all(k["launches"] > 0 and k["ms"] > 0 for k in rfft)
+
+
+def test_smoke_gate_passes_on_the_card(dev, tmp_path):
+    """``tools/smoke.py``'s default gate with ``--device cuda`` at the
+    fixture size, the main path's kernels launched."""
+    from boinc_app_eah_brp_tpu_torch.tools import smoke
+
+    work = str(tmp_path)
+    res = smoke.gate(work, *smoke.fixture(work), device="cuda")
+    assert res["coverage"] >= smoke.COVERAGE_MIN and res["health_checks"] > 0
+    for name in ("resample", "fftprep", "fold_spectrum", "serial_mean"):
+        assert res["launches"].get(name, 0) > 0, name

@@ -44,6 +44,8 @@ def test_every_cuda_kernel_maps_to_a_registered_stage():
         assert stage in devicecost.STAGES, (name, stage)
     # cuFFT's kernels land on the rfft stage
     assert devicecost.stage_of_kernel("regular_fft_c2r_kernel") == "rfft"
+    # and so does an R2C's post-pass, the kernel of its that names no fft
+    assert devicecost.stage_of_kernel("void postprocess_kernel<float, unsigned int, (loadstore_modifier_t)2>") == "rfft"
 
 
 def test_registry_extends_the_jax_registry():
@@ -97,6 +99,33 @@ def test_dispatch_windows_and_estimated_records_match_jax(name):
         {"stage": "c", "scope": "merge", "fraction": 0.0, "bound": "bytes"},
     ]
     assert devicecost.estimate_device_records(windows, model) == jdc.estimate_device_records(windows, model)
+
+
+def test_estimated_spans_stay_inside_their_window_where_jax_runs_over():
+    """Two abutting windows of 1.3 us: the rounded widths of the JAX
+    version's three spans sum to 1.4 us, so its last span ends after the
+    next window's first begins and the Chrome export's nesting breaks.
+    The port clamps that span to its window; every other span is the JAX
+    version's (Queue 3, PR 12)."""
+    windows = [(1, 0.0, 1.3), (2, 1.3, 2.6)]
+    model = [
+        {"stage": "a", "scope": "resample", "fraction": 0.37, "bound": "bytes"},
+        {"stage": "b", "scope": "fft", "fraction": 0.28, "bound": "bytes"},
+        {"stage": "c", "scope": "merge", "fraction": 0.35, "bound": "bytes"},
+    ]
+    jax_recs = jdc.estimate_device_records(windows, model)
+    port_recs = devicecost.estimate_device_records(windows, model)
+    assert jax_recs[2]["end_us"] > jax_recs[3]["ts_us"]  # the JAX overrun
+    assert port_recs[2]["end_us"] == port_recs[3]["ts_us"] == 1.3
+    assert port_recs[2]["dur_us"] == 0.4 and jax_recs[2]["dur_us"] == 0.5
+    assert [r for i, r in enumerate(port_recs) if i not in (2, 5)] == [
+        r for i, r in enumerate(jax_recs) if i not in (2, 5)]
+    for a, b in zip(port_recs, port_recs[1:]):
+        assert a["end_us"] <= b["ts_us"]
+    ctx = tracing.TraceContext(name="clamp")
+    for recs, ok in ((port_recs, True), (jax_recs, False)):
+        doc = ctx.chrome_trace(records=[], device=[dict(r, kind="span") for r in recs])
+        assert (tracing.validate_chrome(doc) == []) == ok
 
 
 def test_stage_time_model_partitions_the_batch():

@@ -112,7 +112,8 @@ def test_serving_imports_neither_torch_nor_jax():
 FABRIC = ("hosts", "validator", "workfabric")
 TOOLS = ("_inputs", "fleet_report", "report_check", "fabric_soak", "fleet_bench", "chaos_soak",
          "serving_chaos", "precision_audit", "trace_report", "bench", "batch_sweep", "stagebench",
-         "make_app_info", "make_bundle")
+         "make_app_info", "make_bundle", "metrics_report", "blackbox_report", "fleet_timeline", "step_report",
+         "bench_history", "smoke", "golden_ref")
 
 
 def test_fabric_and_tools_import_neither_torch_nor_jax():
@@ -142,3 +143,36 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     assert not offenders, offenders
     for sub in ("fabric", "tools"):
         assert any(p.parent.name == sub for p in scanned), sub
+
+
+def test_host_readers_run_without_torch(tmp_path):
+    """The readers (``metrics_report``, ``blackbox_report``,
+    ``fleet_timeline``, ``bench_history``, ``report_check``) do their work
+    without importing torch: rendering, checking and assembling are host
+    code."""
+    probe = (
+        "import json, os, sys\n"
+        "from boinc_app_eah_brp_tpu_torch.tools import (bench_history, blackbox_report, fleet_timeline,\n"
+        "    metrics_report, report_check)\n"
+        "os.makedirs('run/shards')\n"
+        "json.dump({'schema': 'erp-shard-board/1'}, open('run/shards/board.json', 'w'))\n"
+        "open('run/t.jsonl', 'w').write(json.dumps({'kind': 'start', 'schema': 'erp-trace/1', 't': 1.0,\n"
+        "    'epoch_unix': 1.0, 'lane': 'host0'}) + '\\n' + json.dumps({'kind': 'span', 'name': 'setup',\n"
+        "    'tid': 'MainThread', 'ts_us': 0.0, 'end_us': 5.0}) + '\\n' + json.dumps({'kind': 'finish',\n"
+        "    'wall_us': 5.0, 'exit_status': 0}) + '\\n')\n"
+        "assert fleet_timeline.main(['run', '--check']) == 0\n"
+        "rep = {'schema': 'erp-run-report/1', 'exit_status': 0, 'ok': True, 'wall_s': 1.0, 'metrics': {}}\n"
+        "json.dump(rep, open('r.json', 'w'))\n"
+        "assert metrics_report.main(['r.json']) == 0 and metrics_report.main(['--diff', 'r.json', 'r.json']) == 0\n"
+        "json.dump({'schema': 'erp-blackbox/1'}, open('bb.json', 'w'))\n"
+        "assert blackbox_report.main(['bb.json']) == 0 and blackbox_report.main(['--check', 'bb.json']) == 1\n"
+        "assert bench_history.main(['--dir', '.', '--reports', 'r.json', '--bench-lines', 'r.json']) == 0\n"
+        "assert report_check.main(['run/fleet-timeline.json']) == 0\n"
+        "bad = [m for m in sys.modules if m in ('torch', 'jax') or m.startswith('boinc_app_eah_brp_tpu.')]\n"
+        "assert not bad, bad\nprint('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", probe], env=env, cwd=str(tmp_path), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().endswith("ok")

@@ -24,6 +24,7 @@ workunit; ``run_bank(step_cache=...)`` counts a hit or a miss per attempt.
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass
 
@@ -309,6 +310,27 @@ def batch_health_vec(sums: torch.Tensor, valid: torch.Tensor, M_new: torch.Tenso
     return torch.stack([nf_batch.to(torch.float32), nf_state.to(torch.float32), fmax, fmin])
 
 
+def erp_precision() -> str:
+    """The ``ERP_PRECISION`` spectrum-path precision: ``f32`` (the default
+    and the only mode there is).  ``bf16`` raises ``NotImplementedError``
+    and any other value ``ValueError``, as in the reference package, where
+    ``bf16`` is reserved for a reduced-precision path neither package has.
+    A command-line or served run reads it in ``Session._prepare``, before
+    its first launch or cuFFT plan; :class:`BankStep` reads it for the
+    callers that build a step without a ``Session``; and
+    :func:`step_cache_key` folds it in, as the reference package's key
+    does."""
+    v = os.environ.get("ERP_PRECISION", "f32").strip().lower()
+    if v == "f32":
+        return v
+    if v == "bf16":
+        raise NotImplementedError(
+            "ERP_PRECISION=bf16 is reserved for a reduced-precision spectrum path that does not exist; "
+            "only f32 is implemented — unset ERP_PRECISION or set it to f32"
+        )
+    raise ValueError(f"ERP_PRECISION must be 'f32' or 'bf16', got {v!r}")
+
+
 class BankStep(nn.Module):
     """One batch of the search: slice the resident bank at ``t_offset``,
     resample (kernel A), FFT-prep (kernel B), rfft, power + fold (kernel C
@@ -329,6 +351,7 @@ class BankStep(nn.Module):
         with_health: bool = False,
     ):
         super().__init__()
+        erp_precision()  # for the callers that build a step without a Session (tools/, parallel/)
         self.geom = geom
         self.batch_size = int(batch_size)
         self.with_health = bool(with_health)
@@ -410,9 +433,11 @@ def step_cache_key(geom: SearchGeometry, batch_size: int, device) -> tuple:
     frozen dataclass of scalars, hashable, with ``exact_mean`` and
     ``use_lut``: the exact-sine kernels are another instantiation), the batch
     (the R2C plan is of (batch, nsamples)) and the device (plans are per
-    card).  The health vector is not in it: it is eager reductions over
-    the sums, with no build and no plan of its own."""
-    return ("erp-torch-bank-step/1", geom, int(batch_size), str(resolve_device(device)))
+    card), and the ``ERP_PRECISION`` mode (:func:`erp_precision`, which
+    raises for a mode that no step runs).  The health vector is not in it:
+    it is eager reductions over the sums, with no build and no plan of its
+    own."""
+    return ("erp-torch-bank-step/1", geom, int(batch_size), str(resolve_device(device)), erp_precision())
 
 
 def warm_step(geom: SearchGeometry, batch_size: int, device="cuda") -> None:

@@ -4,7 +4,8 @@ The whitening stage's sliding median over the spectrum is the one
 inherently serial stage, and it stays on the host as in the reference
 (``demod_binary.c:856-1079``).  The library is compiled with ``g++`` into
 the package's git-ignored ``build/`` directory at first use.  A build or
-load failure raises: there is no other median to fall back to.
+load failure raises ``RadpulError(RADPUL_EVAL)``: there is no other
+median to fall back to.
 
 ``$ERP_RNGMED_LIB`` names a prebuilt library (a deployment bundle ships
 one, ``tools/make_bundle.py``) and is exclusive, as in the JAX package:
@@ -40,11 +41,18 @@ def _library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path = os.environ.get(LIB_ENV) or _built_library()
+        path = os.environ.get(LIB_ENV)
         try:
+            path = path or _built_library()
             lib = ctypes.CDLL(path)
-        except OSError as e:
-            raise RuntimeError(f"the native running median {path} does not load: {e}") from e
+        except (OSError, RuntimeError) as e:
+            from ..runtime.errors import RADPUL_EVAL, RadpulError
+
+            raise RadpulError(
+                RADPUL_EVAL,
+                f"the native running median {path or SOURCE} does not load ({e}); the port has no other "
+                "median, whatever ERP_MEDIAN asks",
+            ) from e
         lib.erp_rngmed.restype = ctypes.c_int
         lib.erp_rngmed.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,

@@ -3,10 +3,15 @@ native-FFT branch of the reference package's ``ops/whiten.py``.
 
 The FFTs run on the device (cuFFT through ``torch.fft``); the sliding
 median and the zap-noise stream (a serial taus2 RNG) stay on the host, as
-in the reference.
+in the reference.  The median is the native ``rngmed`` alone: the
+reference package's blocked-sort device median is not ported, so
+``ERP_MEDIAN=device`` is refused with ``RADPUL_EVAL``
+(:func:`check_median`), as is a native library that does not load.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -15,7 +20,25 @@ from ..device import resolve_device
 from ..oracle.pipeline import DerivedParams, SearchConfig
 from ..oracle.whiten import seed_from_samples, zap_noise
 from .kernels import planned_fft
-from .native_median import running_median
+from .native_median import load, running_median
+
+
+def check_median() -> None:
+    """Honour ``ERP_MEDIAN`` before any whitening work: ``device`` (the
+    reference package's blocked-sort median, which can differ by an ulp
+    on even windows) raises ``RadpulError(RADPUL_EVAL)``, since the port
+    has only the native median.  Any other value loads the native median
+    now, whose load failure is ``RADPUL_EVAL`` too
+    (``ops/native_median.py``)."""
+    if os.environ.get("ERP_MEDIAN", "") == "device":
+        from ..runtime.errors import RADPUL_EVAL, RadpulError
+
+        raise RadpulError(
+            RADPUL_EVAL,
+            "ERP_MEDIAN=device requested but the device running median is not part of the PyTorch port "
+            "(its median is the native rngmed); unset ERP_MEDIAN or set it to native",
+        )
+    load()
 
 
 def whiten_and_zap(
@@ -28,7 +51,9 @@ def whiten_and_zap(
     """The whitened, zapped series float32[n_unpadded] on ``device``:
     rfft of the zero-padded series, power with DC 0, host running median,
     ``sqrt(ln 2 / median)`` scale, zap-noise scatter, edge bins zeroed,
-    ``irfft * sqrt(nsamples)``."""
+    ``irfft * sqrt(nsamples)``.  ``ERP_MEDIAN`` is checked first
+    (:func:`check_median`)."""
+    check_median()
     dev = resolve_device(device)
     n_unpadded = derived.n_unpadded
     nsamples = derived.nsamples

@@ -32,6 +32,22 @@ from .resample import ResampleParams, resample
 from .spectrum import power_spectrum
 
 
+_OFF = ("off", "0", "none")
+
+
+def rescore_enabled() -> bool:
+    """``ERP_RESCORE=off`` (or ``0``, ``none``) turns the output-boundary
+    rescoring off, as ``--no-rescore`` does; it is on by default."""
+    return os.environ.get("ERP_RESCORE", "").strip().lower() not in _OFF
+
+
+def overlap_enabled() -> bool:
+    """``ERP_RESCORE_OVERLAP=off`` (or ``0``, ``none``) turns the
+    checkpoint-cadence background rescoring (:class:`IncrementalRescorer`)
+    off; the end-of-run pass then scores every winner.  On by default."""
+    return os.environ.get("ERP_RESCORE_OVERLAP", "").strip().lower() not in _OFF
+
+
 def _template_key(P, tau, psi) -> tuple:
     return (np.float32(P), np.float32(tau), np.float32(psi))
 

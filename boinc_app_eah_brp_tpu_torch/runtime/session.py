@@ -232,6 +232,7 @@ class Session:
     def _prepare(self) -> "Session":
         from ..models.search import (
             SearchGeometry,
+            erp_precision,
             init_state,
             lut_step_for_bank,
             lut_tiles_for_bank,
@@ -321,6 +322,10 @@ class Session:
             exact_mean=not cfg.white,
             use_lut=args.use_lut,
         )
+
+        # a refused ERP_PRECISION fails here, before whitening makes a cuFFT
+        # plan (BankStep checks it again for its other callers)
+        erp_precision()
 
         # whitening + RFI zapping (demod_binary.c:856-1079), or the raw series
         if args.white:
@@ -415,20 +420,29 @@ class Session:
             self.prepare()
         from ..models.search import run_bank
         from ..ops.harmonic import row_to_natural
-        from ..oracle.rescore import IncrementalRescorer, rescore_winners, unique_winner_count
+        from ..oracle.rescore import (
+            IncrementalRescorer,
+            overlap_enabled,
+            rescore_enabled,
+            rescore_winners,
+            unique_winner_count,
+        )
 
         args, adapter, bank, geom, derived = self.args, self.adapter, self.bank, self.geom, self.derived
         template_total, quarantined, batch_size = self.template_total, self.quarantined, self.batch_size
         n_mesh, dist = self._n_mesh, self._dist
         from ..parallel.distributed import shard_ranges
 
+        # rescoring at all: --no-rescore or ERP_RESCORE=off turn it off
+        rescore = args.rescore and rescore_enabled()
         # background rescoring of the winners seen at each checkpoint, so the
         # end-of-run oracle pass only scores what won after the last one;
-        # not worth its threads for a small bank or on a single core.  An
-        # elastic run rescores on the merge winner only, at the end: a
-        # process's checkpoint-time toplist is one shard's
+        # not worth its threads for a small bank or on a single core, and
+        # off with ERP_RESCORE_OVERLAP=off.  An elastic run rescores on the
+        # merge winner only, at the end: a process's checkpoint-time toplist
+        # is one shard's
         rescorer = None
-        if args.rescore and template_total >= 256 and (os.cpu_count() or 1) >= 2 and dist is None:
+        if rescore and overlap_enabled() and template_total >= 256 and (os.cpu_count() or 1) >= 2 and dist is None:
             rescorer = IncrementalRescorer(self.host_series, derived, derived.t_obs)
             erplog.debug("Rescore overlap armed (checkpoint cadence).\n")
 
@@ -689,7 +703,7 @@ class Session:
         if rescorer is not None:
             with tracing.span("rescore-finalize"):
                 cache = rescorer.finalize()
-        if args.rescore and len(emitted):
+        if rescore and len(emitted):
             with profiling.phase("oracle rescore"):
                 t0 = time.perf_counter()
                 ts_host = rescorer.series_if_fetched() if rescorer is not None else None

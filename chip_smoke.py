@@ -144,7 +144,21 @@ Phases:
    ``--fabric`` on the card at the smoke's fixture size, A, B, C and the
    exact mean launched (the hosts' and the fabric reference's run
    reports);
-16. print the kernel table as one JSON line (launches from the whitened
+16. the operator knobs (k), in-process on phase 4's whitened command line
+   with the metrics report and the host trace, counts reset just before
+   each run: (1) ``ERP_RESCORE=off`` reaches ``%DONE%`` with no
+   ``rescore-finalize`` or ``rescore-feed`` span, no ``oracle rescore``
+   phase, the ``rescore.*`` counters 0, and rows equal to phase 4's
+   unrescored toplist; (2) ``ERP_RESCORE_OVERLAP=off`` gives phase 4's
+   rows byte for byte with no ``rescore-feed`` span, and on (i2)'s
+   whitened production run, where the overlap arms, (i2)'s rows byte for
+   byte with no ``rescore-feed`` span, its wall beside (i2)'s; (3)
+   ``ERP_PRECISION=bf16`` (``RADPUL_EMISC``, as the JAX package's
+   command line exits), ``ERP_PRECISION=xx`` and ``ERP_MEDIAN=device``
+   (``RADPUL_EVAL``), each with cuFFT's plan cache emptied first, launch
+   no kernel, make no plan and write no result; each wall beside phase
+   4's;
+17. print the kernel table as one JSON line (launches from the whitened
    run; the serial mean's from the unwhitened one, A1's from the health
    run, C's float-power entry's from the audits, the exact-sine ones from
    the ``--exact-sin`` run), the `bounds` line of the package's roofline
@@ -622,6 +636,8 @@ def run_main_path(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_in
         return cands, finalize_candidates(cands, derived.t_obs)
 
     cands, emitted = timed("toplist_s", toplist)
+    # the unrescored rows, which phase (k1)'s ERP_RESCORE=off run must write
+    write_result_file(os.path.join(workdir, "unrescored.cand"), ResultFile(candidates=emitted, t_obs=derived.t_obs))
     timed(
         "checkpoint_s",
         lambda: write_checkpoint(
@@ -1720,70 +1736,86 @@ def _first_drain_after(spans, t_us: float):
     return min(drains, key=lambda s: s["ts_us"]) if drains else None
 
 
+def _production_run(files: dict, templates: int, name: str, white: bool, env: dict | None = None) -> dict:
+    """One run of the bench's production problem (``files``, from
+    ``bench.write_problem``, ``templates`` of them) by the command line in a subprocess at the
+    default batch, with the metrics report and the host trace; the
+    rescoring split from the trace (``tools/trace_report.py``) and the run
+    report.  The overlap must arm unless ``env`` turns it off."""
+    from boinc_app_eah_brp_tpu_torch.tools import trace_report
+
+    pdir = os.path.dirname(files["wu"])
+    overlap = (env or {}).get("ERP_RESCORE_OVERLAP") != "off"
+    cand, mfile = os.path.join(pdir, f"{name}.cand"), os.path.join(pdir, f"{name}.metrics.jsonl")
+    trace = os.path.join(pdir, f"{name}.trace.jsonl")
+    args = [a for a in files["args"] if white or a != "-W"] + (["-l", files["zap"]] if white else [])
+    argv = [sys.executable, "-m", "boinc_app_eah_brp_tpu_torch", "-i", files["wu"], "-o", cand, "-t", files["bank"],
+            "-c", os.path.join(pdir, f"{name}.cpt"), *args, "--metrics-file", mfile, "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=pdir, env=dict(os.environ, PYTHONPATH=REPO, ERP_TRACE_FILE=trace, **(env or {})),
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"the production run ({name}) exited {proc.returncode}: {log[-3000:]}")
+    text = open(cand).read()
+    lines = [ln for ln in text.splitlines() if ln and not ln.startswith("%")]
+    check(text.endswith("%DONE%\n") and all(len(ln.split()) == 7 for ln in lines),
+          f"the production run's ({name}) candidate file is malformed")
+    # the synthetic workunit is noise: unwhitened, no template clears
+    # the threshold (so on the CPU at 2^16 samples too); an empty
+    # candidate file is a valid result
+    check(len(lines) <= 100 and (len(lines) > 0 or not white),
+          f"the production run ({name}) wrote {len(lines)} candidates")
+    check(("Rescore overlap armed" in log) == overlap,
+          f"the production run ({name}) {'did not arm' if overlap else 'armed'} the rescoring overlap")
+    report = _report(mfile)
+    phases = report["metrics"]["phases"]
+    counters = {k: v["value"] for k, v in report["metrics"]["counters"].items()}
+    loaded = trace_report.load_trace(trace)
+    table = trace_report.stall_table(loaded)
+    # the loop on the card: from the loop's first enqueue to the end of
+    # the first drain after the last one (the final checkpoint's copy)
+    loop = next(s for s in loaded["spans"] if s["name"] == "template loop")
+    drain = _first_drain_after(loaded["spans"], loop["end_us"])
+    check(drain is not None, f"no drain after the production run's ({name}) loop")
+    loop_s = (drain["end_us"] - loop["ts_us"]) / 1e6
+    rescored = [ln.strip() for ln in log.splitlines() if "winning templates through the host oracle" in ln]
+    return dict(
+        wall_s=wall,
+        batch=report["metrics"]["gauges"]["autobatch.batch_size"]["value"],
+        loop_s=loop_s,
+        loop_templates_per_s=templates / loop_s,
+        n_candidates=len(lines),
+        rescore_feed_spans=sum(s["name"] == "rescore-feed" for s in loaded["spans"]),
+        rescore_overlap_feed_s=table["background_busy_s"].get("rescore-feed", 0.0),
+        rescore_finalize_s=table["categories"].get("rescore-feed", {}).get("self_s", 0.0),
+        rescore_end_pass_s=phases.get("oracle rescore", {}).get("wall_s", 0.0),
+        rescore_observes=counters.get("rescore.observes", 0),
+        rescore_submitted=counters.get("rescore.submitted", 0),
+        rescored_line=rescored[-1] if rescored else None,
+        whitening_s=phases.get("whitening", {}).get("wall_s"),
+        trace_coverage=table["coverage"],
+        stall_categories={k: v["self_s"] for k, v in table["categories"].items()},
+        cand=cand,
+    )
+
+
 def run_production(workdir: str) -> dict:
     """Phase (i2): the bench's production problem written to disk and run
-    by the command line in a subprocess at the default batch, whitened
-    and unwhitened, with the metrics report and the host trace; the
-    rescoring split from the trace (``tools/trace_report.py``) and the
-    run report."""
-    from boinc_app_eah_brp_tpu_torch.tools import bench, trace_report
+    by the command line, whitened and unwhitened (:func:`_production_run`)."""
+    from boinc_app_eah_brp_tpu_torch.tools import bench
 
     pdir = os.path.join(workdir, "production")
     t0 = time.perf_counter()
     problem = bench.synthetic_problem()
     files = bench.write_problem(problem, pdir)
-    out = {"problem_s": time.perf_counter() - t0, "templates": len(problem.P), "cpu_count": os.cpu_count()}
+    out = {"problem_s": time.perf_counter() - t0, "templates": len(problem.P), "cpu_count": os.cpu_count(),
+           "files": files}
     for name, white in (("whitened", True), ("unwhitened", False)):
-        cand, mfile = os.path.join(pdir, f"{name}.cand"), os.path.join(pdir, f"{name}.metrics.jsonl")
-        trace = os.path.join(pdir, f"{name}.trace.jsonl")
-        args = [a for a in files["args"] if white or a != "-W"] + (["-l", files["zap"]] if white else [])
-        argv = [sys.executable, "-m", "boinc_app_eah_brp_tpu_torch", "-i", files["wu"], "-o", cand, "-t", files["bank"],
-                "-c", os.path.join(pdir, f"{name}.cpt"), *args, "--metrics-file", mfile, "--device", DEVICE]
-        t0 = time.perf_counter()
-        proc = subprocess.run(argv, cwd=pdir, env=dict(os.environ, PYTHONPATH=REPO, ERP_TRACE_FILE=trace),
-                              capture_output=True, text=True, timeout=900)
-        wall = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        check(proc.returncode == 0, f"the production run ({name}) exited {proc.returncode}: {log[-3000:]}")
-        text = open(cand).read()
-        lines = [ln for ln in text.splitlines() if ln and not ln.startswith("%")]
-        check(text.endswith("%DONE%\n") and all(len(ln.split()) == 7 for ln in lines),
-              f"the production run's ({name}) candidate file is malformed")
-        # the synthetic workunit is noise: unwhitened, no template clears
-        # the threshold (so on the CPU at 2^16 samples too); an empty
-        # candidate file is a valid result
-        check(len(lines) <= 100 and (len(lines) > 0 or not white),
-              f"the production run ({name}) wrote {len(lines)} candidates")
-        check("Rescore overlap armed" in log, f"the production run ({name}) did not arm the rescoring overlap")
-        report = _report(mfile)
-        phases = report["metrics"]["phases"]
-        counters = {k: v["value"] for k, v in report["metrics"]["counters"].items()}
-        loaded = trace_report.load_trace(trace)
-        table = trace_report.stall_table(loaded)
-        # the loop on the card: from the loop's first enqueue to the end of
-        # the first drain after the last one (the final checkpoint's copy)
-        loop = next(s for s in loaded["spans"] if s["name"] == "template loop")
-        drain = _first_drain_after(loaded["spans"], loop["end_us"])
-        check(drain is not None, f"no drain after the production run's ({name}) loop")
-        loop_s = (drain["end_us"] - loop["ts_us"]) / 1e6
-        rescored = [ln.strip() for ln in log.splitlines() if "winning templates through the host oracle" in ln]
-        out[name] = dict(
-            wall_s=wall,
-            batch=report["metrics"]["gauges"]["autobatch.batch_size"]["value"],
-            loop_s=loop_s,
-            loop_templates_per_s=len(problem.P) / loop_s,
-            n_candidates=len(lines),
-            rescore_overlap_feed_s=table["background_busy_s"].get("rescore-feed", 0.0),
-            rescore_finalize_s=table["categories"].get("rescore-feed", {}).get("self_s", 0.0),
-            rescore_end_pass_s=phases.get("oracle rescore", {}).get("wall_s", 0.0),
-            rescore_observes=counters.get("rescore.observes", 0),
-            rescore_submitted=counters.get("rescore.submitted", 0),
-            rescored_line=rescored[-1] if rescored else None,
-            whitening_s=phases.get("whitening", {}).get("wall_s"),
-            trace_coverage=table["coverage"],
-            stall_categories={k: v["self_s"] for k, v in table["categories"].items()},
-        )
+        out[name] = _production_run(files, len(problem.P), name, white)
         print(json.dumps({f"production_{name}": out[name]}), flush=True)
+    # phase (k2)'s production run holds its rows and its feed against these
+    check(out["whitened"]["rescore_feed_spans"] > 0, "the whitened production run shows no rescore-feed span")
     return out
 
 
@@ -2001,6 +2033,113 @@ def run_smoke_modes(workdir: str) -> dict:
     return out
 
 
+def run_knobs(torch, workdir: str, wu: str, main_run: dict, production: dict) -> dict:
+    """Phase (k): the operator knobs on the card, in-process on phase 4's
+    whitened command line (own output and checkpoint files, the metrics
+    report and the host trace), counts reset just before each run and read
+    just after.  (1) ``ERP_RESCORE=off``: the rows of phase 4's
+    unrescored toplist, no rescoring span, phase or counter; (2)
+    ``ERP_RESCORE_OVERLAP=off``: phase 4's rows byte for byte, no
+    ``rescore-feed`` span (bank200 is below the overlap's 256-template
+    floor, so phase 4 never arms it either), then (i2)'s whitened
+    production run (6,662 templates, where the overlap arms) again with
+    the knob, in a subprocess as (i2) runs it: no ``rescore-feed`` span
+    where (i2)'s had some, (i2)'s rows byte for byte, its wall and
+    rescoring times beside (i2)'s; (3) ``ERP_PRECISION=bf16``
+    (``RADPUL_EMISC``: its ``NotImplementedError`` is unmapped, and the
+    command line of either package exits so), ``ERP_PRECISION=xx`` and
+    ``ERP_MEDIAN=device`` (``RADPUL_EVAL``) with cuFFT's plan cache
+    emptied first: no kernel launch, no plan, no result."""
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.runtime import tracing
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
+    from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EMISC, RADPUL_EVAL
+
+    zap = os.path.join(workdir, "smoke.zap")
+    blackbox = os.path.join(workdir, "knobs.blackbox")
+    os.makedirs(blackbox, exist_ok=True)
+
+    def run(name: str, env: dict) -> dict:
+        path = os.path.join(workdir, f"knob_{name}")
+        argv = (
+            f"-i {wu} -o {path}.cand -t {BANK} -c {path}.cpt -l {zap} -W -P {PADDING} -f {F0} -A {FA} "
+            f"-B {WINDOW} --batch {BATCH} --device {DEVICE} --metrics-file {path}.metrics.jsonl"
+        ).split()
+        env = {**env, tracing.TRACE_FILE_ENV: f"{path}.trace.jsonl", "ERP_BLACKBOX_DIR": blackbox}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _env(env):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        return dict(rc=rc, wall_s=time.perf_counter() - t0, launches=dict(kernels.launch_counts), path=path)
+
+    def spans(r: dict) -> set:
+        with open(r["path"] + ".trace.jsonl") as f:
+            return {json.loads(ln).get("name") for ln in f if ln.strip()}
+
+    def row_lines(cand: str) -> list:
+        with open(cand) as f:
+            text = f.read()
+        check(text.endswith("%DONE%\n"), f"{cand} does not end with %DONE%")
+        return [ln for ln in text.splitlines() if ln and not ln.startswith("%")]
+
+    out = {}
+    # (1) ERP_RESCORE=off
+    r = run("rescore_off", {"ERP_RESCORE": "off"})
+    check(r["rc"] == 0, f"(k1) ERP_RESCORE=off exited {r['rc']}")
+    for name in MAIN_PATH:
+        check(r["launches"][name] > 0, f"(k1) kernel {name} was not launched")
+    names = spans(r)
+    check("rescore-finalize" not in names and "rescore-feed" not in names, f"(k1) a rescoring span ran: {names}")
+    report = _report(r["path"] + ".metrics.jsonl")
+    check("oracle rescore" not in report["metrics"]["phases"], "(k1) the oracle rescore phase ran")
+    counters = {k: v["value"] for k, v in report["metrics"]["counters"].items() if k.startswith("rescore.")}
+    check(not any(counters.values()), f"(k1) rescoring counters moved: {counters}")
+    rows = _candidate_rows(r["path"] + ".cand")
+    unrescored = _candidate_rows(os.path.join(workdir, "unrescored.cand"))
+    check(np.array_equal(rows, unrescored), "(k1) the rows are not phase 4's unrescored toplist")
+    rescored = _candidate_rows(os.path.join(workdir, "smoke.cand"))
+    same_shape = rows.shape == rescored.shape
+    out["rescore_off"] = dict(
+        wall_s=r["wall_s"], phase4_wall_s=main_run["wall_s"], phase4_rescore_s=main_run["rescore_s"],
+        n_candidates=len(rows), rows_differing_from_phase4=int((rows != rescored).any(axis=1).sum()) if same_shape
+        else None, launches=r["launches"],
+    )
+    # (2) ERP_RESCORE_OVERLAP=off
+    r = run("overlap_off", {"ERP_RESCORE_OVERLAP": "off"})
+    check(r["rc"] == 0, f"(k2) ERP_RESCORE_OVERLAP=off exited {r['rc']}")
+    for name in MAIN_PATH:
+        check(r["launches"][name] > 0, f"(k2) kernel {name} was not launched")
+    check("rescore-feed" not in spans(r), "(k2) the overlap's feed ran")
+    check(row_lines(r["path"] + ".cand") == row_lines(os.path.join(workdir, "smoke.cand")),
+          "(k2) the rows differ from phase 4's")
+    out["overlap_off"] = dict(wall_s=r["wall_s"], phase4_wall_s=main_run["wall_s"], launches=r["launches"])
+    base = production["whitened"]
+    p = _production_run(production["files"], production["templates"], "whitened_overlap_off", True,
+                        {"ERP_RESCORE_OVERLAP": "off"})
+    check(p["rescore_feed_spans"] == 0, f"(k2) the production run fed the overlap {p['rescore_feed_spans']} times")
+    check(row_lines(p["cand"]) == row_lines(base["cand"]), "(k2) the production rows differ from (i2)'s")
+    keys = ("wall_s", "loop_s", "rescore_overlap_feed_s", "rescore_finalize_s", "rescore_end_pass_s",
+            "rescore_submitted", "rescore_feed_spans", "n_candidates")
+    out["overlap_off_production"] = {"knob": {k: p[k] for k in keys}, "i2": {k: base[k] for k in keys}}
+    # (3) refused modes: nothing launched, nothing planned, no result
+    plans = torch.backends.cuda.cufft_plan_cache[0]
+    for name, env, want in (
+        ("precision_bf16", {"ERP_PRECISION": "bf16"}, RADPUL_EMISC),
+        ("precision_xx", {"ERP_PRECISION": "xx"}, RADPUL_EVAL),
+        ("median_device", {"ERP_MEDIAN": "device"}, RADPUL_EVAL),
+    ):
+        plans.clear()
+        r = run(name, env)
+        check(r["rc"] == want, f"(k3) {env} exited {r['rc']}, not {want}")
+        check(not any(r["launches"].values()), f"(k3) {env} launched kernels: {r['launches']}")
+        check(plans.size == 0, f"(k3) {env} made {plans.size} cuFFT plans")
+        check(not os.path.exists(r["path"] + ".cand"), f"(k3) {env} wrote a result")
+        out[name] = dict(exit=r["rc"], wall_s=r["wall_s"], plans=0, launches=0)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2089,6 +2228,10 @@ def main() -> int:
         readers_j = run_readers(workdir, step_j["path"])
         modes_j = run_smoke_modes(workdir)
         phase_j_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        knobs_k = run_knobs(torch, workdir, wu, run, production)
+        phase_k_s = time.perf_counter() - t0
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2173,6 +2316,21 @@ def main() -> int:
         f"{step_j['measured']['templates_per_sec']} templates/s over {step_j['measured']['windows']} windows; "
         f"--hosts 2 {modes_j['hosts']['wall_s']:.1f} s, --fabric {modes_j['fabric']['wall_s']:.1f} s; "
         f"phase (j) {phase_j_s:.1f} s"
+    )
+    print(json.dumps({"knobs": knobs_k, "phase_k_s": phase_k_s}))
+    k1, k2 = knobs_k["rescore_off"], knobs_k["overlap_off"]
+    kp, ki = knobs_k["overlap_off_production"]["knob"], knobs_k["overlap_off_production"]["i2"]
+    print(
+        f"knobs (k): ERP_RESCORE=off wall {k1['wall_s']:.2f} s beside phase 4's {k1['phase4_wall_s']:.2f} s "
+        f"(its rescoring alone {k1['phase4_rescore_s']:.2f} s), {k1['n_candidates']} unrescored rows, "
+        f"{k1['rows_differing_from_phase4']} differing from phase 4's; ERP_RESCORE_OVERLAP=off wall "
+        f"{k2['wall_s']:.2f} s, rows byte for byte phase 4's; on (i2)'s production run wall {kp['wall_s']:.2f} s "
+        f"(finalize wait {kp['rescore_finalize_s']:.3f} s, end-of-run pass {kp['rescore_end_pass_s']:.3f} s) "
+        f"beside (i2)'s {ki['wall_s']:.2f} s (finalize wait {ki['rescore_finalize_s']:.3f} s, end-of-run pass "
+        f"{ki['rescore_end_pass_s']:.3f} s), rows byte for byte (i2)'s; ERP_PRECISION=bf16 exit "
+        f"{knobs_k['precision_bf16']['exit']}, ERP_PRECISION=xx exit {knobs_k['precision_xx']['exit']}, "
+        f"ERP_MEDIAN=device exit {knobs_k['median_device']['exit']}, no launch and no cuFFT plan each; "
+        f"phase (k) {phase_k_s:.1f} s"
     )
     print(json.dumps({"kernels": rows}))
     print(

@@ -143,7 +143,11 @@ def _file_digest(path: str) -> str:
 def _rotate_generations(path: str) -> None:
     """Shift generation g -> g+1 for every existing generation, oldest
     first so nothing is clobbered; the live checkpoint only when its bytes
-    still match its audit digest.  Sidecars ride along with their files."""
+    still match its audit digest.  Sidecars ride along with their files,
+    each moved before its file: a kill between the two renames leaves the
+    newer generation whole without a sidecar (which resume accepts), where
+    the file first would leave the older one under a sidecar that is not
+    its own and the newer one gone."""
     n = generations()
     if n < 2 or not os.path.exists(path):
         return
@@ -164,13 +168,13 @@ def _rotate_generations(path: str) -> None:
         if not os.path.exists(src):
             continue
         try:
-            os.replace(src, dst)
             if os.path.exists(audit_path(src)):
                 os.replace(audit_path(src), audit_path(dst))
             elif os.path.exists(audit_path(dst)):
                 # src had no sidecar: drop dst's stale one rather than let it
                 # claim the wrong file's digest
                 os.remove(audit_path(dst))
+            os.replace(src, dst)
         except OSError as e:
             erplog.warn("Checkpoint generation rotation %s -> %s failed: %s\n", src, dst, e)
             return

@@ -367,13 +367,20 @@ class DegradationLadder:
 def release_device_memory() -> None:
     """Return what a failed attempt left cached to the card: the caching
     allocator's free blocks and every cuFFT plan (a plan of a large batch
-    holds its work area, over a GB at production width).  A no-op in a
-    process that has not initialised CUDA."""
+    holds its work area, over a GB at production width).  The plans are
+    cleared under the lock every card transform holds
+    (``ops/kernels.py::planned_fft``): a plan destroyed while a transform on
+    another thread (a session prepared on the scheduler's prep thread) is
+    using it is freed under that transform.  A no-op in a process that has
+    not initialised CUDA."""
     torch = sys.modules.get("torch")
     if torch is None or not torch.cuda.is_initialized():
         return
-    for i in range(torch.cuda.device_count()):
-        torch.backends.cuda.cufft_plan_cache[i].clear()
+    from ..ops.kernels import _plan_lock
+
+    with _plan_lock:
+        for i in range(torch.cuda.device_count()):
+            torch.backends.cuda.cufft_plan_cache[i].clear()
     torch.cuda.empty_cache()
 
 

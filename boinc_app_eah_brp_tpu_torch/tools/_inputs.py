@@ -10,11 +10,16 @@ Two workunit classes:
 * the production class: 2^22 samples at 65.476 us (searched with
   padding 3, f0 400 Hz, ``-A 0.08`` and window 1000 over a bank such as
   ``tests/golden/bank200.txt``), with a pulse train on one bank row's
-  orbit — what the card runs at full width.
+  orbit — what the card runs at full width.  ``chip_smoke.py``'s
+  whitened search and the committed golden ``tests/golden/jax_synth200.*``
+  read one definition of its workunit: bank200 row :data:`INJECT` from
+  :data:`SEED`, zapped with :data:`ZAPLIST`.
 """
 
 from __future__ import annotations
 
+import gzip
+import hashlib
 import os
 import sys
 
@@ -35,6 +40,10 @@ T_OBS = N_SAMPLES * TSAMPLE_US * 1e-6
 
 PRODUCTION_SAMPLES = 1 << 22
 PRODUCTION_TSAMPLE_US = 65.476
+INJECT = 57  # bank200 row whose orbit the production workunit's signal follows
+SEED = 20261016
+# the zaplist of the whitened production search: two lines, Hz
+ZAPLIST = "60.0 60.5\n180.0 180.2\n"
 
 
 # the fixture class's injected orbit: P (s), tau (s), psi0
@@ -90,6 +99,18 @@ def production_workunit(
     ts = pulsed_series(n_samples, PRODUCTION_TSAMPLE_US, orbit, 123.4567, 0.4, seed)
     write_workunit(path, ts, tsample_us=PRODUCTION_TSAMPLE_US, scale=1.0)
     return float(np.float32(orbit[0])), float(np.float32(orbit[1]))
+
+
+def content_sha256(path: str) -> str:
+    """sha256 of a search input's content: a workunit's decompressed header
+    and samples (the gzip member's mtime differs between two writes of the
+    same samples), any other file's bytes."""
+    opener = gzip.open if path.endswith((".bin4", ".binary")) else open
+    h = hashlib.sha256()
+    with opener(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
 
 
 def require_device(device: str) -> str:

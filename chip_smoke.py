@@ -158,7 +158,20 @@ Phases:
    (``RADPUL_EVAL``), each with cuFFT's plan cache emptied first, launch
    no kernel, make no plan and write no result; each wall beside phase
    4's;
-17. print the kernel table as one JSON line (launches from the whitened
+17. the golden diff (l), which reads phase 4's and (k1)'s files and runs
+   no search: (1) the sha256 of phase 4's workunit (its decompressed
+   content), bank and zaplist equal ``tests/golden/jax_synth200.json``'s,
+   the inputs the JAX package's command line searched on the CPU to
+   write ``jax_synth200.cand`` and ``.cpt`` (``tests/torch_golden_make.py``);
+   (2) ``tools/golden_ref.py::compare`` of that file against phase 4's:
+   ``ok``, 0 mismatches, 0 missing, 0 extra, and the injected template's
+   top row matched; (3) ``tools/boundary_analysis.py::analyse`` of the
+   same pair with both checkpoints: every boundary row ``cap-cutoff`` or
+   ``dedup``, counted by cause; (4) ``analyse`` of phase 4's file against
+   (k1)'s unrescored one, each row that differs with its cause (a row of
+   both files whose values moved is ``rescored``): no ``threshold``.  A
+   missing golden file or a differing digest fails the phase;
+18. print the kernel table as one JSON line (launches from the whitened
    run; the serial mean's from the unwhitened one, A1's from the health
    run, C's float-power entry's from the audits, the exact-sine ones from
    the ``--exact-sin`` run), the `bounds` line of the package's roofline
@@ -170,6 +183,7 @@ Any failed check exits non-zero; so does a machine without a CUDA card.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import glob
@@ -192,9 +206,15 @@ F0 = 400.0
 FA = 0.08
 WINDOW = 1000
 BATCH = 32
-INJECT = 57  # bank200 row whose orbit the synthetic signal follows
 INJECT2 = 131  # the serving phase's second workunit follows this row
-SEED = 20261016
+sys.path.insert(0, REPO)
+try:
+    # the production workunit's one definition (bank200 row INJECT's orbit
+    # from SEED, zapped with ZAPLIST), which tests/golden/jax_synth200.* was
+    # made from; main reports a missing package
+    from boinc_app_eah_brp_tpu_torch.tools._inputs import INJECT, SEED, ZAPLIST
+except ImportError:
+    INJECT = SEED = ZAPLIST = None
 DEVICE = "cuda"
 
 KERNEL_ROWS = {
@@ -556,7 +576,7 @@ def run_main_path(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_in
     cand = os.path.join(workdir, "smoke.cand")
     cp = os.path.join(workdir, "smoke.cpt")
     with open(zap, "w") as f:
-        f.write("60.0 60.5\n180.0 180.2\n")
+        f.write(ZAPLIST)
     argv = (
         f"-i {wu} -o {cand} -t {BANK} -c {cp} -l {zap} -W -P {PADDING} -f {F0} -A {FA} "
         f"-B {WINDOW} --batch {BATCH} --device {DEVICE}"
@@ -2140,6 +2160,99 @@ def run_knobs(torch, workdir: str, wu: str, main_run: dict, production: dict) ->
     return out
 
 
+GOLDEN = os.path.join(REPO, "tests", "golden")
+
+
+def run_golden_diff(workdir: str, wu: str, P_inj: float, tau_inj: float) -> dict:
+    """Phase (l): phase 4's candidate file held against the JAX package's
+    for the same workunit, bank and zaplist, and phase 4's rows against
+    (k1)'s unrescored ones, each boundary row with its cause."""
+    from boinc_app_eah_brp_tpu_torch.io.validate import _key, compare_candidate_files
+    from boinc_app_eah_brp_tpu_torch.tools import _inputs, boundary_analysis, golden_ref
+
+    t0 = time.perf_counter()
+    paths = {ext: os.path.join(GOLDEN, f"jax_synth200.{ext}") for ext in ("json", "cand", "cpt")}
+    for path in paths.values():
+        check(os.path.exists(path), f"(l) the JAX golden {path} is missing")
+    with open(paths["json"]) as f:
+        side = json.load(f)
+    # (1) the inputs are the golden's
+    zap = os.path.join(workdir, "smoke.zap")
+    digests = {"workunit": _inputs.content_sha256(wu), "bank": _inputs.content_sha256(BANK),
+               "zaplist": _inputs.content_sha256(zap)}
+    for name, digest in digests.items():
+        check(digest == side[name]["sha256"],
+              f"(l1) phase 4's {name} has sha256 {digest}, the JAX golden's {side[name]['sha256']}")
+    t_obs = golden_ref.padded_t_obs(wu)
+    check(t_obs == side["t_obs"], f"(l1) t_obs {t_obs} differs from the golden's {side['t_obs']}")
+    # (2) the golden diff
+    cand, cp = os.path.join(workdir, "smoke.cand"), os.path.join(workdir, "smoke.cpt")
+    summary = golden_ref.compare(paths["cand"], cand, t_obs, bank=BANK)
+    diff = compare_candidate_files(paths["cand"], cand, t_obs=t_obs)
+    check(summary["ok"] and not (summary["mismatches"] or summary["missing"] or summary["extra"]),
+          f"(l2) the golden diff failed: {summary}\n{diff.report()}")
+    golden_rows, port_rows = _candidate_rows(paths["cand"]), _candidate_rows(cand)
+    rank = _injected_rank(golden_rows, P_inj, tau_inj)
+    check(rank is not None, "(l2) the JAX golden holds no row of the injected template")
+    inj_key = _key(golden_rows[rank - 1], t_obs)
+    golden_by_key = {_key(r, t_obs): r for r in golden_rows}
+    port_by_key = {_key(r, t_obs): r for r in port_rows}
+    check(inj_key in port_by_key, f"(l2) the injected template's top row {inj_key} is not matched")
+    pairs = [(golden_by_key[k], port_by_key[k]) for k in golden_by_key.keys() & port_by_key.keys()]
+    closeness = dict(
+        rows_equal=sum(bool(np.array_equal(a, b)) for a, b in pairs),
+        max_rel_power=float(max(abs(a[4] - b[4]) / max(abs(a[4]), abs(b[4])) for a, b in pairs)),
+        max_abs_fA=float(max(abs(a[5] - b[5]) for a, b in pairs)),
+    )
+    # (3) the boundary rows' causes
+    l3 = boundary_analysis.analyse(paths["cand"], cand, paths["cpt"], cp, t_obs)
+    l3_causes = _count_causes(l3["boundary"])
+    check(set(l3_causes) <= {"cap-cutoff", "dedup"}, f"(l3) boundary causes {l3_causes}: {l3['boundary']}")
+    # (4) phase 4's rows against (k1)'s unrescored rows
+    k1 = os.path.join(workdir, "knob_rescore_off")
+    l4 = boundary_analysis.analyse(cand, k1 + ".cand", cp, k1 + ".cpt", t_obs)
+    k1_rows = _candidate_rows(k1 + ".cand")
+    rescored = port_by_key
+    unrescored = {_key(r, t_obs): r for r in k1_rows}
+    boundary = {(e["bin"], e["n_harm"]): e for e in l4["boundary"]}
+    d4 = compare_candidate_files(cand, k1 + ".cand", t_obs=t_obs)
+    differing = []
+    for key in sorted(set(rescored) | set(unrescored)):
+        if key in rescored and key in unrescored:
+            a, b = rescored[key], unrescored[key]
+            if not np.array_equal(a, b):
+                moved = {name: [float(a[col]), float(b[col])] for name, col in
+                         (("P_b", 1), ("tau", 2), ("psi", 3), ("power", 4), ("fA", 5)) if a[col] != b[col]}
+                differing.append(dict(bin=key[0], n_harm=key[1], side="both", cause="rescored", detail=moved,
+                                      beyond_tolerance=[m[1] for m in d4.mismatches if m[0] == key]))
+            continue
+        if key in boundary:
+            e = boundary[key]
+        else:  # one-sided beyond the validator's tail margin: classified the same way
+            here, other, other_cpt = (rescored, unrescored, k1 + ".cpt") if key in rescored else (unrescored, rescored, cp)
+            e = dict(bin=key[0], n_harm=key[1], side="outside the tail margin",
+                     **boundary_analysis.classify_boundary(key, here, other, t_obs, other_cpt=other_cpt))
+        differing.append(dict(bin=key[0], n_harm=key[1], side=e["side"], cause=e["cause"], detail=e["detail"]))
+    l4_causes = _count_causes(differing)
+    check("threshold" not in l4_causes, f"(l4) a threshold cause between the rescored and unrescored rows: {differing}")
+    return dict(
+        digests=digests, t_obs=t_obs, golden_versions=side["versions"], golden_median=side["median"],
+        numpy=np.__version__, summary=summary, closeness=closeness, boundary_by_cause=l3_causes, boundary=l3["boundary"],
+        injected_key=list(inj_key), injected_rank_golden=rank, injected_rank_port=_injected_rank(port_rows, P_inj, tau_inj),
+        rescored_vs_unrescored=dict(
+            matched=l4["matched"],
+            rows_differing_by_position=int((port_rows != k1_rows).any(axis=1).sum())
+            if port_rows.shape == k1_rows.shape else None,
+            differing=differing, by_cause=l4_causes, boundary_summary=l4["summary"],
+        ),
+        wall_s=time.perf_counter() - t0,
+    )
+
+
+def _count_causes(entries) -> dict:
+    return dict(collections.Counter(e["cause"] for e in entries))
+
+
 def main() -> int:
     try:
         import torch
@@ -2149,7 +2262,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     try:
         from boinc_app_eah_brp_tpu_torch.io import read_workunit
         from boinc_app_eah_brp_tpu_torch.ops import kernels
@@ -2232,6 +2344,7 @@ def main() -> int:
         t0 = time.perf_counter()
         knobs_k = run_knobs(torch, workdir, wu, run, production)
         phase_k_s = time.perf_counter() - t0
+        golden_l = run_golden_diff(workdir, wu, P_inj, tau_inj)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2332,6 +2445,22 @@ def main() -> int:
         f"ERP_MEDIAN=device exit {knobs_k['median_device']['exit']}, no launch and no cuFFT plan each; "
         f"phase (k) {phase_k_s:.1f} s"
     )
+    print(json.dumps({"golden_diff": golden_l}))
+    s4, r4 = golden_l["summary"], golden_l["rescored_vs_unrescored"]
+    print(
+        f"golden diff (l): inputs' sha256 the JAX golden's (numpy {golden_l['numpy']} here, "
+        f"{golden_l['golden_versions']['numpy']} for the golden); phase 4 against the JAX package's file: "
+        f"ok {s4['ok']}, matched {s4['matched']}, missing {s4['missing']}, extra {s4['extra']}, boundary "
+        f"{s4['boundary']} {golden_l['boundary_by_cause']}, mismatches {s4['mismatches']}, injected row "
+        f"{golden_l['injected_key']} rank {golden_l['injected_rank_golden']} there, {golden_l['injected_rank_port']} "
+        f"here, {golden_l['closeness']['rows_equal']} matched rows equal, the rest within "
+        f"{golden_l['closeness']['max_rel_power']:.3g} of power and {golden_l['closeness']['max_abs_fA']:.3g} of fA; "
+        f"phase 4 against (k1)'s unrescored rows: matched {r4['matched']}, "
+        f"{r4['rows_differing_by_position']} rows differing by position, {len(r4['differing'])} by key "
+        f"{r4['by_cause']}; phase (l) {golden_l['wall_s']:.2f} s"
+    )
+    for e in r4["differing"]:
+        print(f"  (l4) bin {e['bin']} n_harm {e['n_harm']} {e['side']}: {e['cause']} {e['detail']}")
     print(json.dumps({"kernels": rows}))
     print(
         json.dumps(

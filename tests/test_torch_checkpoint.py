@@ -78,6 +78,37 @@ def test_generations_rotate_and_a_corrupt_newest_falls_back(tmp_path, writer):
     assert port_ckpt.read_checkpoint(str(path) + ".1").n_template == 64
 
 
+class _Killed(BaseException):
+    """A process kill at one rename of a checkpoint write."""
+
+
+@pytest.mark.parametrize("kill_at", range(4))
+def test_a_kill_at_any_rename_of_a_write_leaves_a_resumable_generation(tmp_path, monkeypatch, kill_at):
+    """A checkpoint write renames four times: gen0's sidecar and gen0 to
+    gen1 (the rotation), the new file into place, its sidecar into place.
+    A kill before any one of them leaves a generation that resumes: the
+    previous checkpoint or the new one, never neither."""
+    path = tmp_path / "cp.cpt"
+    for n_template, seed in ((32, 4), (64, 5)):
+        _write("port", path, n_template, seed)
+    calls = []
+    real = os.replace
+
+    def replace(src, dst):
+        if len(calls) == kill_at:
+            raise _Killed
+        calls.append((src, dst))
+        real(src, dst)
+
+    monkeypatch.setattr(port_ckpt.os, "replace", replace)
+    with pytest.raises(_Killed):
+        _write("port", path, 96, 6)
+    monkeypatch.setattr(port_ckpt.os, "replace", real)
+    cp, used, gen = port_ckpt.load_resumable_checkpoint(str(path), 200, "wu.bin4", bank_path="bank.dat")
+    assert cp.n_template in (64, 96)
+    assert cp.candidates.tobytes() == _candidates(5 if cp.n_template == 64 else 6).tobytes()
+
+
 @pytest.mark.parametrize(
     "inputfile,total,bank_path",
     [("other.bin4", 200, "bank.dat"), ("wu.bin4", 150, "bank.dat"), ("wu.bin4", 200, "other.dat")],

@@ -18,6 +18,7 @@ Tolerance: exact throughout.
 import errno
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -250,3 +251,27 @@ def test_session_redispatches_from_the_checkpoint_snapshot(tmp_path, monkeypatch
     np.testing.assert_array_equal(
         parse_result_file(str(tmp_path / "redone.cand")).lines, parse_result_file(str(tmp_path / "clean.cand")).lines
     )
+
+
+def test_release_device_memory_clears_plans_under_the_transform_lock(monkeypatch):
+    """The cuFFT plans are cleared under ``planned_fft``'s lock, so a
+    transform on another thread (the scheduler's prep thread) never has
+    its plan destroyed under it."""
+    from types import SimpleNamespace
+
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+
+    held = []
+
+    class Cache:
+        def clear(self):
+            held.append(kernels._plan_lock.locked())
+
+    fake = SimpleNamespace(
+        cuda=SimpleNamespace(is_initialized=lambda: True, device_count=lambda: 2, empty_cache=lambda: None),
+        backends=SimpleNamespace(cuda=SimpleNamespace(cufft_plan_cache=[Cache(), Cache()])),
+    )
+    monkeypatch.setitem(sys.modules, "torch", fake)
+    pres.release_device_memory()
+    assert held == [True, True]
+    assert not kernels._plan_lock.locked()

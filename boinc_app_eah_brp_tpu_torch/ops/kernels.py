@@ -26,7 +26,8 @@ and the reference's serial float32 pad mean of unwhitened runs (entry
 kernel A's device functions), each also in its exact-sine instantiation
 (``--exact-sin``: ``resample_exact``, ``resample_t1_exact``,
 ``serial_mean_exact``), ``fold.cu`` the fold of float power and of
-the complex spectrum.
+the complex spectrum; ``median.cu`` the whitening's device running median
+in its two instantiations (entry ``median``).
 
 :func:`planned_fft` runs the port's ``torch.fft`` transforms and tells
 :data:`plan_listeners` how many cuFFT plans each created, on the thread
@@ -51,11 +52,13 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 KERNEL_DIR_ENV = "ERP_KERNEL_DIR"
 
-SOURCES = ("resample", "fftprep", "fold")
+SOURCES = ("resample", "fftprep", "fold", "median")
 KERNELS = (
     "resample", "resample_t1", "fftprep", "fold", "fold_spectrum", "serial_mean",
     # the exact-sine instantiations of kernel A, A1 and the exact mean (--exact-sin)
     "resample_exact", "resample_t1_exact", "serial_mean_exact",
+    # the whitening's device running median (either of its instantiations)
+    "median",
 )
 MAX_GRID_T = 65535  # templates per FFT-prep launch: the batch is a grid dimension
 NVCC_FLAGS = (
@@ -84,6 +87,10 @@ _SIGNATURES = {
         "erp_fold_cols": [],
         "erp_fold": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I],
         "erp_fold_spectrum": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F],
+    },
+    "median": {
+        "erp_median_scratch_entries": [_I, _I, _I],
+        "erp_median": [_I, _P, _P, _P, _P, _I, _I],
     },
 }
 

@@ -4,8 +4,10 @@ The whitening stage's sliding median over the spectrum is the one
 inherently serial stage, and it stays on the host as in the reference
 (``demod_binary.c:856-1079``).  The library is compiled with ``g++`` into
 the package's git-ignored ``build/`` directory at first use.  A build or
-load failure raises ``RadpulError(RADPUL_EVAL)``: there is no other
-median to fall back to.
+load failure raises ``RadpulError(RADPUL_EVAL)`` from :func:`load` and
+:func:`running_median`; :func:`available` answers False instead, and the
+whitening then takes the device median (``ops/whiten.py::check_median``),
+as the reference package does.
 
 ``$ERP_RNGMED_LIB`` names a prebuilt library (a deployment bundle ships
 one, ``tools/make_bundle.py``) and is exclusive, as in the JAX package:
@@ -33,6 +35,7 @@ N_THREADS = min(os.cpu_count() or 1, 16)
 LIB_ENV = "ERP_RNGMED_LIB"
 
 _lib: ctypes.CDLL | None = None
+_build_error: str | None = None  # a failed build's message; the build is not tried again
 _lock = threading.Lock()
 
 
@@ -50,8 +53,7 @@ def _library() -> ctypes.CDLL:
 
             raise RadpulError(
                 RADPUL_EVAL,
-                f"the native running median {path or SOURCE} does not load ({e}); the port has no other "
-                "median, whatever ERP_MEDIAN asks",
+                f"the native running median {path or SOURCE} does not load ({e})",
             ) from e
         lib.erp_rngmed.restype = ctypes.c_int
         lib.erp_rngmed.argtypes = [
@@ -70,12 +72,31 @@ def load() -> str:
     return _library()._name
 
 
+def available() -> bool:
+    """Whether the library loads (building it first where
+    ``$ERP_RNGMED_LIB`` is unset), the reference package's
+    ``native_available``.  Only a load is remembered: a library that
+    appears later is loaded then.  A build that failed is not tried again
+    in this process; later calls look for the built file only."""
+    from ..runtime.errors import RadpulError
+
+    try:
+        _library()
+    except RadpulError:
+        return False
+    return True
+
+
 def _built_library() -> str:
-    """The library compiled from ``SOURCE``, built first when missing."""
+    """The library compiled from ``SOURCE``, built first when missing and
+    no build of this process has failed."""
+    global _build_error
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
     path = os.path.join(BUILD_DIR, f"liberp_rngmed-{digest}.so")
     if not os.path.exists(path):
+        if _build_error is not None:
+            raise RuntimeError(_build_error)
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         proc = subprocess.run(
@@ -83,7 +104,8 @@ def _built_library() -> str:
             capture_output=True, text=True,
         )
         if proc.returncode:
-            raise RuntimeError(f"building {SOURCE} failed:\n{proc.stderr}")
+            _build_error = f"building {SOURCE} failed:\n{proc.stderr}"
+            raise RuntimeError(_build_error)
         os.replace(tmp, path)
     return path
 

@@ -46,7 +46,7 @@ STAGES: dict[str, str] = {
     "fft": "fft+power",  # torch.fft (cuFFT)
     "power": "fft+power",  # ops/spectrum.py |X|^2 epilogue
     "whiten": "whiten",  # ops/whiten.py scale/zap/edge device ops
-    "median": "whiten",  # ops/native_median.py host running median
+    "median": "whiten",  # the running median: ops/native_median.py on the host, or csrc/median.cu
     "harmonic": "harmonic-sum",  # ops/harmonic.py plain fold
     "sumspec": "harmonic-sum",  # ops/harmonic.py, kernel C
     "bank-slice": "bank-slice",  # models/search.py bank slicing
@@ -66,6 +66,7 @@ KERNEL_STAGES = (
     ("stats_kernel", "resample"),
     ("fftprep_kernel", "fftprep"),
     ("fold_kernel", "fold"),
+    ("median_", "median"),  # csrc/median.cu's two instantiations
     ("fft", "rfft"),
     # cuFFT's real-to-complex post-pass (the last of an R2C's kernels)
     ("postprocess_kernel", "rfft"),

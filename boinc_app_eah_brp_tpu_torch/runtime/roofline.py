@@ -253,6 +253,31 @@ def exact_mean_cost(n_unpadded: int, n_steps, exact_sin: bool = False, slow_samp
     )
 
 
+def median_cost(n: int, window: int) -> StageCost:
+    """The whitening's device running median (``csrc/median.cu``) over a
+    spectrum of ``n`` bins: the spectrum read once and the ``n - window +
+    1`` medians written.  Its work is compares and counts, no float32
+    arithmetic but the midpoint, so the bound is the bytes;
+    :func:`median_steps` counts the kernel's own steps beside it."""
+    return StageCost("median", "median", bytes=(n + n - window + 1) * F32, per="run")
+
+
+def median_steps(n: int, window: int, tile: int = 1024) -> dict:
+    """The median kernel's steps at this size (the model, not a count of
+    the run): ``walk``, the entries the threads read before they reach
+    the central rank, about ``n_out * (window // 2 + 1) * (tile + window
+    - 1) / window``; ``compare_exchanges``, the bitonic sorts of each
+    tile's union of ``next_pow2(tile + window - 1)`` entries."""
+    n_out = n - window + 1
+    P = 1 << (tile + window - 2).bit_length()
+    levels = P.bit_length() - 1
+    tiles = -(-n_out // tile)
+    return dict(
+        walk=float(n_out) * (window // 2 + 1) * (tile + window - 1) / window,
+        compare_exchanges=float(tiles) * (P // 2) * levels * (levels + 1) // 2,
+    )
+
+
 def pipeline_costs(
     nsamples: int,
     n_unpadded: int,

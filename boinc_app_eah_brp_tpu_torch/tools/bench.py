@@ -202,11 +202,15 @@ def write_problem(problem: Problem, directory: str) -> dict:
 
 
 def ensure_native(log=log) -> str:
-    """Load the port's native running median (``ops/native_median.py``)
-    before the bench starts; it raises when the library does not load, and
-    there is no other median to fall back to."""
+    """Load the whitening's default median, the native ``rngmed``
+    (``ops/native_median.py``), before the bench starts and return its
+    file: the bench times that path and no other.  ``ERP_MEDIAN=device``
+    exits, and a library that does not load raises
+    ``RadpulError(RADPUL_EVAL)``, naming it."""
     from ..ops import native_median
 
+    if os.environ.get("ERP_MEDIAN", "").strip() == "device":
+        raise SystemExit("bench: ERP_MEDIAN=device would time the device median, not the default native one; unset it")
     path = native_median.load()
     log(f"bench: native median {path}")
     return path

@@ -9,8 +9,9 @@ inside a zip, so the bundle ships the CUDA kernel libraries built for
     erp_wrapper              native host wrapper (main program: supervises the
                              worker, owns signals, shmem and the stderr archive)
     liberp_rngmed.so         native running median of the whitening
-    lib<kernel>-<digest>.so  the three kernel libraries (resample, fftprep,
-                             fold), named by the digest of the sources the
+    lib<kernel>-<digest>.so  the kernel libraries, one a source of
+                             ``kernels.SOURCES`` (resample, fftprep, fold,
+                             median), named by the digest of the sources the
                              worker archive holds (``ops/kernels.py``)
     eah_brp_worker.pyz       the port's package as a zipapp
                              (``python3 eah_brp_worker.pyz -i ... -o ...``)
@@ -99,7 +100,9 @@ and numpy; it needs no CUDA toolkit and no compiler.
   workunit, checkpoint and candidate formats).  It runs standalone too:
   `python3 eah_brp_worker.pyz -i wu.bin4 -o out.cand -t bank -W -l zap`.
 - `lib<kernel>-<digest>.so`: the CUDA kernels (resampler, FFT-prep,
-  harmonic fold), named by the digest of the worker's kernel sources; the
+  harmonic fold, the whitening's device running median for hosts where
+  `liberp_rngmed.so` does not load), named by the digest of the worker's
+  kernel sources; the
   worker refuses a library of other sources, naming the file it expected.
 - `liberp_rngmed.so`: the native running median of the whitening.
 """

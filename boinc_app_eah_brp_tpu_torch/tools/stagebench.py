@@ -17,8 +17,11 @@ events around ``--repeat`` calls after one warm-up; on the CPU
   epilogue inside it (``ops/harmonic.py::sumspec_spectrum``);
 * ``merge_ms``: the max/argmax merge into (M, T) (``BankStep.merge``);
 * ``batch_step_ms``: the whole step;
-* ``running_median_ms``: the whitening's host running median over one
-  spectrum (``ops/native_median.py``), with ``--median``.
+* ``running_median_ms``: the device running median over one spectrum
+  (``ops/median.py``, ``csrc/median.cu`` on a card), with ``--median``,
+  as the JAX tool's ``--median`` times its device median; beside it
+  ``running_median_native_ms``, the whitening's default host median
+  (``ops/native_median.py``) once over the same spectrum.
 
 The artifact (``--json``) also carries the JAX tool's keys: ``resample_s``
 (A and B: the padded series the FFT reads), ``rfft_power_s`` (the rfft; the
@@ -27,9 +30,10 @@ stages) and ``templates_per_sec_pipeline``.
 
 ``--whiten`` decomposes the whitening pass instead (``ops/whiten.py``),
 one cold pass and ``--repeat`` warm ones, each stage synchronized: the
-forward rfft, the power, the host median (with its copy to the host), the
-scale, the zap noise and its scatter, the inverse rfft; ``TOTAL`` is
-``whiten_and_zap`` itself.  ``warm_device_split_total_s`` is a warm
+forward rfft, the power, the running median of the path the whitening
+takes (``ops/whiten.py::check_median``: the host median with its copy to
+the host, or the device median), the scale, the zap noise and its
+scatter, the inverse rfft; ``TOTAL`` is ``whiten_and_zap`` itself.  ``warm_device_split_total_s`` is a warm
 ``whiten_and_zap`` timed alone: the port's production path, whose output
 stays on the card.
 
@@ -90,6 +94,7 @@ def stage_times(problem, device: str = "cuda", batch: int | None = None, repeat:
         max_slope_for_bank, upload_bank,
     )
     from ..ops import harmonic, native_median, resample
+    from ..ops.median import running_median
     from ..ops.whiten import whiten_and_zap
 
     dev = resolve_device(device)
@@ -133,11 +138,15 @@ def stage_times(problem, device: str = "cuda", batch: int | None = None, repeat:
     stages["batch_step_ms"] = timed(lambda: step(ts, 0, B), repeat)
     if median:
         F = torch.fft.rfft(torch.nn.functional.pad(ts, (0, geom.nsamples - geom.n_unpadded)))
-        ps = (F.real * F.real + F.imag * F.imag).cpu().numpy()
+        ps = F.real * F.real + F.imag * F.imag
         del F
+        window = problem.cfg.window
+        stages["running_median_ms"] = timed(lambda: running_median(ps, bsize=window), repeat)
+        host = ps.cpu().numpy()
+        native_median.load()  # its first use builds the library: not the median's time
         t0 = time.perf_counter()
-        native_median.running_median(ps, problem.cfg.window)
-        stages["running_median_ms"] = (time.perf_counter() - t0) * 1e3
+        native_median.running_median(host, window)
+        stages["running_median_native_ms"] = (time.perf_counter() - t0) * 1e3
     for k, v in stages.items():
         log(f"{k:28s} {v:10.3f} ms")
     pipeline = ("resample_ms", "fftprep_ms", "rfft_ms", "fold_spectrum_ms", "merge_ms")
@@ -163,13 +172,20 @@ def whiten_decompose(problem, device: str = "cuda", repeat: int = 3, log=print) 
 
     from ..device import resolve_device
     from ..oracle.whiten import seed_from_samples, zap_noise
-    from ..ops.native_median import running_median
-    from ..ops.whiten import _forward, _inverse, whiten_and_zap
+    from ..ops import native_median
+    from ..ops.median import running_median
+    from ..ops.whiten import _forward, _inverse, check_median, whiten_and_zap
 
     dev = resolve_device(device)
     timer = _Timer(torch, dev)
     d, cfg = problem.derived, problem.cfg
     window_2 = int(0.5 * cfg.window + 0.5)
+    if check_median() == "native":
+        def median(ps):
+            return torch.from_numpy(native_median.running_median(ps.cpu().numpy(), cfg.window)).to(dev)
+    else:
+        def median(ps):
+            return running_median(ps, bsize=cfg.window)
 
     def one_pass() -> dict:
         t = {}
@@ -185,10 +201,10 @@ def whiten_decompose(problem, device: str = "cuda", repeat: int = 3, log=print) 
             torch.from_numpy(problem.samples).to(dev), (0, d.nsamples - d.n_unpadded)))
         F = stage("rfft", lambda: _forward(padded))
         ps = stage("power", lambda: F.real * F.real + F.imag * F.imag)
-        rm = stage("median", lambda: running_median(ps.cpu().numpy(), cfg.window))
+        rm = stage("median", lambda: median(ps))
 
         def scale():
-            factor = torch.sqrt(torch.tensor(np.float32(np.log(2.0)), device=dev) / torch.from_numpy(rm).to(dev))
+            factor = torch.sqrt(torch.tensor(np.float32(np.log(2.0)), device=dev) / rm)
             sc = torch.ones(d.fft_size, dtype=torch.float32, device=dev)
             sc[window_2 : window_2 + len(rm)] = factor
             return F.real * sc, F.imag * sc
@@ -238,7 +254,8 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=None, help="templates a batch (default: the autobatch's)")
     ap.add_argument("--repeat", type=int, default=5)
-    ap.add_argument("--median", action="store_true", help="include the host running median")
+    ap.add_argument("--median", action="store_true",
+                    help="include the device running median (and the host one beside it)")
     ap.add_argument("--whiten", action="store_true", help="decompose the whitening pass instead")
     ap.add_argument("--json", default=None, help="write the artifact here")
     ap.add_argument("--device", default="cuda")

@@ -23,8 +23,9 @@ Phases:
    of dependent adds, and its time at the tiled bank), and a copy of the
    first port's eager statistics, rfft, the eager power epilogue and a
    whole batch step, whitened and unwhitened (its means computed ahead),
-   are timed alone, and the merge into (M, T) and the host running median
-   over one spectrum (the stages of ``tools/stagebench.py``);
+   are timed alone, and the merge into (M, T) and the device and host
+   running medians over one spectrum (the stages of
+   ``tools/stagebench.py``);
 4. run the search end to end through the command line on a seeded
    synthetic 4-bit workunit with a binary-pulsar signal injected at one
    bank template, whitened, with a checkpoint file and oracle rescoring,
@@ -154,10 +155,9 @@ Phases:
    whitened production run, where the overlap arms, (i2)'s rows byte for
    byte with no ``rescore-feed`` span, its wall beside (i2)'s; (3)
    ``ERP_PRECISION=bf16`` (``RADPUL_EMISC``, as the JAX package's
-   command line exits), ``ERP_PRECISION=xx`` and ``ERP_MEDIAN=device``
-   (``RADPUL_EVAL``), each with cuFFT's plan cache emptied first, launch
-   no kernel, make no plan and write no result; each wall beside phase
-   4's;
+   command line exits) and ``ERP_PRECISION=xx`` (``RADPUL_EVAL``), each
+   with cuFFT's plan cache emptied first, launch no kernel, make no plan
+   and write no result; each wall beside phase 4's;
 17. the golden diff (l), which reads phase 4's and (k1)'s files and runs
    no search: (1) the sha256 of phase 4's workunit (its decompressed
    content), bank and zaplist equal ``tests/golden/jax_synth200.json``'s,
@@ -171,10 +171,25 @@ Phases:
    (k1)'s unrescored one, each row that differs with its cause (a row of
    both files whose values moved is ``rescored``): no ``threshold``.  A
    missing golden file or a differing digest fails the phase;
-18. print the kernel table as one JSON line (launches from the whitened
+18. the device running median (m) on phase 4's workunit
+   (``ops/median.py``, ``csrc/median.cu``): (1) the kernel bitwise
+   against its plain version over phase 4's spectrum at windows 1000 and
+   999 and at a window above one block's shared memory over its first
+   bins, each timed beside its plain version, and ``torch.median`` of
+   every odd window as the yardstick; (2) its outputs against the native
+   rngmed's, counted with their largest ulp; (3) phase 4's command line
+   under ``ERP_MEDIAN=device`` and with the knob unset and
+   ``$ERP_RNGMED_LIB`` naming a missing file, counts reset just before
+   each: the median launched once beside the main path's kernels, and
+   each file held against phase 4's by ``tools/golden_ref.py``'s compare
+   (``ok``), its rows byte for byte or each differing row's cause; (4)
+   ``ERP_MEDIAN=native`` with the missing file exits ``RADPUL_EVAL`` with
+   no launch, no cuFFT plan and no result;
+19. print the kernel table as one JSON line (launches from the whitened
    run; the serial mean's from the unwhitened one, A1's from the health
    run, C's float-power entry's from the audits, the exact-sine ones from
-   the ``--exact-sin`` run), the `bounds` line of the package's roofline
+   the ``--exact-sin`` run, the median's from (m3)'s ``ERP_MEDIAN=device``
+   run), the `bounds` line of the package's roofline
    model (``runtime/roofline.py``), the runs' numbers, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -230,6 +245,9 @@ KERNEL_ROWS = {
     "resample_exact": ("boinc_app_eah_brp_tpu/ops/resample.py:48", "resample.cu"),
     "resample_t1_exact": ("boinc_app_eah_brp_tpu/ops/resample.py:48", "resample.cu"),
     "serial_mean_exact": ("boinc_app_eah_brp_tpu/models/search.py:442", "resample.cu"),
+    # no Pallas kernel: the JAX package's device running median, a blocked
+    # sort that XLA runs
+    "median": ("boinc_app_eah_brp_tpu/ops/median.py:57", "median.cu"),
 }
 # the kernels the search's main path must launch; the unwhitened run
 # launches these and the serial mean
@@ -241,6 +259,7 @@ UNWHITENED_PATH = MAIN_PATH + ("serial_mean",)
 LAUNCHES_FROM = {
     "serial_mean": "unwhitened", "resample_t1": "health", "fold": "audit",
     "resample_exact": "exact_sin", "resample_t1_exact": "exact_sin", "serial_mean_exact": "exact_sin",
+    "median": "median",
 }
 EXACT_SIN = ("resample_exact", "resample_t1_exact", "serial_mean_exact")
 EXACT_SIN_PATH = ("resample_exact", "resample_t1_exact", "fftprep", "fold_spectrum", "serial_mean_exact")
@@ -260,6 +279,9 @@ FABRIC_STREAMS, FABRIC_WUS = 32, 16  # the fabric of phase (h1)
 # (~40 ms of host toplist and write a checkpoint), so the loop outlasts
 # dozens of the soak's 50 ms checkpoint polls
 KILL_BATCH, KILL_CYCLES = 4, 4
+# phase (m1)'s window above one block's shared memory (ops/median.py: up to
+# 15,361), over the first bins of phase 4's spectrum
+MEDIAN_WIDE, MEDIAN_WIDE_BINS = 40001, 400_000
 # phase (i3)'s worker command, as the bundle's app_info.xml gives it to the wrapper
 BUNDLE_WORKER = "python3 eah_brp_worker.pyz"
 
@@ -480,16 +502,19 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
         library_ms=None,
         **roofline.fold_cost(T, nsamples, geom.fund_hi, complex_input=False).bound(),
     )
-    # the whitening's host running median over one spectrum, alone
-    # (tools/stagebench.py's running_median_ms)
-    from boinc_app_eah_brp_tpu_torch.ops import native_median
+    # the whitening's running median over one spectrum, alone: the device
+    # median and the host one (tools/stagebench.py's running_median_ms and
+    # running_median_native_ms)
+    from boinc_app_eah_brp_tpu_torch.ops import median, native_median
 
-    spectrum = ps[0].cpu().numpy()
+    spectrum = ps[0].contiguous()
+    stages["running_median_ms"] = time_ms(torch, lambda: median.running_median(spectrum, bsize=WINDOW), 5)
+    host = spectrum.cpu().numpy()
     native_median.load()  # its first use builds the library: not the median's time
     t0 = time.perf_counter()
-    native_median.running_median(spectrum, WINDOW)
-    stages["running_median_ms"] = (time.perf_counter() - t0) * 1e3
-    del ps, sums, sums_p, spectrum
+    native_median.running_median(host, WINDOW)
+    stages["running_median_native_ms"] = (time.perf_counter() - t0) * 1e3
+    del ps, sums, sums_p, spectrum, host
 
     # C on the complex spectrum, the main path's entry: the power epilogue
     # (3 multiplies and an add a bin) inside the fold
@@ -1113,9 +1138,14 @@ def run_serving(torch, workdir: str, wu: str, unwhite_rows, geom, bank) -> dict:
 
 @contextlib.contextmanager
 def _env(values: dict):
-    """``os.environ`` updated with ``values`` inside the block."""
+    """``os.environ`` updated with ``values`` inside the block (a None
+    value unsets its variable)."""
     saved = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -2067,9 +2097,9 @@ def run_knobs(torch, workdir: str, wu: str, main_run: dict, production: dict) ->
     where (i2)'s had some, (i2)'s rows byte for byte, its wall and
     rescoring times beside (i2)'s; (3) ``ERP_PRECISION=bf16``
     (``RADPUL_EMISC``: its ``NotImplementedError`` is unmapped, and the
-    command line of either package exits so), ``ERP_PRECISION=xx`` and
-    ``ERP_MEDIAN=device`` (``RADPUL_EVAL``) with cuFFT's plan cache
-    emptied first: no kernel launch, no plan, no result."""
+    command line of either package exits so) and ``ERP_PRECISION=xx``
+    (``RADPUL_EVAL``) with cuFFT's plan cache emptied first: no kernel
+    launch, no plan, no result.  (``ERP_MEDIAN`` is phase (m)'s.)"""
     from boinc_app_eah_brp_tpu_torch.ops import kernels
     from boinc_app_eah_brp_tpu_torch.runtime import tracing
     from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
@@ -2148,7 +2178,6 @@ def run_knobs(torch, workdir: str, wu: str, main_run: dict, production: dict) ->
     for name, env, want in (
         ("precision_bf16", {"ERP_PRECISION": "bf16"}, RADPUL_EMISC),
         ("precision_xx", {"ERP_PRECISION": "xx"}, RADPUL_EVAL),
-        ("median_device", {"ERP_MEDIAN": "device"}, RADPUL_EVAL),
     ):
         plans.clear()
         r = run(name, env)
@@ -2249,6 +2278,164 @@ def run_golden_diff(workdir: str, wu: str, P_inj: float, tau_inj: float) -> dict
     )
 
 
+def phase4_spectrum(torch, wu: str):
+    """The power spectrum that phase 4's whitening takes the median of:
+    the zero-padded workunit's rfft, |X|^2, DC 0 (``ops/whiten.py``)."""
+    from boinc_app_eah_brp_tpu_torch.io import read_workunit
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+    from boinc_app_eah_brp_tpu_torch.ops.whiten import _forward
+
+    cfg = SearchConfig(f0=F0, padding=PADDING, fA=FA, window=WINDOW, white=True)
+    wu_data = read_workunit(wu)
+    derived = DerivedParams.derive(wu_data.nsamples, float(wu_data.header["tsample"]), cfg)
+    padded = torch.zeros(derived.nsamples, dtype=torch.float32, device=DEVICE)
+    padded[: derived.n_unpadded] = torch.from_numpy(np.asarray(wu_data.samples, dtype=np.float32)).to(DEVICE)
+    F = _forward(padded)
+    ps = F.real * F.real + F.imag * F.imag
+    ps[0] = 0.0
+    return ps
+
+
+def _plain_block(window: int) -> int:
+    """Outputs a block of the plain median on the card: ~2^26 window entries."""
+    return max(1, (1 << 26) // window)
+
+
+def run_median(torch, workdir: str, wu: str) -> dict:
+    """Phase (m): the device running median on phase 4's workunit.  (1)
+    the kernel bitwise against its plain version over phase 4's spectrum
+    (production width) at windows WINDOW and WINDOW - 1, and at
+    MEDIAN_WIDE, above one block's shared memory, over its first
+    MEDIAN_WIDE_BINS bins, each timed beside its plain version; the
+    library yardstick ``torch.median`` of every odd window (WINDOW - 1) in
+    blocks; (2) the kernel against the native rngmed at WINDOW: outputs
+    that differ and their largest ulp; (3) phase 4's command line under
+    ``ERP_MEDIAN=device``, then with the knob unset and
+    ``$ERP_RNGMED_LIB`` naming a missing file, counts reset just before
+    and read just after: exit 0, the median launched once with the main
+    path's kernels, and each file held against phase 4's by
+    ``tools/golden_ref.py::compare`` (``ok``), its candidate rows byte
+    for byte or each differing row's cause; (4) ``ERP_MEDIAN=native``
+    with the missing file: ``RADPUL_EVAL``, no launch, no cuFFT plan, no
+    result."""
+    from boinc_app_eah_brp_tpu_torch.ops import kernels, median, native_median
+    from boinc_app_eah_brp_tpu_torch.runtime import roofline
+    from boinc_app_eah_brp_tpu_torch.runtime.cli import main as cli_main
+    from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EVAL
+    from boinc_app_eah_brp_tpu_torch.tools import boundary_analysis, golden_ref
+    from boinc_app_eah_brp_tpu_torch.tools.median_study import ulp_diff
+
+    t_start = time.perf_counter()
+    ps = phase4_spectrum(torch, wu)
+    n = ps.shape[0]
+    out = {"bins": n}
+
+    # (1) the kernel against its plain version
+    def hold(x, w: int, reps: int):
+        got = median.running_median(x, bsize=w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = median.running_median_plain(x, bsize=w, block=_plain_block(w))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"(m1) median kernel != plain version at window {w} over {x.shape[0]} bins")
+        return got, dict(
+            window=w, bins=int(x.shape[0]), instantiation="shared" if median.scratch_entries(x.device, x.shape[0], w) == 0 else "global",
+            max_abs_err=float((got - want).abs().max()),
+            ms=time_ms(torch, lambda: median.running_median(x, bsize=w), reps), plain_ms=plain_ms,
+        )
+
+    rm, m1 = hold(ps, WINDOW, 10)
+    rm_odd, m1_odd = hold(ps, WINDOW - 1, 10)
+    _, m1_wide = hold(ps[:MEDIAN_WIDE_BINS].contiguous(), MEDIAN_WIDE, 3)
+    check(m1["instantiation"] == "shared" and m1_wide["instantiation"] == "global",
+          f"(m1) instantiations {m1['instantiation']} / {m1_wide['instantiation']}")
+    block = _plain_block(WINDOW - 1)
+
+    def library():
+        return torch.cat([
+            ps[s : min(s + block, n - WINDOW + 2) + WINDOW - 2].unfold(0, WINDOW - 1, 1).median(dim=1).values
+            for s in range(0, n - WINDOW + 2, block)
+        ])
+
+    lib_out = library()
+    out["library_equal_odd"] = bool(torch.equal(lib_out.view(torch.int32), rm_odd.view(torch.int32)))
+    library_ms = time_ms(torch, library, 2)
+    del lib_out, rm_odd
+    out["m1"] = {"production": m1, "production_odd": m1_odd, "wide": m1_wide, "library_ms_odd": library_ms}
+    out["row"] = dict(
+        max_abs_err=m1["max_abs_err"], ms=m1["ms"], plain_ms=m1["plain_ms"], library_ms=library_ms,
+        steps=roofline.median_steps(n, WINDOW), **roofline.median_cost(n, WINDOW).bound(),
+    )
+
+    # (2) against the native rngmed
+    host = ps.cpu().numpy()
+    t0 = time.perf_counter()
+    native = native_median.running_median(host, WINDOW)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    differing, max_ulp = ulp_diff(rm.cpu().numpy(), native)
+    out["m2"] = dict(window=WINDOW, differing=differing, max_ulp=max_ulp, native_ms=native_ms, outputs=len(native))
+    del ps, rm, host, native
+
+    # (3) the command line under the device median
+    zap = os.path.join(workdir, "smoke.zap")
+    base_cand, base_cp = os.path.join(workdir, "smoke.cand"), os.path.join(workdir, "smoke.cpt")
+    t_obs = golden_ref.padded_t_obs(wu)
+    absent = os.path.join(workdir, "absent", "liberp_rngmed.so")
+
+    def run(name: str, env: dict) -> dict:
+        path = os.path.join(workdir, f"median_{name}")
+        argv = (
+            f"-i {wu} -o {path}.cand -t {BANK} -c {path}.cpt -l {zap} -W -P {PADDING} -f {F0} -A {FA} "
+            f"-B {WINDOW} --batch {BATCH} --device {DEVICE}"
+        ).split()
+        native_median._lib = None  # the run loads (or fails to load) the library its env names
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _env(env):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        native_median._lib = None  # the next user loads the real library again
+        return dict(rc=rc, wall_s=time.perf_counter() - t0, launches=dict(kernels.launch_counts), path=path)
+
+    def rows_of(cand: str) -> list:
+        with open(cand) as f:
+            return [ln for ln in f.read().splitlines() if ln and not ln.startswith("%")]
+
+    out["m3"] = {}
+    for name, env in (("device", {"ERP_MEDIAN": "device"}),
+                      ("no_library", {"ERP_MEDIAN": None, "ERP_RNGMED_LIB": absent})):
+        r = run(name, env)
+        check(r["rc"] == 0, f"(m3) {name} exited {r['rc']}")
+        check(r["launches"]["median"] == 1, f"(m3) {name} launched the median {r['launches']['median']} times")
+        for k in MAIN_PATH:
+            check(r["launches"][k] > 0, f"(m3) {name}: kernel {k} was not launched")
+        cand = r["path"] + ".cand"
+        summary = golden_ref.compare(base_cand, cand, t_obs, bank=BANK)
+        check(summary["ok"], f"(m3) {name}'s file against phase 4's: {summary}")
+        rows_equal = rows_of(cand) == rows_of(base_cand)
+        causes = {}
+        if not rows_equal:
+            l3 = boundary_analysis.analyse(base_cand, cand, base_cp, r["path"] + ".cpt", t_obs)
+            causes = _count_causes(l3["boundary"])
+        out["m3"][name] = dict(wall_s=r["wall_s"], launches=r["launches"], summary=summary,
+                               rows_byte_equal=rows_equal, boundary_by_cause=causes)
+
+    # (4) an explicit native request without its library
+    plans = torch.backends.cuda.cufft_plan_cache[0]
+    plans.clear()
+    r = run("native_absent", {"ERP_MEDIAN": "native", "ERP_RNGMED_LIB": absent})
+    check(r["rc"] == RADPUL_EVAL, f"(m4) ERP_MEDIAN=native with no library exited {r['rc']}, not {RADPUL_EVAL}")
+    check(not any(r["launches"].values()), f"(m4) launched kernels: {r['launches']}")
+    check(plans.size == 0, f"(m4) made {plans.size} cuFFT plans")
+    check(not os.path.exists(r["path"] + ".cand"), "(m4) wrote a result")
+    out["m4"] = dict(exit=r["rc"], wall_s=r["wall_s"], plans=0, launches=0)
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
 def _count_causes(entries) -> dict:
     return dict(collections.Counter(e["cause"] for e in entries))
 
@@ -2345,12 +2532,15 @@ def main() -> int:
         knobs_k = run_knobs(torch, workdir, wu, run, production)
         phase_k_s = time.perf_counter() - t0
         golden_l = run_golden_diff(workdir, wu, P_inj, tau_inj)
+        torch.cuda.empty_cache()
+        median_m = run_median(torch, workdir, wu)
+        measured["median"] = median_m.pop("row")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     print(json.dumps({"stages": measured.pop("stages")}))
-    detail = ("limit", "bound_ms", "bytes_ms", "fp32_ms", "conversions_ms", "chain_ms", "passes")
+    detail = ("limit", "bound_ms", "bytes_ms", "fp32_ms", "conversions_ms", "chain_ms", "passes", "steps")
     print(json.dumps({"bounds": {k: {d: m[d] for d in detail if d in m} for k, m in measured.items()}}))
     rows = []
     path_launches = {
@@ -2358,6 +2548,7 @@ def main() -> int:
         "health": health_f["health_run"]["launches"],
         "audit": health_f["audit_launches"],
         "exact_sin": exact["cli"]["launches"],
+        "median": median_m["m3"]["device"]["launches"],
     }
     for name, (replaces, src) in KERNEL_ROWS.items():
         m = measured[name]
@@ -2442,7 +2633,7 @@ def main() -> int:
         f"beside (i2)'s {ki['wall_s']:.2f} s (finalize wait {ki['rescore_finalize_s']:.3f} s, end-of-run pass "
         f"{ki['rescore_end_pass_s']:.3f} s), rows byte for byte (i2)'s; ERP_PRECISION=bf16 exit "
         f"{knobs_k['precision_bf16']['exit']}, ERP_PRECISION=xx exit {knobs_k['precision_xx']['exit']}, "
-        f"ERP_MEDIAN=device exit {knobs_k['median_device']['exit']}, no launch and no cuFFT plan each; "
+        f"no launch and no cuFFT plan each; "
         f"phase (k) {phase_k_s:.1f} s"
     )
     print(json.dumps({"golden_diff": golden_l}))
@@ -2461,6 +2652,24 @@ def main() -> int:
     )
     for e in r4["differing"]:
         print(f"  (l4) bin {e['bin']} n_harm {e['n_harm']} {e['side']}: {e['cause']} {e['detail']}")
+    print(json.dumps({"median": median_m}))
+    m1, m2, m3 = median_m["m1"], median_m["m2"], median_m["m3"]
+    print(
+        f"median (m): kernel bitwise its plain version over {median_m['bins']} bins at window {WINDOW} "
+        f"({m1['production']['ms']:.4f} ms, plain {m1['production']['plain_ms']:.1f} ms), {WINDOW - 1} "
+        f"({m1['production_odd']['ms']:.4f} ms; torch.median {m1['library_ms_odd']:.1f} ms, equal "
+        f"{median_m['library_equal_odd']}) and {MEDIAN_WIDE} over {MEDIAN_WIDE_BINS} bins "
+        f"({m1['wide']['ms']:.4f} ms, plain {m1['wide']['plain_ms']:.1f} ms); against the native rngmed "
+        f"({m2['native_ms']:.1f} ms): {m2['differing']} of {m2['outputs']} outputs differ, max {m2['max_ulp']} ulp; "
+        + "; ".join(
+            f"{name}: wall {r['wall_s']:.2f} s (phase 4's {run['wall_s']:.2f} s), median launched "
+            f"{r['launches']['median']}, golden compare ok {r['summary']['ok']} matched {r['summary']['matched']}, "
+            f"rows byte for byte {r['rows_byte_equal']} {r['boundary_by_cause']}"
+            for name, r in m3.items()
+        )
+        + f"; ERP_MEDIAN=native without the library exit {median_m['m4']['exit']}, no launch, no plan; "
+        f"phase (m) {median_m['wall_s']:.1f} s"
+    )
     print(json.dumps({"kernels": rows}))
     print(
         json.dumps(

@@ -343,7 +343,7 @@ def test_stagebench_artifacts_have_the_jax_keys_and_the_smokes_stage_names(fixtu
     smoke = open(chip_smoke.__file__).read()
     names = set(art["stages"])
     assert {"resample_ms", "fftprep_ms", "rfft_ms", "fold_spectrum_ms", "merge_ms", "batch_step_ms",
-            "running_median_ms"} == names
+            "running_median_ms", "running_median_native_ms"} == names
     for name in names:
         assert name[:-3] in chip_smoke.KERNEL_ROWS or f'stages["{name}"]' in smoke or f"{name}=" in smoke, name
     assert all(v > 0 for v in art["stages"].values())

@@ -71,8 +71,7 @@ NOT_PORTED = {
     "ops/fft.py::irfft_split": (RENAMED, "ops/kernels.py::planned_fft"),
     "ops/harmonic.py::harmonic_sumspec": (RENAMED, "ops/harmonic.py::sumspec_batch"),
     "ops/harmonic.py::harmonic_sumspec_batch": (RENAMED, "ops/harmonic.py::sumspec_batch"),
-    "ops/median.py::running_median": (TPU, "the test-only blocked-sort device median"),
-    "ops/native_median.py::native_available": (RENAMED, "ops/native_median.py::load"),
+    "ops/native_median.py::native_available": (RENAMED, "ops/native_median.py::available"),
     "ops/native_median.py::serial_sum_f32": (RENAMED, "ops/resample.py::serial_mean_plain"),
     "ops/native_median.py::running_median_native": (RENAMED, "ops/native_median.py::running_median"),
     "ops/pallas_resample.py::pallas_applicable": (TPU, _PALLAS_GATE),

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from boinc_app_eah_brp_tpu_torch.models import search
-from boinc_app_eah_brp_tpu_torch.ops import harmonic, kernels, resample
+from boinc_app_eah_brp_tpu_torch.ops import harmonic, kernels, median, native_median, resample
 
 pytestmark = pytest.mark.cuda
 
@@ -172,6 +172,43 @@ def test_fold_spectrum_matches_plain(dev, T, L, fund_hi, harm_hi):
     assert kernels.launch_counts["fold_spectrum"] == before + 1
     want = harmonic.sumspec_spectrum_plain(F, nsamples=n, fund_hi=fund_hi, harm_hi=harm_hi)
     assert torch.equal(got, want)
+
+
+def _median_input(n, seed):
+    """Non-negative float32 with zeros and ties (ops/median.py's keys are
+    the float's bits)."""
+    x = np.random.default_rng(seed).exponential(1.0, n).astype(np.float32)
+    x[::13] = 0.0
+    x[n // 3 : n // 3 + n // 10] = np.round(x[n // 3 : n // 3 + n // 10], 1)
+    return x
+
+
+@pytest.mark.parametrize(
+    "n,window",
+    # odd and even windows, the last tile partial, exactly full (n_out 1024)
+    # and one past; windows on both sides of the shared-memory limit
+    # (15,361) and one far above it
+    [(5000, 1), (5000, 2), (5000, 3), (70001, 999), (70001, 1000), (2023, 1000), (2024, 1000),
+     (40000, 15361), (40000, 15362), (100000, 40001)],
+)
+def test_median_matches_plain(dev, n, window):
+    x = torch.from_numpy(_median_input(n, n + window)).to(dev)
+    # the kernel takes its shared-memory instantiation up to window 15,361
+    assert (median.scratch_entries(x.device, n, window) == 0) == (window <= 15361)
+    before = kernels.launch_counts["median"]
+    got = median.running_median(x, bsize=window)
+    assert kernels.launch_counts["median"] == before + 1
+    want = median.running_median_plain(x, bsize=window, block=2048)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if 2 <= window <= 1000:  # and the native rngmed (windows of 2 and more), bitwise on non-negative input
+        assert got.cpu().numpy().tobytes() == native_median.running_median(x.cpu().numpy(), window).tobytes()
+
+
+def test_median_refuses_what_it_does_not_take(dev):
+    with pytest.raises(ValueError, match="window larger than input"):
+        median.running_median(torch.zeros(9, device=dev), bsize=10)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        median.running_median(torch.zeros(20, device=dev)[::2], bsize=3)
 
 
 @pytest.mark.parametrize("exact_mean", [False, True])

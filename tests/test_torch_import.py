@@ -113,7 +113,7 @@ FABRIC = ("hosts", "validator", "workfabric")
 TOOLS = ("_inputs", "fleet_report", "report_check", "fabric_soak", "fleet_bench", "chaos_soak",
          "serving_chaos", "precision_audit", "trace_report", "bench", "batch_sweep", "stagebench",
          "make_app_info", "make_bundle", "metrics_report", "blackbox_report", "fleet_timeline", "step_report",
-         "bench_history", "smoke", "golden_ref", "boundary_analysis")
+         "bench_history", "smoke", "golden_ref", "boundary_analysis", "median_study")
 
 
 def test_fabric_and_tools_import_neither_torch_nor_jax():

@@ -13,9 +13,13 @@ Tolerances:
   is made by either package;
 * ``ERP_PRECISION`` and ``ERP_MEDIAN=native`` with the library missing:
   the same exception class, or the same exit code;
-* ``ERP_MEDIAN=device``: a deliberate divergence.  The JAX package runs
-  its blocked-sort device median; the port has none and exits
-  ``RADPUL_EVAL`` before any FFT.
+* ``ERP_MEDIAN=device``, and the knob unset with the library missing:
+  both packages whiten with their device median; the rows are held as
+  ``ERP_RESCORE=off``'s are (frequency, template and harmonic columns
+  equal, power and fA within the validator's tolerance: the whitened
+  series passes through each package's FFT library);
+* ``check_median``: the same path, or the same refusal, as the JAX
+  package's dispatch for every value, with the library and without.
 """
 
 import os
@@ -204,48 +208,89 @@ def test_median_native_with_the_library_is_the_default_run(workdir, monkeypatch)
     np.testing.assert_array_equal(_rows(workdir, "native"), _rows(workdir, "default"))
 
 
+def _count_device_medians(monkeypatch) -> list:
+    """Each package's device median, counted; the port's native median
+    fails the test."""
+    import boinc_app_eah_brp_tpu.ops.whiten as jax_whiten
+
+    calls = []
+    for mod, tag in ((whiten, "port"), (jax_whiten, "jax")):
+        real = mod.running_median
+
+        def counted(*a, _real=real, _tag=tag, **k):
+            calls.append(_tag)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, "running_median", counted)
+    monkeypatch.setattr(native_median, "running_median", lambda *a, **k: pytest.fail("the native median ran"))
+    return calls
+
+
+def _assert_device_rows_match_jax(workdir):
+    got, want = _rows(workdir, "port"), _jax_rows(workdir, "jax")
+    np.testing.assert_array_equal(got[:, [0, 1, 2, 3, 6]], want[:, [0, 1, 2, 3, 6]])
+    diff = compare_candidate_rows(got, want, t_obs=4096 * DT)
+    assert diff.ok, diff.report()
+
+
 def test_median_device_is_refused_by_the_port_and_run_by_jax(workdir, monkeypatch, capfd):
-    """The recorded divergence: the JAX package whitens with its device
-    median and writes a result; the port has no device median, so it
-    exits RADPUL_EVAL before any FFT and writes none."""
+    """``ERP_MEDIAN=device`` in both packages (the name is the divergence
+    this case pinned until the port had a device median; it now holds them
+    equal): an unwhitened run takes no median in either package; each
+    whitened command line logs the device path, whitens with its device
+    median once and writes a file, and the rows agree."""
     monkeypatch.setenv("ERP_MEDIAN", "device")
-    assert _run("jax", workdir, "jax", white=True) == 0
-    _jax_rows(workdir, "jax")  # a finished file with candidates
-    # an unwhitened run takes no median, in either package
+    calls = _count_device_medians(monkeypatch)
     assert _run("port", workdir, "unwhitened") == 0
-    _refuse_device_work(monkeypatch)
+    assert _run("jax", workdir, "jax_unwhitened") == 0
+    assert calls == []
     capfd.readouterr()
-    assert _run("port", workdir, "port", white=True) == RADPUL_EVAL
-    assert "ERP_MEDIAN=device" in capfd.readouterr().err
-    assert not (workdir["tmp"] / "port.cand").exists()
+    assert _run("port", workdir, "port", white=True) == 0
+    assert "Running median path: device" in capfd.readouterr().err
+    assert _run("jax", workdir, "jax", white=True) == 0
+    assert "Running median path: device" in capfd.readouterr().err
+    assert calls == ["port", "jax"]
+    _assert_device_rows_match_jax(workdir)
 
 
 def test_median_unset_without_the_library_is_radpul_eval_in_the_port(workdir, monkeypatch):
-    """With ``ERP_MEDIAN`` unset the port still has only the native median:
-    a library that does not load is ``RADPUL_EVAL`` before any FFT, not
-    an unmapped error after the first one (the JAX package falls back to
-    its device median here)."""
+    """``ERP_MEDIAN`` unset and a native library that does not load: both
+    packages fall back to their device median and write a file (the name
+    is the refusal this case pinned until the port had a device median),
+    and the rows agree."""
     monkeypatch.delenv("ERP_MEDIAN", raising=False)
     monkeypatch.setenv("ERP_RNGMED_LIB", str(workdir["tmp"] / "absent" / "liberp_rngmed.so"))
     _forget_median_libraries(monkeypatch)
-    _refuse_device_work(monkeypatch)
-    assert _run("port", workdir, "port", white=True) == RADPUL_EVAL
-    assert not (workdir["tmp"] / "port.cand").exists()
+    calls = _count_device_medians(monkeypatch)
+    assert _run("port", workdir, "port", white=True) == 0
+    assert _run("jax", workdir, "jax", white=True) == 0
+    assert calls == ["port", "jax"]
+    _assert_device_rows_match_jax(workdir)
 
 
-def test_check_median_refuses_device_only(monkeypatch):
-    """As in the JAX package the value is compared as given: only
-    ``device`` is refused; every other value loads the native median."""
+@pytest.mark.parametrize("library", ["loads", "missing"])
+def test_check_median_refuses_device_only(monkeypatch, tmp_path, library):
+    """``check_median`` resolves every value as the JAX package's dispatch
+    (``ops/whiten.py:198-218``) does, the value compared as given:
+    ``native`` with no library is ``RADPUL_EVAL``, ``device`` or no
+    library the device median, anything else the native one.  (The name
+    is from when the port refused ``device``.)"""
     from boinc_app_eah_brp_tpu_torch.runtime.errors import RadpulError
 
-    monkeypatch.setenv("ERP_MEDIAN", "device")
-    with pytest.raises(RadpulError) as e:
-        whiten.check_median()
-    assert e.value.code == RADPUL_EVAL
-    for value in ("", "auto", "Native", "native"):
+    lib = native_median.load() if library == "loads" else str(tmp_path / "absent" / "liberp_rngmed.so")
+    monkeypatch.setenv("ERP_RNGMED_LIB", lib)
+    for value in ("", "auto", "Native", "native", "device", "DEVICE", " device"):
         monkeypatch.setenv("ERP_MEDIAN", value)
-        whiten.check_median()
-    assert native_median._lib is not None
+        _forget_median_libraries(monkeypatch)
+        have = jax_native_median.native_available()
+        assert have == (library == "loads")
+        want = "refused" if value == "native" and not have else "native" if value != "device" and have else "device"
+        try:
+            got = whiten.check_median()
+        except RadpulError as e:
+            assert e.code == RADPUL_EVAL
+            got = "refused"
+        assert got == want, value
 
 
 def test_step_cache_key_folds_the_precision_mode(monkeypatch):

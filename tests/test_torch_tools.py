@@ -241,6 +241,94 @@ def test_tools_default_to_the_card(tmp_path):
             tool.main(["--workdir", str(tmp_path)] if tool is not precision_audit else [])
 
 
+def test_median_study_on_the_cpu(tmp_path):
+    """The median study at a fixture size on the CPU (the device median's
+    plain version): both paths, bitwise equal, the default recorded."""
+    path = tmp_path / "median.json"
+    r = _tool("median_study", "--device", "cpu", "--n", "6000", "--repeat", "1", "--json", str(path))
+    assert r.returncode == 0, r.stderr
+    doc = json.loads(path.read_text())
+    assert doc["default"] == "native" and doc["backend"] == "cpu"
+    assert doc["native_cpp_s"] > 0 and doc["device_s"] > 0 and doc["device_cold_s"] > 0
+    assert doc["paths_agree_bitwise"] and doc["differing"] == 0 and doc["max_ulp"] == 0
+    r = _tool("median_study", "--skip-device", "--n", "3000", "--json", str(path))
+    assert r.returncode == 0, r.stderr
+    assert "device_s" not in json.loads(path.read_text())
+
+
+def test_median_study_counts_ulps():
+    from boinc_app_eah_brp_tpu_torch.tools.median_study import chi2_spectrum, ulp_diff
+
+    a = chi2_spectrum(100)
+    b = a.copy()
+    b[[3, 50]] = np.nextafter(b[[3, 50]], np.float32(np.inf))
+    b[50] = np.nextafter(b[50], np.float32(np.inf))
+    assert ulp_diff(a, a) == (0, 0) and ulp_diff(a, b) == (2, 2)
+
+
+def test_stagebench_median_times_the_device_median(monkeypatch):
+    """``--median`` times the device median (``ops/median.py``), as the
+    JAX tool's does, and the host median once beside it."""
+    from boinc_app_eah_brp_tpu_torch.ops import median, native_median
+    from boinc_app_eah_brp_tpu_torch.tools import bench, stagebench
+
+    calls = {"device": 0, "native": 0}
+    real_device, real_native = median.running_median, native_median.running_median
+
+    def device(*a, **k):
+        calls["device"] += 1
+        return real_device(*a, **k)
+
+    def native(*a, **k):
+        calls["native"] += 1
+        return real_native(*a, **k)
+
+    monkeypatch.setattr(median, "running_median", device)
+    monkeypatch.setattr(native_median, "running_median", native)
+    problem = bench.synthetic_problem(4096, 4)
+    calls.update(device=0, native=0)
+    art = stagebench.stage_times(problem, device="cpu", batch=2, repeat=2, median=True, log=lambda m: None)
+    assert calls["device"] == 3  # one warm-up and two timed
+    assert art["stages"]["running_median_ms"] > 0 and art["stages"]["running_median_native_ms"] > 0
+
+
+def test_bench_guard_times_the_native_median_only(tmp_path, monkeypatch):
+    """The port's bench guard (``tools/bench.py::ensure_native``): the
+    native median by default; ``ERP_MEDIAN=device`` exits and a library
+    that does not load is ``RADPUL_EVAL``, with no override."""
+    from boinc_app_eah_brp_tpu_torch.ops import native_median
+    from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EVAL, RadpulError
+    from boinc_app_eah_brp_tpu_torch.tools import bench
+
+    quiet = lambda m: None  # noqa: E731
+    monkeypatch.delenv("ERP_MEDIAN", raising=False)
+    assert bench.ensure_native(quiet) == native_median.load()
+    monkeypatch.setenv("ERP_MEDIAN", "device")
+    with pytest.raises(SystemExit, match="ERP_MEDIAN=device"):
+        bench.ensure_native(quiet)
+    monkeypatch.delenv("ERP_MEDIAN")
+    monkeypatch.setenv("ERP_RNGMED_LIB", str(tmp_path / "absent.so"))
+    monkeypatch.setattr(native_median, "_lib", None)
+    with pytest.raises(RadpulError) as e:
+        bench.ensure_native(quiet)
+    assert e.value.code == RADPUL_EVAL
+
+
+def test_make_bundle_ships_the_median_kernel(tmp_path):
+    """The bundle takes every source's library, the median's among them;
+    a kernel directory without it is refused, naming the file."""
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.tools import make_bundle
+
+    for n in kernels.SOURCES:
+        (tmp_path / kernels.library_name(n)).write_bytes(b"placeholder")
+    libs = make_bundle.kernel_libraries(str(tmp_path))
+    assert str(tmp_path / kernels.library_name("median")) in libs and len(libs) == len(kernels.SOURCES)
+    (tmp_path / kernels.library_name("median")).unlink()
+    with pytest.raises(RuntimeError, match=kernels.library_name("median")):
+        make_bundle.kernel_libraries(str(tmp_path))
+
+
 # ---------------------------------------------------------------------------
 # chaos_soak building blocks
 

@@ -7,11 +7,15 @@ window.  The whitening takes it where ``ERP_MEDIAN=device`` asks for it,
 or where the native ``rngmed`` (``ops/native_median.py``) does not load
 (``ops/whiten.py::check_median``); the native median stays the default.
 
-:func:`running_median` launches ``csrc/median.cu`` on a CUDA tensor,
-which picks its instantiation by the window: a tile's sorted union in
-shared memory up to window 15,361, in device-memory scratch above
-(:func:`scratch_entries`).  :func:`running_median_plain` is the plain
-PyTorch version, the reference package's blocked sort: ``unfold`` windows
+:func:`running_median` launches ``csrc/median.cu`` on a CUDA tensor: a
+block sorts the inputs of a tile of outputs once, and each thread carries
+the median along a run of consecutive outputs, one entry leaving and one
+entering the window each step, instead of walking the sorted tile for
+every output.  The kernel picks its instantiation by the window: the
+tile's sorted union in shared memory up to window 15,361, in
+device-memory scratch above (:func:`scratch_entries`).
+:func:`running_median_plain` is the plain PyTorch version, the
+reference package's blocked sort: ``unfold`` windows
 of ``block`` outputs at a time, ``torch.sort`` along the window, the
 central entries; the blocks bound its memory (the whole (n_out, w)
 matrix is 25 GB at production).

@@ -262,19 +262,35 @@ def median_cost(n: int, window: int) -> StageCost:
     return StageCost("median", "median", bytes=(n + n - window + 1) * F32, per="run")
 
 
-def median_steps(n: int, window: int, tile: int = 1024) -> dict:
-    """The median kernel's steps at this size (the model, not a count of
-    the run): ``walk``, the entries the threads read before they reach
-    the central rank, about ``n_out * (window // 2 + 1) * (tile + window
-    - 1) / window``; ``compare_exchanges``, the bitonic sorts of each
-    tile's union of ``next_pow2(tile + window - 1)`` entries."""
+def median_steps(n: int, window: int, tile: int = 1024, run: int = 16) -> dict:
+    """The median kernel's steps at this size (the model of
+    ``csrc/median.cu`` on independent draws, not a count of the run), for
+    tiles of ``tile`` outputs and runs of ``run`` outputs a thread (the
+    shared instantiation's sizes by default; the device-memory one above
+    window 15,361 takes tiles of 8,192): ``compare_exchanges``, the
+    bitonic sorts of each tile's union of ``next_pow2(tile + window - 1)``
+    entries; ``first_walk``, each tile's ``U = tile + window - 1`` ranks
+    read to count the entries below the walk's start J, and each run's
+    first output's walk from J to its central entry, ``|j - J|`` (the
+    union's ``tile - 1`` entries outside the window and the window's own
+    median both spread it) and about 12.5 reads of the groups of eight it
+    ends in; ``slide``, the entries read moving the central entry along a
+    run, ``U / (2 window)`` an output (it moves half the time, and
+    in-window entries lie ``U / window`` apart), and an even window's
+    upper entry, ``U / window`` an output."""
     n_out = n - window + 1
-    P = 1 << (tile + window - 2).bit_length()
+    U = tile + window - 1
+    P = 1 << (U - 1).bit_length()
     levels = P.bit_length() - 1
     tiles = -(-n_out // tile)
+    last = n_out - (tiles - 1) * tile
+    runs = (tiles - 1) * -(-tile // run) + -(-last // run)
+    spread = math.sqrt((tile - 1) / 4 * (1 + (tile - 1) / window) * 2 / math.pi)
     return dict(
-        walk=float(n_out) * (window // 2 + 1) * (tile + window - 1) / window,
+        tile=tile, run=run,
         compare_exchanges=float(tiles) * (P // 2) * levels * (levels + 1) // 2,
+        first_walk=float(tiles) * U + runs * (spread + 12.5),
+        slide=float(n_out - runs) * U / (2 * window) + (0.0 if window % 2 else float(n_out) * U / window),
     )
 
 

@@ -175,7 +175,8 @@ Phases:
    (``ops/median.py``, ``csrc/median.cu``): (1) the kernel bitwise
    against its plain version over phase 4's spectrum at windows 1000 and
    999 and at a window above one block's shared memory over its first
-   bins, each timed beside its plain version, and ``torch.median`` of
+   bins, each timed beside its plain version (and at 1000 and 999 beside
+   the kernel's step model), and ``torch.median`` of
    every odd window as the yardstick; (2) its outputs against the native
    rngmed's, counted with their largest ulp; (3) phase 4's command line
    under ``ERP_MEDIAN=device`` and with the knob unset and
@@ -2348,6 +2349,9 @@ def run_median(torch, workdir: str, wu: str) -> dict:
 
     rm, m1 = hold(ps, WINDOW, 10)
     rm_odd, m1_odd = hold(ps, WINDOW - 1, 10)
+    # the kernel's step model beside its time: sort, first walks, slide
+    for m, w in ((m1, WINDOW), (m1_odd, WINDOW - 1)):
+        m["steps"] = roofline.median_steps(n, w)
     _, m1_wide = hold(ps[:MEDIAN_WIDE_BINS].contiguous(), MEDIAN_WIDE, 3)
     check(m1["instantiation"] == "shared" and m1_wide["instantiation"] == "global",
           f"(m1) instantiations {m1['instantiation']} / {m1_wide['instantiation']}")
@@ -2366,7 +2370,7 @@ def run_median(torch, workdir: str, wu: str) -> dict:
     out["m1"] = {"production": m1, "production_odd": m1_odd, "wide": m1_wide, "library_ms_odd": library_ms}
     out["row"] = dict(
         max_abs_err=m1["max_abs_err"], ms=m1["ms"], plain_ms=m1["plain_ms"], library_ms=library_ms,
-        steps=roofline.median_steps(n, WINDOW), **roofline.median_cost(n, WINDOW).bound(),
+        steps=m1["steps"], **roofline.median_cost(n, WINDOW).bound(),
     )
 
     # (2) against the native rngmed
@@ -2656,7 +2660,10 @@ def main() -> int:
     m1, m2, m3 = median_m["m1"], median_m["m2"], median_m["m3"]
     print(
         f"median (m): kernel bitwise its plain version over {median_m['bins']} bins at window {WINDOW} "
-        f"({m1['production']['ms']:.4f} ms, plain {m1['production']['plain_ms']:.1f} ms), {WINDOW - 1} "
+        f"({m1['production']['ms']:.4f} ms, plain {m1['production']['plain_ms']:.1f} ms; step model "
+        f"{m1['production']['steps']['compare_exchanges']:.3g} compare-exchanges, "
+        f"{m1['production']['steps']['first_walk']:.3g} first-walk and {m1['production']['steps']['slide']:.3g} "
+        f"slide reads), {WINDOW - 1} "
         f"({m1['production_odd']['ms']:.4f} ms; torch.median {m1['library_ms_odd']:.1f} ms, equal "
         f"{median_m['library_equal_odd']}) and {MEDIAN_WIDE} over {MEDIAN_WIDE_BINS} bins "
         f"({m1['wide']['ms']:.4f} ms, plain {m1['wide']['plain_ms']:.1f} ms); against the native rngmed "

@@ -174,25 +174,41 @@ def test_fold_spectrum_matches_plain(dev, T, L, fund_hi, harm_hi):
     assert torch.equal(got, want)
 
 
-def _median_input(n, seed):
+def _median_input(n, seed, kind="draws"):
     """Non-negative float32 with zeros and ties (ops/median.py's keys are
-    the float's bits)."""
+    the float's bits), or a ramp up or down (the median moves one rank an
+    output), or a constant (only the position orders the keys)."""
+    if kind == "ascending":
+        return np.arange(n, dtype=np.float32) * np.float32(0.25)
+    if kind == "descending":
+        return np.arange(n, 0, -1, dtype=np.float32) * np.float32(0.25)
+    if kind == "constant":
+        return np.full(n, 1.5, dtype=np.float32)
     x = np.random.default_rng(seed).exponential(1.0, n).astype(np.float32)
     x[::13] = 0.0
     x[n // 3 : n // 3 + n // 10] = np.round(x[n // 3 : n // 3 + n // 10], 1)
     return x
 
 
-@pytest.mark.parametrize(
-    "n,window",
+_MEDIAN_CASES = [
     # odd and even windows, the last tile partial, exactly full (n_out 1024)
     # and one past; windows on both sides of the shared-memory limit
     # (15,361) and one far above it
-    [(5000, 1), (5000, 2), (5000, 3), (70001, 999), (70001, 1000), (2023, 1000), (2024, 1000),
-     (40000, 15361), (40000, 15362), (100000, 40001)],
+    (5000, 1), (5000, 2), (5000, 3), (70001, 999), (70001, 1000), (2023, 1000), (2024, 1000),
+    (40000, 15361), (40000, 15362), (100000, 40001),
+    # n_out 4,005: a multiple neither of a thread's run nor of a tile
+    (5003, 999),
+] + [(n, w, kind) for kind in ("ascending", "descending", "constant")
+     for n, w in ((5003, 1), (5003, 2), (70001, 999), (70001, 1000), (100000, 40001))]
+
+
+@pytest.mark.parametrize(
+    "n,window,kind",
+    [c if len(c) == 3 else (*c, "draws") for c in _MEDIAN_CASES],
+    ids=["-".join(map(str, c)) for c in _MEDIAN_CASES],
 )
-def test_median_matches_plain(dev, n, window):
-    x = torch.from_numpy(_median_input(n, n + window)).to(dev)
+def test_median_matches_plain(dev, n, window, kind):
+    x = torch.from_numpy(_median_input(n, n + window, kind)).to(dev)
     # the kernel takes its shared-memory instantiation up to window 15,361
     assert (median.scratch_entries(x.device, n, window) == 0) == (window <= 15361)
     before = kernels.launch_counts["median"]

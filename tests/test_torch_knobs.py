@@ -233,12 +233,11 @@ def _assert_device_rows_match_jax(workdir):
     assert diff.ok, diff.report()
 
 
-def test_median_device_is_refused_by_the_port_and_run_by_jax(workdir, monkeypatch, capfd):
-    """``ERP_MEDIAN=device`` in both packages (the name is the divergence
-    this case pinned until the port had a device median; it now holds them
-    equal): an unwhitened run takes no median in either package; each
-    whitened command line logs the device path, whitens with its device
-    median once and writes a file, and the rows agree."""
+def test_median_device_runs_in_both_packages_and_rows_agree(workdir, monkeypatch, capfd):
+    """``ERP_MEDIAN=device`` in both packages: an unwhitened run takes no
+    median in either package; each whitened command line logs the device
+    path, whitens with its device median once and writes a file, and the
+    rows agree."""
     monkeypatch.setenv("ERP_MEDIAN", "device")
     calls = _count_device_medians(monkeypatch)
     assert _run("port", workdir, "unwhitened") == 0
@@ -253,11 +252,10 @@ def test_median_device_is_refused_by_the_port_and_run_by_jax(workdir, monkeypatc
     _assert_device_rows_match_jax(workdir)
 
 
-def test_median_unset_without_the_library_is_radpul_eval_in_the_port(workdir, monkeypatch):
+def test_median_unset_without_the_library_takes_the_device_median_in_both(workdir, monkeypatch):
     """``ERP_MEDIAN`` unset and a native library that does not load: both
-    packages fall back to their device median and write a file (the name
-    is the refusal this case pinned until the port had a device median),
-    and the rows agree."""
+    packages fall back to their device median and write a file, and the
+    rows agree."""
     monkeypatch.delenv("ERP_MEDIAN", raising=False)
     monkeypatch.setenv("ERP_RNGMED_LIB", str(workdir["tmp"] / "absent" / "liberp_rngmed.so"))
     _forget_median_libraries(monkeypatch)

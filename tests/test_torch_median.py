@@ -113,14 +113,131 @@ def test_a_failed_native_build_is_tried_once(monkeypatch, tmp_path):
     assert "median" in kernels.SOURCES and "median" in kernels.KERNELS
 
 
+def order_keys(x: np.ndarray) -> np.ndarray:
+    """``csrc/median.cu::key_of``: the float's bits mapped so that unsigned
+    order is float order."""
+    b = x.view(np.uint32)
+    return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint64)
+
+
+def slide_model(x: np.ndarray, w: int, tile: int, run: int) -> tuple[np.ndarray, dict]:
+    """A numpy model of ``csrc/median.cu``'s walk: per tile of ``tile``
+    outputs the sorted union of 64-bit entries (key above position, padded
+    to a power of two) and its rank map; per run of ``run`` outputs the
+    first walk, from index J where the central entry is expected, in
+    groups of eight then entry by entry, to the entry with k_lo in-window
+    entries below it; then the slide (the leaving entry ``rank[t]``, the
+    entering ``rank[t + w]``, j moved to the next or previous in-window
+    entry), and an even window's upper entry the next in-window entry
+    after j.  Returns the medians and the entries each part read (the
+    first walk's count of in-window entries below J: a tile's ranks)."""
+    n = x.shape[0]
+    n_out = n - w + 1
+    k_hi = w // 2
+    k_lo = k_hi if w % 2 else k_hi - 1
+    P = 1 << (tile + w - 2).bit_length()
+    J = min(((k_lo + 1) * (tile + w - 1) // w) & ~7, P - 8)
+    keys = order_keys(x)
+    out = np.empty(n_out, dtype=np.float32)
+    steps = dict(first_walk=0, slide=0)
+    for o0 in range(0, n_out, tile):
+        U = min(tile + w - 1, n - o0)
+        a = np.full(P, np.uint64(0xFFFFFFFFFFFFFFFF))
+        a[:U] = np.sort((keys[o0 : o0 + U] << np.uint64(32)) | np.arange(U, dtype=np.uint64))
+        pos = (a & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        rank = np.empty(U, dtype=np.int64)
+        rank[pos[:U]] = np.arange(U)
+        steps["first_walk"] += U
+        for t0 in range(0, min(tile, n_out - o0), run):
+            t = t0
+            inside = (pos >= t) & (pos < t + w)
+            j = int(np.flatnonzero(inside)[k_lo])
+            if inside[:J].sum() <= k_lo:  # forward: whole groups, then j's group up to j
+                steps["first_walk"] += (j - J) // 8 * 8 + 8 + (j - J) % 8 + 1
+            else:  # backward
+                steps["first_walk"] += (J - 1 - j) // 8 * 8 + 8 + (J - 1 - j) % 8 + 1
+            for i in range(min(run, tile - t0, n_out - o0 - t0)):
+                if i:
+                    ra, rb = rank[t], rank[t + w]
+                    t += 1
+                    inside[ra], inside[rb] = False, True
+                    c = k_lo - (ra < j) + (rb < j)
+                    if c < k_lo or (c == k_lo and ra == j):
+                        q = j + 1 + int(np.argmax(inside[j + 1 :]))
+                    elif c > k_lo:
+                        q = j - 1 - int(np.argmax(inside[j - 1 :: -1]))
+                    else:
+                        q = j
+                    steps["slide"] += abs(q - j)
+                    j = q
+                lo = np.float32(x[o0 + pos[j]])
+                if w % 2:
+                    out[o0 + t] = lo
+                else:
+                    h = j + 1 + int(np.argmax(inside[j + 1 :]))
+                    steps["slide"] += h - j
+                    out[o0 + t] = (lo + np.float32(x[o0 + pos[h]])) * np.float32(0.5)
+    return out, steps
+
+
+def model_input(kind: str, n: int) -> np.ndarray:
+    rng = np.random.default_rng(n)
+    if kind == "ascending":
+        return np.arange(n, dtype=np.float32) * np.float32(0.25)
+    if kind == "descending":
+        return np.arange(n, 0, -1, dtype=np.float32) * np.float32(0.25)
+    if kind == "constant":
+        return np.full(n, 1.5, dtype=np.float32)
+    x = rng.exponential(1.0, n).astype(np.float32)
+    x[rng.random(n) < 0.6] = 0.0  # zero-heavy: most of each window ties at zero
+    return x
+
+
+# (tile, run): the shared instantiation's sizes, and runs and tiles with
+# ragged ends (a run that does not divide the tile, n_out that neither divides)
+SLIDE_SIZES = [(1024, 16), (100, 7), (37, 37)]
+
+
+@pytest.mark.parametrize("tile,run", SLIDE_SIZES)
+@pytest.mark.parametrize("window", [1, 2, 999, 1000])
+@pytest.mark.parametrize("kind", ["ascending", "descending", "constant", "zero_heavy", "spectrum"])
+def test_slide_model_matches_plain_bitwise(kind, window, tile, run):
+    n = 3001
+    x = spectrum(n, window) if kind == "spectrum" else model_input(kind, n)
+    got, _ = slide_model(x, window, tile, run)
+    want = median.running_median_plain(torch.from_numpy(x), bsize=window)
+    assert got.tobytes() == want.numpy().tobytes()
+
+
+@pytest.mark.parametrize("window", [999, 1000])
+def test_step_model_matches_the_slide_model(window):
+    """``roofline.median_steps`` against the entries the slide model reads
+    on exponential draws, within 15%, and the sort's compare-exchanges
+    exactly (a bitonic network of next_pow2(tile + w - 1) entries)."""
+    n, tile, run = 8000, 1024, 16
+    x = np.random.default_rng(window).exponential(1.0, n).astype(np.float32)
+    _, counted = slide_model(x, window, tile, run)
+    steps = roofline.median_steps(n, window, tile=tile, run=run)
+    assert steps["first_walk"] == pytest.approx(counted["first_walk"], rel=0.15)
+    assert steps["slide"] == pytest.approx(counted["slide"], rel=0.15)
+    assert steps["compare_exchanges"] == -(-(n - window + 1) // tile) * 1024 * 66
+
+
 def test_roofline_counts_the_median():
     cost = roofline.median_cost(6_291_457, 1000)
     assert cost.bytes == (6_291_457 + 6_290_458) * 4
     b = cost.bound()
     assert b["bound_by"] == "bytes" and b["bound_ms"] == pytest.approx(0.015, abs=5e-4)
+    # tile 1,024 (a union of 2,023 in 2,048 entries), runs of 16: 6,144
+    # tiles of 2,023 ranks and 393,154 runs (the last tile's 26 outputs are
+    # two), each walking ~18.1 + 12.5 entries from J; ~3 slide reads an
+    # output, ~1 at the odd window (a walk from index 0 for every output
+    # would read 6.38e9 entries)
     steps = roofline.median_steps(6_291_457, 1000)
-    assert steps["walk"] == pytest.approx(6.3e9, rel=0.02)
     assert steps["compare_exchanges"] == 6144 * 1024 * 66
+    assert steps["first_walk"] == pytest.approx(6144 * 2023 + 393_154 * 30.61, rel=1e-3)
+    assert steps["slide"] == pytest.approx((6_290_458 - 393_154) * 1.0115 + 6_290_458 * 2.023)
+    assert roofline.median_steps(6_291_457, 999)["slide"] == pytest.approx((6_290_459 - 393_154) * 2022 / 1998)
 
 
 @pytest.mark.parametrize("window", [200, 201])

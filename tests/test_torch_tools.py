@@ -256,6 +256,40 @@ def test_median_study_on_the_cpu(tmp_path):
     assert "device_s" not in json.loads(path.read_text())
 
 
+def test_median_study_kernel_windows_need_a_card():
+    """``--kernel-windows`` times the kernel itself at chip_smoke.py phase
+    (m1)'s windows: without a card it refuses rather than time the plain
+    version."""
+    import torch
+
+    from boinc_app_eah_brp_tpu_torch.tools import median_study
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    assert [w for w, _, _ in median_study.KERNEL_WINDOWS] == [1000, 999, 40001]
+    with pytest.raises(RuntimeError, match="none is available"):
+        median_study.main(["--kernel-windows", "--n", "3000"])
+
+
+def test_median_study_split_cuts_the_kernels_runs():
+    """``--split``'s two cuts of ``csrc/median.cu`` apply to the source as
+    it stands (each replaces the shared kernel's one call of its runs), and
+    a source without that call is refused rather than timed whole."""
+    import os
+
+    from boinc_app_eah_brp_tpu_torch.ops import kernels
+    from boinc_app_eah_brp_tpu_torch.tools import median_study
+
+    with open(os.path.join(kernels.CSRC, "median.cu")) as f:
+        source = f.read()
+    cuts = median_study.split_sources(source)
+    assert set(cuts) == {"sort", "first_walk"}
+    for name, text in cuts.items():
+        assert median_study.RUN_CALL not in text and median_study.SPLIT_CUTS[name] in text
+    with pytest.raises(ValueError, match="no longer runs median_run"):
+        median_study.split_sources(source.replace(median_study.RUN_CALL, ""))
+
+
 def test_median_study_counts_ulps():
     from boinc_app_eah_brp_tpu_torch.tools.median_study import chi2_spectrum, ulp_diff
 

@@ -570,7 +570,7 @@ def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, step_cache
     the watchdog (``dispatch``: the enqueue, the first one with the kernel
     build and the cuFFT plan) and the fault points ``h2d`` and
     ``dispatch``, under the JAX package's names."""
-    from ..runtime import faultinject, flightrec, metrics, profiling, steptime, tracing, watchdog
+    from ..runtime import faultinject, flightrec, metrics, steptime, tracing, watchdog
     from ..runtime.health import watchdog as health_watchdog
 
     dev = ts.device
@@ -604,7 +604,7 @@ def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, step_cache
         t0 = time.perf_counter()
         with watchdog.guard("dispatch", start=start_b, stop=stop):
             faultinject.fault_point("dispatch", start=start_b, stop=stop)
-            with tracing.span("dispatch", start=start_b, stop=stop), profiling.annotate("erp:dispatch"):
+            with tracing.span("dispatch", start=start_b, stop=stop):
                 # templates past n_stop are masked like the padding of a last batch
                 out = step(ts, start_b, n_stop)
                 if wd is not None:

@@ -17,6 +17,10 @@ source was compiled.  ctypes binds every pointer and
 the stream as ``c_void_p``; each C entry returns ``cudaGetLastError()``
 and :func:`check` raises when it is not 0.
 
+The first load of the libraries is a ``kernel-load`` span of
+``runtime/tracing.py`` (the build check, ``ctypes.CDLL``, the
+signatures).
+
 ``launch_counts`` holds one plain integer per kernel entry (``KERNELS``):
 a wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that it went through the kernels.  One source may serve several
@@ -31,7 +35,9 @@ in its two instantiations (entry ``median``).
 
 :func:`planned_fft` runs the port's ``torch.fft`` transforms and tells
 :data:`plan_listeners` how many cuFFT plans each created, on the thread
-that created them.
+that created them; the first transform of each (device, shape, dtype,
+transform, arguments) key, where torch makes the plan, is a
+``cufft-plan`` span.
 """
 
 from __future__ import annotations
@@ -102,6 +108,10 @@ build_listeners: list = []
 # callables told the number of cuFFT plans a transform of planned_fft just
 # created, on its thread (the metrics layer's plan counters)
 plan_listeners: list = []
+# the (device, shape, dtype, transform, arguments) keys planned_fft has
+# run on the card; emptied with torch's plan caches
+# (runtime/resilience.py::release_device_memory), under _plan_lock
+planned_keys: set = set()
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas's resource report of each kernel built by this process
@@ -208,20 +218,23 @@ def library(name: str) -> ctypes.CDLL:
     there (:func:`shipped_paths`)."""
     with _lock:
         if name not in _libs:
-            shipped = kernel_dir()
-            if shipped is not None:
-                paths = shipped_paths(shipped)
-            else:
-                build()
-                paths = {n: library_path(n) for n in SOURCES}
-            for n in SOURCES:
-                if n in _libs:
-                    continue
-                lib = ctypes.CDLL(paths[n])
-                for fn, argtypes in _SIGNATURES[n].items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-                _libs[n] = lib
+            from ..runtime import tracing
+
+            with tracing.span("kernel-load"):
+                shipped = kernel_dir()
+                if shipped is not None:
+                    paths = shipped_paths(shipped)
+                else:
+                    build()
+                    paths = {n: library_path(n) for n in SOURCES}
+                for n in SOURCES:
+                    if n in _libs:
+                        continue
+                    lib = ctypes.CDLL(paths[n])
+                    for fn, argtypes in _SIGNATURES[n].items():
+                        getattr(lib, fn).argtypes = argtypes
+                        getattr(lib, fn).restype = ctypes.c_int
+                    _libs[n] = lib
             if shipped is not None:
                 for fn in build_listeners:
                     fn(0, 0.0)
@@ -244,15 +257,24 @@ def planned_fft(transform, x, **kwargs):
     :data:`plan_listeners` how many cuFFT plans it created.  torch's plan
     cache of ``x``'s card is read before and after the call under one lock,
     so a transform on another thread is never counted as this one's (cuFFT
-    makes a plan on the calling thread, before the launch)."""
+    makes a plan on the calling thread, before the launch).  The first
+    call of a key is a ``cufft-plan`` span."""
     if x.device.type != "cuda":
         return transform(x, **kwargs)
     import torch
 
+    from ..runtime import tracing
+
     cache = torch.backends.cuda.cufft_plan_cache[x.device.index]
+    key = (str(x.device), tuple(x.shape), x.dtype, transform, tuple(sorted(kwargs.items())))
     with _plan_lock:
         before = cache.size
-        out = transform(x, **kwargs)
+        if key in planned_keys:
+            out = transform(x, **kwargs)
+        else:
+            planned_keys.add(key)
+            with tracing.span("cufft-plan", shape=str(tuple(x.shape)), transform=transform.__name__):
+                out = transform(x, **kwargs)
         made = cache.size - before
     if made > 0:
         for fn in plan_listeners:

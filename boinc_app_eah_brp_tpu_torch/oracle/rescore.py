@@ -16,6 +16,12 @@ its winners are scored in the background while the card searches on, and
 the end-of-run pass only scores what won after the last checkpoint.  The
 scores are the same either way: a cached value is reused only for the
 exact (template, level, bin) it was computed for.
+
+Each oracle pass is three spans of ``runtime/tracing.py``
+(``rescore.resample``, ``rescore.fft``, ``rescore.harmonics``, each with
+its template) and one count of the ``rescore.templates`` counter, in the
+background and at the end alike; the pool's threads carry the workunit
+id of the thread that handed them the work.
 """
 
 from __future__ import annotations
@@ -75,16 +81,24 @@ def _winning_pairs(candidates_all: np.ndarray, emitted: np.ndarray):
 
 def _score_template(ts: np.ndarray, derived: DerivedParams, tpl: tuple, pairs) -> dict:
     """One oracle pass for ``tpl``, evaluated at the requested (k, f0)."""
+    from ..runtime import metrics, tracing
+
     P, tau, psi0 = tpl
-    params = ResampleParams.from_template(P, tau, psi0, derived.dt, derived.nsamples, derived.n_unpadded)
-    resampled, _, _ = resample(ts, params)
-    ps = power_spectrum(resampled, 1.0 / derived.nsamples)
-    return {
-        (k, f0): harmonic_power_at(
-            ps, f0, k, derived.window_2, derived.fundamental_idx_hi, derived.harmonic_idx_hi
-        )
-        for (k, f0) in pairs
-    }
+    template = (float(P), float(tau), float(psi0))
+    with tracing.span("rescore.resample", template=template):
+        params = ResampleParams.from_template(P, tau, psi0, derived.dt, derived.nsamples, derived.n_unpadded)
+        resampled, _, _ = resample(ts, params)
+    with tracing.span("rescore.fft", template=template):
+        ps = power_spectrum(resampled, 1.0 / derived.nsamples)
+    with tracing.span("rescore.harmonics", template=template):
+        out = {
+            (k, f0): harmonic_power_at(
+                ps, f0, k, derived.window_2, derived.fundamental_idx_hi, derived.harmonic_idx_hi
+            )
+            for (k, f0) in pairs
+        }
+    metrics.counter("rescore.templates").inc()
+    return out
 
 
 def unique_winner_count(emitted: np.ndarray) -> int:
@@ -124,8 +138,13 @@ def rescore_winners(
         if missing:
             todo[tpl] = missing
 
+    from ..runtime import tracing
+
+    wu = tracing.workunit()
+
     def one(tpl):
-        return tpl, _score_template(ts, derived, tpl, todo[tpl])
+        with tracing.for_workunit(wu):
+            return tpl, _score_template(ts, derived, tpl, todo[tpl])
 
     workers = max_workers or min(8, os.cpu_count() or 1, len(todo) or 1)
     if workers > 1 and len(todo) > 1:
@@ -179,8 +198,11 @@ class IncrementalRescorer:
                 self._ts = np.asarray(self._get_ts(), dtype=np.float32)
             return self._ts
 
-    def _run(self, tpl: tuple, pairs: frozenset) -> None:
-        scores = _score_template(self._series(), self._derived, tpl, pairs)
+    def _run(self, tpl: tuple, pairs: frozenset, wu: str | None) -> None:
+        from ..runtime import tracing
+
+        with tracing.for_workunit(wu):
+            scores = _score_template(self._series(), self._derived, tpl, pairs)
         with self._scored_lock:
             self._scored.setdefault(tpl, {}).update(scores)
 
@@ -190,7 +212,7 @@ class IncrementalRescorer:
         pool = self._pool
         if pool is None:
             return
-        from ..runtime import faultinject, flightrec, metrics
+        from ..runtime import faultinject, flightrec, metrics, tracing
         from .toplist import finalize_candidates
 
         # an injected failure here fails this observe's future and counts
@@ -203,6 +225,7 @@ class IncrementalRescorer:
         if len(emitted) == 0:
             return
         wanted, _ = _winning_pairs(candidates_all, emitted)
+        wu = tracing.workunit()
         for tpl, pairs in wanted.items():
             with self._scored_lock:
                 have = set(self._scored.get(tpl, {}))
@@ -213,7 +236,7 @@ class IncrementalRescorer:
             self.submitted += 1
             metrics.counter("rescore.submitted").inc()
             try:
-                self._futures.append(pool.submit(self._run, tpl, frozenset(missing)))
+                self._futures.append(pool.submit(self._run, tpl, frozenset(missing), wu))
             except RuntimeError:
                 # finalize() or abort() shut the pool down meanwhile; the
                 # end-of-run rescore computes whatever is missing
@@ -230,11 +253,12 @@ class IncrementalRescorer:
         from ..runtime import tracing, watchdog
 
         # the feed worker's span carries the trace context of the batch
-        # whose checkpoint queued it
-        ctx = tracing.context()
+        # whose checkpoint queued it, and its workunit
+        ctx, wu = tracing.context(), tracing.workunit()
 
         def feed_observe():
             tracing.set_context(ctx)
+            tracing.set_workunit(wu)
             with watchdog.guard("rescore_feed"), tracing.span("rescore-feed", tid="rescore-feed"):
                 self.observe(build())
 

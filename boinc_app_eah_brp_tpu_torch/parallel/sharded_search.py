@@ -229,7 +229,7 @@ def _run_bank_sharded_attempt(series, params, geom, mesh, n, n_stop, means, prog
     ``mesh.size * per_dev`` templates, bracketed for the metrics, the
     trace, the flight recorder, the watchdog (``dispatch``) and the fault
     points ``h2d`` and ``dispatch``, as in ``run_bank``."""
-    from ..runtime import faultinject, flightrec, metrics, profiling, steptime, tracing, watchdog
+    from ..runtime import faultinject, flightrec, metrics, steptime, tracing, watchdog
     from ..runtime.health import watchdog as health_watchdog
 
     wd = health_watchdog()
@@ -257,7 +257,7 @@ def _run_bank_sharded_attempt(series, params, geom, mesh, n, n_stop, means, prog
         t0 = time.perf_counter()
         with watchdog.guard("dispatch", start=start_b, stop=stop):
             faultinject.fault_point("dispatch", start=start_b, stop=stop)
-            with tracing.span("dispatch", start=start_b, stop=stop), profiling.annotate("erp:dispatch"):
+            with tracing.span("dispatch", start=start_b, stop=stop):
                 vecs = step(series, start_b, n_stop)
                 if wd is not None:
                     M, T = step.merged()

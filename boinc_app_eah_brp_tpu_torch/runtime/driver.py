@@ -105,7 +105,15 @@ def _select_devices(args: DriverArgs, init_data) -> tuple[str, int]:
     pinned = chosen.startswith("cuda:")
     if pinned and (args.mesh_devices or 0) > 1:
         raise RadpulError(RADPUL_EVAL, "-D/--device and --mesh N>1 are mutually exclusive.")
-    dev = resolve_device(chosen)
+    if chosen.startswith("cpu"):
+        dev = resolve_device(chosen)
+    else:
+        # CUDA's driver and the chosen card's context, made here at a
+        # named point, not inside whichever call first touches the card
+        with tracing.span("cuda-init", device=chosen):
+            dev = resolve_device(chosen)
+            if dev.index < torch.cuda.device_count():
+                torch.cuda.synchronize(dev)
     visible = local_devices(dev.type)
     if pinned and dev.index >= len(visible):
         raise RadpulError(
@@ -130,8 +138,11 @@ def _run_search(args: DriverArgs, adapter: BoincAdapter) -> int:
     # the process's start on the host timeline: the session's modules
     # (torch with them), the multi-process identity and the devices
     with tracing.span("startup"):
-        from .initdata import load_init_data
-        from .session import Session
+        with tracing.span("import"):
+            from ..models import search  # noqa: F401  (the search and its kernels' wrappers)
+            from ..oracle import rescore  # noqa: F401
+            from .initdata import load_init_data
+            from .session import Session
 
         erplog.info("Starting data processing...\n")
         # the fault-injection schedule, loudly (a malformed ERP_FAULT_SPEC is a

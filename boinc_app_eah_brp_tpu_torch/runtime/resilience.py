@@ -376,11 +376,12 @@ def release_device_memory() -> None:
     torch = sys.modules.get("torch")
     if torch is None or not torch.cuda.is_initialized():
         return
-    from ..ops.kernels import _plan_lock
+    from ..ops import kernels
 
-    with _plan_lock:
+    with kernels._plan_lock:
         for i in range(torch.cuda.device_count()):
             torch.backends.cuda.cufft_plan_cache[i].clear()
+        kernels.planned_keys.clear()
     torch.cuda.empty_cache()
 
 

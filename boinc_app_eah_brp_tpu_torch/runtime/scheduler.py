@@ -27,6 +27,9 @@ directory) and a cuFFT plan for each new transform size.  The serving tier
   its own session (``metrics.charged_to``), so a kernel build or cuFFT
   plan of the overlapped prep counts in the session it prepares.
 
+A session's wait for the card (the served queue) is an ``exec-wait`` span
+of its workunit (``runtime/tracing.py``).
+
 Per-Session isolation: every :meth:`execute` arms the hang watchdog with
 THAT session's incident log, starts a fresh retry budget and fault
 schedule, maps the driver's error classes to a failed
@@ -39,13 +42,14 @@ Imports no torch at module import, like the runtime layers it drives.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 
-from . import faultinject, metrics, resilience, steptime, watchdog
+from . import faultinject, metrics, resilience, steptime, tracing, watchdog
 from . import logging as erplog
 from .errors import exit_code_for
 from .obs import ObsContext
@@ -312,6 +316,17 @@ class Scheduler:
         with metrics.charged_to(_window(session)):
             return session.prepare()
 
+    @contextlib.contextmanager
+    def _exec_slot(self, session):
+        """The card for ``session`` alone (``_exec_lock``); the wait for it
+        is an ``exec-wait`` span of the session's workunit."""
+        with tracing.for_workunit(session.wu_id), tracing.span("exec-wait"):
+            self._exec_lock.acquire()
+        try:
+            yield
+        finally:
+            self._exec_lock.release()
+
     def execute(self, session, prep_future: Future | None = None) -> SessionResult:
         """Run one (possibly pre-prepared) Session on the device,
         serialized against every other Session, and release its tensors.
@@ -325,7 +340,7 @@ class Scheduler:
         err: str | None = None
         gap_s: float | None = None
         step_cursor = steptime.count()
-        with self._exec_lock:
+        with self._exec_slot(session):
             t0 = time.perf_counter()
             if self._last_exec_end is not None:
                 gap_s = t0 - self._last_exec_end

@@ -203,6 +203,14 @@ class Session:
         self.adapter = adapter or self.env.make_adapter()
         self.obs = obs
         self.corr_id = corr_id or os.environ.get(metrics.CORR_ID_ENV) or None
+        # the workunit every span of this session carries
+        # (tracing.for_workunit): the caller's correlation id, a server's
+        # ticket (its scoped bundle's name), else $ERP_CORR_ID or the
+        # workunit file's name
+        self.wu_id = (
+            corr_id or (obs.name if obs is not None else None) or self.corr_id
+            or os.path.basename(args.inputfile)
+        )
         self.init_data = init_data
         self.batch_for = batch_for
         self.prepared = False
@@ -226,7 +234,7 @@ class Session:
         multi-process config (``parallel/distributed.py``; None: one
         process), both from the driver."""
         self._n_mesh, self._dist = int(n_mesh), dist
-        with tracing.span("setup"):
+        with tracing.for_workunit(self.wu_id), tracing.span("setup"):
             return self._prepare()
 
     def _prepare(self) -> "Session":
@@ -247,7 +255,8 @@ class Session:
         self.dev = resolve_device(args.device)
 
         # template bank: the full parse is its validation (demod_binary.c:507-544)
-        bank = read_template_bank(args.templatebank)
+        with tracing.span("input-read", what="bank"):
+            bank = read_template_bank(args.templatebank)
         template_total = len(bank)
         erplog.debug("Total amount of templates: %d\n", template_total)
         psi0_n = normalize_psi0(bank.psi0)
@@ -259,14 +268,13 @@ class Session:
 
         # checkpoint resume (demod_binary.c:546-652), newest good generation
         self.process_count = dist.num_processes if dist is not None else 1
-        resumed = (
-            load_resumable_checkpoint(
-                args.checkpointfile, template_total, args.inputfile,
-                bank_path=args.templatebank, process_count=self.process_count,
-            )
-            if args.checkpointfile
-            else None
-        )
+        resumed = None
+        if args.checkpointfile:
+            with tracing.span("input-read", what="checkpoint"):
+                resumed = load_resumable_checkpoint(
+                    args.checkpointfile, template_total, args.inputfile,
+                    bank_path=args.templatebank, process_count=self.process_count,
+                )
         seed_cands = None
         self.start_template = 0
         if resumed is not None:
@@ -306,7 +314,8 @@ class Session:
             )
         self.quarantined = quarantined
 
-        wu = read_workunit(args.inputfile)
+        with tracing.span("input-read", what="workunit"):
+            wu = read_workunit(args.inputfile)
         if args.debug:
             _dump_header(wu.header)
         cfg = SearchConfig(f0=args.f0, padding=args.padding, fA=args.fA, window=args.window, white=args.white)
@@ -333,8 +342,10 @@ class Session:
 
             if not args.zaplistfile:
                 raise RadpulError(RADPUL_EFILE, "Whitening requires a zaplist file (-l).")
+            with tracing.span("input-read", what="zaplist"):
+                zaplist = read_zaplist(args.zaplistfile)
             with profiling.phase("whitening"):
-                self.ts = whiten_and_zap(wu.samples, derived, cfg, read_zaplist(args.zaplistfile), device=self.dev)
+                self.ts = whiten_and_zap(wu.samples, derived, cfg, zaplist, device=self.dev)
         else:
             self.ts = torch.from_numpy(np.ascontiguousarray(wu.samples, dtype=np.float32)).to(self.dev)
         self.wu, self.cfg, self.derived, self.geom = wu, cfg, derived, geom
@@ -418,6 +429,10 @@ class Session:
         counts its hits and misses; None (the driver) changes nothing."""
         if not self.prepared:
             self.prepare()
+        with tracing.for_workunit(self.wu_id):
+            return self._execute(step_cache)
+
+    def _execute(self, step_cache) -> int:
         from ..models.search import run_bank
         from ..ops.harmonic import row_to_natural
         from ..oracle.rescore import (
@@ -477,7 +492,7 @@ class Session:
             """``fetch()`` copies from the card, so the host waits there for
             every batch queued before it: the watchdog's ``drain`` guard."""
             t0 = time.perf_counter()
-            with watchdog.guard("drain", stop=stop), tracing.span("drain", stop=stop), profiling.annotate("erp:drain"):
+            with watchdog.guard("drain", stop=stop), tracing.span("drain", stop=stop):
                 out = fetch()
             dt = time.perf_counter() - t0
             stall_s.inc(dt)
@@ -493,7 +508,7 @@ class Session:
         def checkpoint_now(n_done: int, M_now, T_now) -> None:
             if not allow_global_ckpt or (not args.checkpointfile and rescorer is None):
                 return
-            with tracing.span("checkpoint", n_done=n_done), profiling.annotate("erp:checkpoint"):
+            with tracing.span("checkpoint", n_done=n_done):
                 # host copies now: the next batch overwrites the device state
                 M_host, T_host = host_state(M_now, T_now, n_done)
                 if snap is not None:
@@ -503,7 +518,7 @@ class Session:
                 else:
                     rescorer.observe_async(lambda: self._candidates(M_host, T_host))
                 if sentinel is not None:
-                    with profiling.annotate("erp:sentinel-probe"):
+                    with tracing.span("sentinel-probe"):
                         sentinel.probe("checkpoint")
 
         def write_now(n_done: int, M_host, T_host) -> None:
@@ -700,9 +715,11 @@ class Session:
             raise
 
         cache = None
-        if rescorer is not None:
+        if rescore:
+            # the wait for the background rescorer (none is armed below 256
+            # templates, and the span holds no work)
             with tracing.span("rescore-finalize"):
-                cache = rescorer.finalize()
+                cache = rescorer.finalize() if rescorer is not None else None
         if rescore and len(emitted):
             with profiling.phase("oracle rescore"):
                 t0 = time.perf_counter()

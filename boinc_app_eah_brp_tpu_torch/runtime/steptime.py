@@ -447,6 +447,16 @@ def device_records_from_chrome(doc) -> list[dict]:
     return out
 
 
+def on_tracer_clock(records: list[dict], doc: dict, epoch_unix: float) -> list[dict]:
+    """``records`` of the Chrome trace ``doc`` moved onto the host
+    tracer's clock (``runtime/tracing.py``: µs since ``epoch_unix``).
+    The profiler's ``ts`` counts µs from the trace's
+    ``baseTimeNanoseconds``; both bases are Unix time, so the move is one
+    shift."""
+    shift = float(doc.get("baseTimeNanoseconds", 0)) / 1e3 - float(epoch_unix) * 1e6
+    return [{**r, "ts_us": r["ts_us"] + shift, "end_us": r["end_us"] + shift} for r in records]
+
+
 def device_idle_share(records: list[dict], n_gaps: int = 3) -> dict:
     """Busy and idle time of the card over the span of ``records`` (first
     start to last end): ``busy_us`` is the union of the records' intervals,
@@ -519,7 +529,9 @@ def capture_profile(logdir: str, lane: str = "device:measured"):
     """Device-profiling orchestrator: a ``torch.profiler`` session (CPU and
     CUDA activities) around the with-block, its Chrome trace written to
     ``<logdir>/trace.json``, the card's records mapped to stages and merged
-    into the host tracer's Chrome export as ``lane``.
+    into the host tracer's Chrome export as ``lane``, on the tracer's clock
+    (:func:`on_tracer_clock`), so a kernel sits under the host span that
+    launched it.
 
     Yields a :class:`ProfileCapture` filled on exit.  A run without a card
     yields a capture with no records and ``warning`` set — a logged
@@ -533,6 +545,7 @@ def capture_profile(logdir: str, lane: str = "device:measured"):
     os.makedirs(logdir, exist_ok=True)
     with_cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
     prof = profiling.start_profiler(with_cuda)
+    doc = {}
     try:
         yield cap
     finally:
@@ -540,7 +553,9 @@ def capture_profile(logdir: str, lane: str = "device:measured"):
             profiling.stop_profiler(prof, with_cuda)
             path = os.path.join(str(logdir), profiling.TRACE_NAME)
             prof.export_chrome_trace(path)
-            cap.records = device_records_from_chrome(path)
+            with open(path) as f:
+                doc = json.load(f)
+            cap.records = device_records_from_chrome(doc)
         except Exception as e:  # a dead profiler session must not mask the run
             cap.warning = f"profiler stop failed: {type(e).__name__}: {e}"
         if not cap.records and cap.warning is None:
@@ -552,8 +567,9 @@ def capture_profile(logdir: str, lane: str = "device:measured"):
             stage = r["args"]["stage"]
             cap.stage_ms[stage] = round(cap.stage_ms.get(stage, 0.0) + r["dur_us"] / 1e3, 3)
         cap.idle = device_idle_share(cap.records)
-        if cap.stage_records:
-            tracing.add_device_records(cap.stage_records)
+        epoch = tracing.epoch_unix()
+        if cap.stage_records and epoch is not None:
+            tracing.add_device_records(on_tracer_clock(cap.stage_records, doc, epoch))
         metrics.note_trace(str(logdir))
 
 

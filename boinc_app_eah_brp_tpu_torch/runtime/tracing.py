@@ -16,17 +16,37 @@ card (``drain``: the checkpoint's and the screensaver's copies, the final
 copy), the rescorer's feed thread, checkpoint + retry-backoff paths, and
 the driver's coarse phases (``setup``, ``finalize``, ``result-write``) —
 so ``tools/trace_report.py`` can attribute the run wall to named stalls.
-Device-side per-stage spans (measured by ``steptime.capture_profile``)
-merge onto ``device:*`` lanes of the Chrome export via
-``add_device_records``; they never enter the JSONL stream, whose records
-must stay strictly ordered by ``end_us``.
+The process's start is spanned too (``import``, ``cuda-init``,
+``kernel-load``, ``cufft-plan``, ``input-read``), the served queue
+(``exec-wait``) and each oracle pass of the rescoring
+(``rescore.resample``, ``rescore.fft``, ``rescore.harmonics``).
+Device-side per-stage spans (measured by ``steptime.capture_profile``,
+moved onto this module's clock) merge onto ``device:*`` lanes of the
+Chrome export via ``add_device_records``; they never enter the JSONL
+stream, whose records must stay strictly ordered by ``end_us``.
+
+**The profiler sees every span.**  Whenever a ``torch.profiler`` records,
+``span(name)`` also opens ``record_function("erp:" + name)``, whether or
+not this tracer is armed, so a profiler trace names the same stages
+(``runtime/profiling.py::phase`` spans its phases, so they appear as
+``erp:whitening``, ``erp:template loop``, ``erp:oracle rescore``).  The
+test is torch's own global flag, read from ``sys.modules`` (this module
+never imports torch).
+
+**Every span knows its workunit.**  A session marks its threads with
+:func:`for_workunit` (``runtime/session.py``: the correlation id, the
+server's ticket, or the workunit file's name); spans and instants opened
+there carry ``wu``, and the workers that serve the session (the server's
+prep thread, the rescorer's feed thread and pool) adopt the id the way
+they adopt the trace context.
 
 Design rules (same contract as ``metrics`` / ``flightrec`` /
 ``faultinject``):
 
-* **Near-zero cost when disabled.**  ``span()`` is a flag test returning
-  one shared no-op context manager; no file is created, no thread-local
-  state touched, and ``import tracing`` never imports torch.
+* **Near-zero cost when disabled.**  ``span()`` is a flag test and one
+  ``sys.modules`` lookup (is a profiler recording?) returning one shared
+  no-op context manager; no file is created, no thread-local state
+  touched, and ``import tracing`` never imports torch.
 * **Thread-safe.**  Spans open/close concurrently on the dispatch loop,
   prefetch worker, rescore feed and heartbeat threads; the ring and the
   stream share one lock, and the completion timestamp is taken INSIDE
@@ -61,6 +81,7 @@ apply only to the default context.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import os
 import sys
@@ -91,6 +112,12 @@ _DEFAULT_RING = 16384
 _MAX_ARG_CHARS = 200
 _MAX_DEVICE_RECORDS = 65536
 
+# a profiler range opened by each span: "erp:<name>"
+RANGE_PREFIX = "erp:"
+# torch's autograd profiler module, whose global flag says whether a
+# torch.profiler session records; looked up, never imported
+_PROFILER_MODULE = "torch.autograd.profiler"
+
 # spans at least this slow are mirrored into the flightrec event ring so
 # the blackbox dump of a crashed run shows its recent stalls without the
 # trace file (ordinary dispatch spans would flood the small ring)
@@ -108,7 +135,8 @@ def _short(v):
 
 class _NullSpan:
     """Shared no-op span: the whole disabled-path cost of a ``with
-    tracing.span(...)`` block is one flag test + two no-op calls."""
+    tracing.span(...)`` block is one flag test, one ``sys.modules``
+    lookup and two no-op calls."""
 
     __slots__ = ()
 
@@ -125,15 +153,76 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-class _Span:
-    __slots__ = ("owner", "name", "tid", "ctx", "args", "_start_us", "_depth")
+def _recording():
+    """torch's autograd profiler module while a ``torch.profiler`` session
+    records, else None (torch not loaded, or no session)."""
+    prof = sys.modules.get(_PROFILER_MODULE)
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        return prof
+    return None
 
-    def __init__(self, owner, name, tid, ctx, args):
+
+class _Range:
+    """The span of a disarmed tracer while a profiler records: the
+    profiler range alone."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, rf):
+        self._rf = rf
+
+    def __enter__(self):
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        return False
+
+    def set(self, **args) -> None:
+        pass
+
+
+# the workunit each thread works for (for_workunit); module-wide, so
+# every TraceContext's spans carry it
+_wu = threading.local()
+
+
+def workunit() -> str | None:
+    """The workunit id spans opened on this thread carry (None outside a
+    session)."""
+    return getattr(_wu, "id", None)
+
+
+def set_workunit(wu: str | None) -> None:
+    """Adopt a workunit id captured on another thread (a worker serving
+    that workunit's session)."""
+    _wu.id = wu
+
+
+@contextlib.contextmanager
+def for_workunit(wu: str | None):
+    """Spans opened on this thread inside the block carry ``wu``; the
+    thread's previous id comes back after it."""
+    prev = getattr(_wu, "id", None)
+    _wu.id = wu
+    try:
+        yield
+    finally:
+        _wu.id = prev
+
+
+class _Span:
+    __slots__ = ("owner", "name", "tid", "ctx", "wu", "args", "_rf", "_start_us", "_depth")
+
+    def __init__(self, owner, name, tid, ctx, args, rf=None):
         self.owner = owner
         self.name = name
         self.tid = tid
         self.ctx = ctx
+        self.wu = None
         self.args = args
+        self._rf = rf  # the profiler range, when a profiler records
         self._start_us = 0.0
         self._depth = 0
 
@@ -149,6 +238,7 @@ class _Span:
             self.tid = t.name
         if self.ctx is None:
             self.ctx = getattr(o._tls, "ctx", None)
+        self.wu = getattr(_wu, "id", None)
         stack = getattr(o._tls, "stack", None)
         if stack is None:
             stack = o._tls.stack = []
@@ -157,10 +247,16 @@ class _Span:
                 o._open[t.ident] = stack
         self._depth = len(stack)
         stack.append(self)
+        # the profiler range opens after the start and closes before the
+        # end: the span holds its range, and the range's cost
         self._start_us = o._now_us()
+        if self._rf is not None:
+            self._rf.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
         o = self.owner
         stack = o._tls.stack
         if stack and stack[-1] is self:
@@ -180,6 +276,8 @@ class _Span:
             "depth": self._depth,
             "ts_us": round(self._start_us, 1),
         }
+        if self.wu is not None:
+            rec["wu"] = self.wu
         if self.args:
             rec["args"] = {k: _short(v) for k, v in self.args.items()}
         if exc_type is not None:
@@ -196,7 +294,9 @@ class _Span:
             rec["end_us"] = round(end_us, 1)
             o._ring.append(rec)
             o._total += 1
-        o._stream_record(rec)
+            # written under the stamp's lock: a span closing on another
+            # thread cannot write its later stamp first
+            o._write_locked(rec)
         o._bridge(rec)
         return False
 
@@ -254,6 +354,14 @@ class TraceContext:
             return None
         return self._now_us()
 
+    def epoch_unix(self) -> float | None:
+        """The Unix time (s) this window's ``ts_us`` count from, or None
+        when disabled: what moves a profiler's records onto this clock
+        (``steptime.capture_profile``)."""
+        if not self._enabled:
+            return None
+        return self._epoch_unix
+
     # -- trace contexts (window ids propagated across threads) ------------
 
     def new_context(self) -> int:
@@ -288,11 +396,18 @@ class TraceContext:
     ):
         """Open a named span as a context manager.  ``tid`` overrides
         the timeline lane (defaults to the thread name), ``ctx`` the
-        trace context (defaults to the thread's current one).  Disabled
-        path: a shared inert object."""
+        trace context (defaults to the thread's current one).  While a
+        ``torch.profiler`` records, the span also opens the profiler range
+        ``erp:<name>``, armed or not.  Disabled path, no profiler: a
+        shared inert object."""
         if not self._enabled:
-            return _NULL_SPAN
-        return _Span(self, name, tid, ctx, dict(args) if args else {})
+            prof = _recording()
+            if prof is None:
+                return _NULL_SPAN
+            return _Range(prof.record_function(RANGE_PREFIX + name))
+        prof = _recording()
+        rf = prof.record_function(RANGE_PREFIX + name) if prof is not None else None
+        return _Span(self, name, tid, ctx, dict(args) if args else {}, rf)
 
     def instant(self, name: str, tid: str | None = None, **args) -> None:
         """A zero-duration marker on the timeline (Chrome ``i``
@@ -305,6 +420,9 @@ class TraceContext:
             "tid": tid or threading.current_thread().name,
             "ctx": getattr(self._tls, "ctx", None),
         }
+        wu = getattr(_wu, "id", None)
+        if wu is not None:
+            rec["wu"] = wu
         if args:
             rec["args"] = {k: _short(v) for k, v in args.items()}
         with self._state_lock:
@@ -315,7 +433,7 @@ class TraceContext:
             rec["ts_us"] = rec["end_us"] = round(ts, 1)
             self._ring.append(rec)
             self._total += 1
-        self._stream_record(rec)
+            self._write_locked(rec)
 
     def add_device_records(self, records: list[dict]) -> int:
         """Merge side-channel span records into the timeline.
@@ -433,13 +551,16 @@ class TraceContext:
     # -- stream + export --------------------------------------------------
 
     def _stream_record(self, rec: dict) -> None:
+        with self._state_lock:
+            self._write_locked(rec)
+
+    def _write_locked(self, rec: dict) -> None:
+        """Append ``rec`` to the stream; the caller holds ``_state_lock``."""
         if self._stream_path is None or self._stream_broken:
             return
         try:
-            line = json.dumps(rec, default=str)
-            with self._state_lock:
-                with open(self._stream_path, "a") as f:
-                    f.write(line + "\n")
+            with open(self._stream_path, "a") as f:
+                f.write(json.dumps(rec, default=str) + "\n")
         except OSError as e:
             # telemetry must never take down the search; warn once, stop
             self._stream_broken = True
@@ -573,6 +694,8 @@ class TraceContext:
             args = dict(rec.get("args") or {})
             if rec.get("ctx") is not None:
                 args["ctx"] = rec["ctx"]
+            if rec.get("wu") is not None:
+                args["wu"] = rec["wu"]
             if rec.get("error"):
                 args["error"] = rec["error"]
             base = {
@@ -726,6 +849,10 @@ def context() -> int | None:
 
 def set_context(ctx: int | None) -> None:
     _DEFAULT.set_context(ctx)
+
+
+def epoch_unix() -> float | None:
+    return _DEFAULT.epoch_unix()
 
 
 def span(name: str, tid: str | None = None, ctx: int | None = None, **args):

@@ -12,9 +12,13 @@ so the "template loop" phase bracket doesn't double-count the dispatch
 windows inside it).  Background lanes (the rescorer's feed thread) are
 reported separately: their busy time overlaps the main thread and is not
 part of the wall-clock attribution.  Device lanes get their own section:
-per-lane busy time, a per-stage breakdown, and a split of the host's
+per-lane busy time, a per-stage breakdown, a split of the host's
 drain-stall wall into device-bound time (the card was computing under the
-drain) versus host-stall.  The port's device lanes are the ``device:*``
+drain) versus host-stall.  :func:`idle_gaps` names the card's longest
+idle gaps, each by the innermost host span open at its middle on any
+thread (the benchmark's rule for its traced breakdown,
+``benchmark/bmlib/trace.py``; here with the worker threads a profiler may
+not see); the text report prints them under the table.  The port's device lanes are the ``device:*
 lanes of ``runtime/steptime.py`` (``device:measured``, the profiler's
 kernels of the step) and ``runtime/devicecost.py``
 (``device:estimated``), and the CUDA stream lanes of a PyTorch profiler
@@ -38,7 +42,8 @@ extent — instead of conflating every host's MainThread into one lane.
 
 Importable surface (used by ``tools/bench.py``, ``chip_smoke.py`` and the
 tests): :func:`load_trace`, :func:`stall_table`, :func:`host_tables`,
-:func:`window_table`, :func:`render`, :func:`diff_tables`.
+:func:`window_table`, :func:`idle_gaps`, :func:`render`,
+:func:`diff_tables`.
 """
 
 from __future__ import annotations
@@ -305,6 +310,23 @@ def _merged(spans: list[dict]) -> list[tuple]:
     return [tuple(iv) for iv in out]
 
 
+def idle_gaps(trace: dict, n: int = 10) -> list[dict]:
+    """The ``n`` longest stretches between the device lanes' busy
+    intervals, longest first, each named by the innermost (shortest) host
+    span open at its middle on any lane, or ``host`` where none is."""
+    host_spans = [s for s in trace["spans"] if not is_device_lane(s.get("tid"))]
+    busy = _merged([s for s in trace["spans"] if is_device_lane(s.get("tid"))])
+    out = []
+    for (_, a), (b, _) in zip(busy, busy[1:]):
+        mid = 0.5 * (a + b)
+        around = [
+            (s.get("dur_us", 0.0), str(s.get("name", "?"))) for s in host_spans
+            if s.get("ts_us", 0.0) <= mid <= s.get("end_us", s.get("ts_us", 0.0))
+        ]
+        out.append({"s": round((b - a) / 1e6, 6), "span": min(around)[1] if around else "host"})
+    return sorted(out, key=lambda g: -g["s"])[:n]
+
+
 def _device_table(device_spans: list[dict], host_spans: list[dict]) -> dict:
     """The device-side summary: per-lane busy time, per-stage breakdown,
     and the drain split — how much of the host's drain-stall wall the
@@ -539,6 +561,7 @@ def render(table: dict, title: str) -> str:
             f"{dev['drain_device_bound_s']:.3f} s device-bound + "
             f"{dev['drain_host_stall_s']:.3f} s host-stall"
         )
+
     return "\n".join(out)
 
 
@@ -649,6 +672,10 @@ def main(argv: list[str] | None = None) -> int:
             print(json.dumps(table))
         else:
             print(render(table, p))
+            gaps = idle_gaps(trace)
+            if gaps:
+                print("\nLongest device idle gaps, by the host span open at each one's middle:")
+                print(_table([(g["span"], f"{g['s']:.6f}") for g in gaps], ("span", "idle_s")))
         if args.windows:
             rows = [
                 (

@@ -420,10 +420,11 @@ class _FakePlanCache:
 
 
 def _on_card():
-    """A stand-in operand whose device is card 0 (for ops/kernels.py::planned_fft)."""
+    """A stand-in operand whose device is card 0 (for ops/kernels.py::planned_fft,
+    which keys its first-call span on the operand's shape and dtype)."""
     import torch
 
-    return types.SimpleNamespace(device=torch.device("cuda", 0))
+    return types.SimpleNamespace(device=torch.device("cuda", 0), shape=(8,), dtype=torch.float32)
 
 
 def test_cufft_plan_count_survives_a_cache_clear(monkeypatch):

@@ -31,7 +31,9 @@ kernel A's device functions), each also in its exact-sine instantiation
 (``--exact-sin``: ``resample_exact``, ``resample_t1_exact``,
 ``serial_mean_exact``), ``fold.cu`` the fold of float power and of
 the complex spectrum; ``median.cu`` the whitening's device running median
-in its two instantiations (entry ``median``).
+in its two instantiations (entry ``median``).  The end-of-run rescoring's
+launches of kernel A and the exact mean count apart from the search's
+(``rescore_resample``, ``rescore_serial_mean``).
 
 :func:`planned_fft` runs the port's ``torch.fft`` transforms and tells
 :data:`plan_listeners` how many cuFFT plans each created, on the thread
@@ -65,6 +67,8 @@ KERNELS = (
     "resample_exact", "resample_t1_exact", "serial_mean_exact",
     # the whitening's device running median (either of its instantiations)
     "median",
+    # kernel A and the exact mean (LUT sine) run by the end-of-run rescoring
+    "rescore_resample", "rescore_serial_mean",
 )
 MAX_GRID_T = 65535  # templates per FFT-prep launch: the batch is a grid dimension
 NVCC_FLAGS = (

@@ -188,11 +188,14 @@ def _resample_library(dev: torch.device):
     return lib
 
 
-def resample_stream(ts, params, *, n_unpadded: int, dt: float, renorm=None, exact_sin: bool = False):
+def resample_stream(
+    ts, params, *, n_unpadded: int, dt: float, renorm=None, exact_sin: bool = False, count_as: str | None = None
+):
     """Kernel A over the time series ``ts`` and the template batch
     ``params`` (:func:`stream_params`), in its exact-sine instantiation
     with ``exact_sin``; see :func:`resample_stream_plain` for the
-    outputs."""
+    outputs.  A launch counts under ``count_as`` where given (the
+    rescoring's), else by batch size and sine."""
     if ts.device.type == "cpu":
         return resample_stream_plain(ts, params, n_unpadded=n_unpadded, dt=dt, renorm=renorm, exact_sin=exact_sin)
     if ts.device.type != "cuda":
@@ -223,7 +226,7 @@ def resample_stream(ts, params, *, n_unpadded: int, dt: float, renorm=None, exac
     kernels.check(rc, "resample kernel launch")
     # the single-template launch stands for the reference package's
     # parity-stream kernel and is counted as its own entry
-    kernels.launch_counts[("resample_t1" if T == 1 else "resample") + ("_exact" if exact_sin else "")] += 1
+    kernels.launch_counts[count_as or ("resample_t1" if T == 1 else "resample") + ("_exact" if exact_sin else "")] += 1
     return raw, n_steps, mean
 
 
@@ -327,12 +330,13 @@ def exact_mean_params_plain(ts, params, *, n_unpadded: int, dt: float, exact_sin
     return torch.from_numpy(n_steps).to(ts.device), torch.from_numpy(mean).to(ts.device)
 
 
-def exact_mean_params(ts, params, *, n_unpadded: int, dt: float, exact_sin: bool = False):
+def exact_mean_params(ts, params, *, n_unpadded: int, dt: float, exact_sin: bool = False, count_as: str | None = None):
     """The exact-mean kernel: ``(n_steps, mean)`` of every template of
     ``params`` in one launch, over the series ``ts`` (unwhitened runs
     search it as it is: no renorm), in its exact-sine instantiation with
     ``exact_sin``; see :func:`exact_mean_params_plain`.  ``n_steps``
-    equals kernel A's."""
+    equals kernel A's.  A launch counts under ``count_as`` where given
+    (the rescoring's), else by sine."""
     if ts.device.type == "cpu":
         return exact_mean_params_plain(ts, params, n_unpadded=n_unpadded, dt=dt, exact_sin=exact_sin)
     if ts.device.type != "cuda":
@@ -353,7 +357,7 @@ def exact_mean_params(ts, params, *, n_unpadded: int, dt: float, exact_sin: bool
         n_steps.data_ptr(), mean.data_ptr(), N, n_unpadded, float(np.float32(dt)), _step_inv(dt), int(exact_sin),
     )
     kernels.check(rc, "exact mean kernel launch")
-    kernels.launch_counts["serial_mean_exact" if exact_sin else "serial_mean"] += 1
+    kernels.launch_counts[count_as or ("serial_mean_exact" if exact_sin else "serial_mean")] += 1
     return n_steps, mean
 
 

@@ -29,6 +29,15 @@ def _level_sums(ps: np.ndarray, i: np.ndarray, k: int) -> np.ndarray:
     return s
 
 
+def _summing_indices(j: int, k: int, window_2: int, harmonic_idx_hi: int) -> np.ndarray:
+    """The summing indices ``i`` with ``i*(16>>k) in [16j-8, 16j+7]``
+    inside ``[window_2, harmonic_idx_hi)``, for k >= 1."""
+    mp = 16 >> k
+    lo = -(-(16 * j - 8) // mp)
+    hi = (16 * j + 7) // mp
+    return np.arange(max(lo, window_2), min(hi + 1, harmonic_idx_hi), dtype=np.int64)
+
+
 def harmonic_power_at(
     ps: np.ndarray, j: int, k: int, window_2: int, fundamental_idx_hi: int, harmonic_idx_hi: int
 ) -> np.float32:
@@ -39,10 +48,18 @@ def harmonic_power_at(
         return np.float32(0.0)
     if k == 0:
         return np.float32(ps[j])
-    mp = 16 >> k
-    lo = -(-(16 * j - 8) // mp)
-    hi = (16 * j + 7) // mp
-    i = np.arange(max(lo, window_2), min(hi + 1, harmonic_idx_hi), dtype=np.int64)
+    i = _summing_indices(j, k, window_2, harmonic_idx_hi)
     if len(i) == 0:
         return np.float32(0.0)
     return np.float32(np.max(_level_sums(ps, i, k)))
+
+
+def harmonic_bins(j: int, k: int, window_2: int, fundamental_idx_hi: int, harmonic_idx_hi: int) -> np.ndarray:
+    """int64: every bin of ``ps`` that :func:`harmonic_power_at` reads for
+    the same arguments (with repeats)."""
+    if not 0 <= j < fundamental_idx_hi:
+        return np.zeros(0, dtype=np.int64)
+    if k == 0:
+        return np.array([j], dtype=np.int64)
+    i = _summing_indices(j, k, window_2, harmonic_idx_hi)
+    return np.concatenate([(i * l + 8) >> 4 for ls in _LEVELS[: 1 + k] for l in ls])

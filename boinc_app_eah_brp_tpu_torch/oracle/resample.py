@@ -127,11 +127,18 @@ def resample_stats(ts: np.ndarray, params: ResampleParams) -> tuple[int, np.floa
     return n_steps, serial_mean_f32(gathered, n_steps)
 
 
+def pad_head(head: np.ndarray, n_steps: int, mean: np.float32, nsamples: int) -> np.ndarray:
+    """float32[nsamples]: the mean everywhere, then the first ``n_steps``
+    entries of ``head`` in front (none where ``n_steps <= 0``)."""
+    out = np.full(nsamples, mean, dtype=np.float32)
+    out[: max(n_steps, 0)] = head[: max(n_steps, 0)]
+    return out
+
+
 def resample(ts: np.ndarray, params: ResampleParams) -> tuple[np.ndarray, int, np.float32]:
-    """(resampled float32[nsamples], n_steps, mean)."""
+    """(resampled float32[nsamples], n_steps, mean); all the mean (0.0)
+    where ``n_steps = -1``."""
     _check_length(ts, params)
     gathered, n_steps = _gather_head(ts, params)
     mean = serial_mean_f32(gathered, n_steps)
-    out = np.full(params.nsamples, mean, dtype=np.float32)
-    out[:n_steps] = gathered
-    return out, n_steps, mean
+    return pad_head(gathered, n_steps, mean, params.nsamples), n_steps, mean

@@ -17,28 +17,42 @@ the end-of-run pass only scores what won after the last checkpoint.  The
 scores are the same either way: a cached value is reused only for the
 exact (template, level, bin) it was computed for.
 
-Each oracle pass is three spans of ``runtime/tracing.py``
-(``rescore.resample``, ``rescore.fft``, ``rescore.harmonics``, each with
-its template) and one count of the ``rescore.templates`` counter, in the
-background and at the end alike; the pool's threads carry the workunit
-id of the thread that handed them the work.
+The end-of-run pass of a session runs after the template loop, when the
+card is idle: it takes each template's resampled series from the card
+(:func:`device_heads`: kernel A's LUT gather and the exact serial mean,
+both bitwise the oracle's resample), so the host runs only numpy's FFT,
+the power at the bins the harmonic sums read and their evaluation.  The
+background passes of :class:`IncrementalRescorer` run while the card
+searches, so they keep the host oracle's resample.
+
+Each pass is spans of ``runtime/tracing.py``: ``rescore.resample`` (a
+host resample), ``rescore.fft`` and ``rescore.harmonics``, each with its
+template, on the pool's threads, and one ``rescore.device-resample`` a
+chunk of device-resampled templates on the calling thread; it counts one
+``rescore.templates``, and each device-resampled template one
+``rescore.device_resamples``.  The pool's threads carry the workunit id
+of the thread that handed them the work.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from .harmonic import harmonic_power_at
+from .harmonic import harmonic_bins, harmonic_power_at
 from .pipeline import DerivedParams
-from .resample import ResampleParams, resample
-from .spectrum import power_spectrum
+from .resample import ResampleParams, pad_head, resample
+from .spectrum import power_at
 
 
 _OFF = ("off", "0", "none")
+# templates resampled on the card in one launch of kernel A and of the
+# exact mean (16.8 MB of samples each at the production width)
+DEVICE_CHUNK = 8
 
 
 def rescore_enabled() -> bool:
@@ -80,25 +94,95 @@ def _winning_pairs(candidates_all: np.ndarray, emitted: np.ndarray):
 
 
 def _score_template(ts: np.ndarray, derived: DerivedParams, tpl: tuple, pairs) -> dict:
-    """One oracle pass for ``tpl``, evaluated at the requested (k, f0)."""
-    from ..runtime import metrics, tracing
+    """One oracle pass for ``tpl`` with the host oracle's resample,
+    evaluated at the requested (k, f0)."""
+    from ..runtime import tracing
 
     P, tau, psi0 = tpl
-    template = (float(P), float(tau), float(psi0))
-    with tracing.span("rescore.resample", template=template):
+    with tracing.span("rescore.resample", template=(float(P), float(tau), float(psi0))):
         params = ResampleParams.from_template(P, tau, psi0, derived.dt, derived.nsamples, derived.n_unpadded)
         resampled, _, _ = resample(ts, params)
+    return _score_series(resampled, derived, tpl, pairs)
+
+
+def _score_series(resampled: np.ndarray, derived: DerivedParams, tpl: tuple, pairs) -> dict:
+    """The rest of an oracle pass over the resampled series of ``tpl``:
+    numpy's FFT, the power at the bins the (k, f0) pairs read, and their
+    harmonic sums."""
+    from ..runtime import metrics, tracing
+
+    template = tuple(float(x) for x in tpl)
+    geo = (derived.window_2, derived.fundamental_idx_hi, derived.harmonic_idx_hi)
     with tracing.span("rescore.fft", template=template):
-        ps = power_spectrum(resampled, 1.0 / derived.nsamples)
+        bins = np.unique(np.concatenate([harmonic_bins(f0, k, *geo) for (k, f0) in pairs]))
+        ps = power_at(resampled, bins, 1.0 / derived.nsamples)
     with tracing.span("rescore.harmonics", template=template):
-        out = {
-            (k, f0): harmonic_power_at(
-                ps, f0, k, derived.window_2, derived.fundamental_idx_hi, derived.harmonic_idx_hi
-            )
-            for (k, f0) in pairs
-        }
+        out = {(k, f0): harmonic_power_at(ps, f0, k, *geo) for (k, f0) in pairs}
     metrics.counter("rescore.templates").inc()
     return out
+
+
+def device_heads(ts, rows, take_buffer):
+    """Yield ``(head, n_steps, mean)`` for each oracle parameter set of
+    ``rows`` (``ResampleParams``), in order, resampled on ``ts``'s device:
+    kernel A's LUT instantiation (no renorm: the oracle resamples the
+    searched series as it is, whatever sine the search took) and the
+    exact serial mean, :data:`DEVICE_CHUNK` templates a launch (counted
+    as ``rescore_resample`` and ``rescore_serial_mean``), one
+    ``rescore.device-resample`` span a chunk.  ``head`` is a host float32
+    tensor from ``take_buffer()`` (n_unpadded entries) whose first
+    ``max(n_steps, 0)`` hold the gathered samples; ``pad_head`` of it is
+    the oracle's ``resample`` bit for bit.  On a CPU tensor the kernels
+    run their plain versions."""
+    from ..ops.resample import exact_mean_params, resample_stream, stream_params
+    from ..runtime import metrics, tracing
+
+    for c in range(0, len(rows), DEVICE_CHUNK):
+        chunk = rows[c : c + DEVICE_CHUNK]
+        n, dt = chunk[0].nsamples_unpadded, chunk[0].dt
+        with tracing.span("rescore.device-resample", templates=len(chunk)):
+            params = stream_params(*([getattr(r, f) for r in chunk] for f in ("tau", "omega", "psi0", "s0")),
+                                   device=ts.device)
+            raw = resample_stream(ts, params, n_unpadded=n, dt=dt, count_as="rescore_resample")[0]
+            n_steps, mean = (
+                x.cpu().numpy()
+                for x in exact_mean_params(ts, params, n_unpadded=n, dt=dt, count_as="rescore_serial_mean")
+            )
+            metrics.counter("rescore.device_resamples").inc(len(chunk))
+            for t in range(len(chunk)):
+                head = take_buffer()
+                m = max(int(n_steps[t]), 0)
+                head[:m].copy_(raw[t].t().reshape(-1)[:m])  # the two parities interleaved
+                yield head, int(n_steps[t]), mean[t]
+
+
+def _score_device_resampled(ts, derived: DerivedParams, todo: dict, workers: int, wu) -> dict:
+    """The oracle passes of ``todo`` with their series from the device
+    (the oracle's parameters, S0 through glibc's sinf on the host): each
+    template goes to the pool as soon as its head is on the host, so the
+    next head's copy overlaps its FFT.  The heads land in a few pinned
+    buffers, each back in the ring once a worker has padded it."""
+    import torch
+
+    from ..runtime import tracing
+
+    ring: queue.SimpleQueue = queue.SimpleQueue()
+    for _ in range(min(workers + 1, len(todo))):
+        ring.put(torch.empty(derived.n_unpadded, dtype=torch.float32, pin_memory=ts.is_cuda))
+
+    def one(tpl, head, n_steps, mean):
+        with tracing.for_workunit(wu):
+            try:
+                series = pad_head(head.numpy(), n_steps, mean, derived.nsamples)
+            finally:
+                ring.put(head)
+            return tpl, _score_series(series, derived, tpl, todo[tpl])
+
+    tpls = sorted(todo)
+    rows = [ResampleParams.from_template(*tpl, derived.dt, derived.nsamples, derived.n_unpadded) for tpl in tpls]
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futures = [pool.submit(one, tpl, *item) for tpl, item in zip(tpls, device_heads(ts, rows, ring.get))]
+        return dict(f.result() for f in futures)
 
 
 def unique_winner_count(emitted: np.ndarray) -> int:
@@ -108,7 +192,7 @@ def unique_winner_count(emitted: np.ndarray) -> int:
 
 
 def rescore_winners(
-    ts: np.ndarray,
+    ts,
     candidates_all: np.ndarray,
     emitted: np.ndarray,
     derived: DerivedParams,
@@ -117,7 +201,11 @@ def rescore_winners(
 ) -> tuple[np.ndarray, int]:
     """A copy of the 500-entry toplist with oracle powers for every
     template among the ``emitted`` winners, and the number of templates
-    that ran an oracle pass.  ``cache`` (``{template: {(k, f0): power}}``,
+    that ran an oracle pass.  ``ts`` is the searched series: a torch
+    tensor (the session's, on its device) gives each pass its resampled
+    series from that device (:func:`device_heads`), a numpy array from
+    the host oracle's resample; the powers are the same bit for bit.
+    ``cache`` (``{template: {(k, f0): power}}``,
     from :class:`IncrementalRescorer`) saves the pass of every template
     whose pairs it already holds.  The caller finalizes the patched
     toplist again, so the statistics, sort and dedup see the new powers."""
@@ -126,7 +214,6 @@ def rescore_winners(
     wanted, entry_key = _winning_pairs(candidates_all, emitted)
     if not wanted:
         return candidates_all, 0
-    ts = np.asarray(ts, dtype=np.float32)
     cache = cache or {}
 
     scored: dict[tuple, dict] = {}
@@ -138,20 +225,28 @@ def rescore_winners(
         if missing:
             todo[tpl] = missing
 
+    import torch
+
     from ..runtime import tracing
 
     wu = tracing.workunit()
-
-    def one(tpl):
-        with tracing.for_workunit(wu):
-            return tpl, _score_template(ts, derived, tpl, todo[tpl])
-
     workers = max_workers or min(8, os.cpu_count() or 1, len(todo) or 1)
-    if workers > 1 and len(todo) > 1:
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            fresh = dict(pool.map(one, sorted(todo)))
+    if not todo:
+        fresh = {}
+    elif isinstance(ts, torch.Tensor):
+        fresh = _score_device_resampled(ts, derived, todo, workers, wu)
     else:
-        fresh = dict(one(t) for t in sorted(todo))
+        ts = np.asarray(ts, dtype=np.float32)
+
+        def one(tpl):
+            with tracing.for_workunit(wu):
+                return tpl, _score_template(ts, derived, tpl, todo[tpl])
+
+        if workers > 1 and len(todo) > 1:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                fresh = dict(pool.map(one, sorted(todo)))
+        else:
+            fresh = dict(one(t) for t in sorted(todo))
     for tpl, pairs in fresh.items():
         scored[tpl].update(pairs)
 

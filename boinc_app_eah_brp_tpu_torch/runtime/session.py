@@ -723,15 +723,14 @@ class Session:
         if rescore and len(emitted):
             with profiling.phase("oracle rescore"):
                 t0 = time.perf_counter()
-                ts_host = rescorer.series_if_fetched() if rescorer is not None else None
-                if ts_host is None:
-                    ts_host = self.host_series()
                 n_winners = unique_winner_count(emitted)
-                patched, n_eval = rescore_winners(ts_host, cands, emitted, derived, cache=cache)
+                # the card is idle now: each pass takes its resampled series
+                # from it, and the host runs numpy's FFT
+                patched, n_eval = rescore_winners(self.ts, cands, emitted, derived, cache=cache)
                 emitted = finalize_candidates(patched, derived.t_obs)
             erplog.info(
-                "Rescored %d of %d winning templates through the host oracle in %.1f s%s.\n",
-                n_eval, n_winners, time.perf_counter() - t0,
+                "Rescored %d of %d winning templates through the oracle (resampled on %s) in %.1f s%s.\n",
+                n_eval, n_winners, self.dev, time.perf_counter() - t0,
                 f" ({rescorer.observed} checkpoints observed, {rescorer.failed} background failures)"
                 if rescorer is not None else "",
             )

@@ -108,9 +108,13 @@ def fixture_args(work: str, prefix: str, device: str):
 def measure(warm_args, args, work: str):
     """One measured run: ``warm_args`` pays the builds and plans, then
     ``args`` runs with the bracket force-armed, inside
-    ``steptime.capture_profile`` on a card.  Returns (steptime summary,
-    the capture or None, geometry, backend, the capture's launches
-    against the wrappers' counts or None)."""
+    ``steptime.capture_profile`` on a card, without its rescoring (whose
+    resample runs kernel A and the exact mean on the card after the
+    loop: the capture holds the step's launches alone).  Returns
+    (steptime summary, the capture or None, geometry, backend, the
+    capture's launches against the wrappers' counts or None)."""
+    import dataclasses
+
     from ..ops import kernels
     from ..runtime import steptime
     from ..runtime.scheduler import Scheduler
@@ -130,6 +134,7 @@ def measure(warm_args, args, work: str):
             raise RuntimeError(f"warm-up session exited {res.code}: {res.error}")
         steptime.configure(steptime_file=os.path.join(work, "steptime.jsonl"), force=True)
         before = dict(kernels.launch_counts)
+        args = dataclasses.replace(args, rescore=False)
         if on_card:
             with steptime.capture_profile(os.path.join(work, "profile")) as cap:
                 res = sched.process(args)

@@ -695,7 +695,7 @@ def run_main_path(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_in
     emitted = timed(
         "rescore_s",
         lambda: finalize_candidates(
-            rescore_winners(ts.cpu().numpy(), cands, emitted, derived)[0], derived.t_obs
+            rescore_winners(ts, cands, emitted, derived)[0], derived.t_obs
         ),
     )
     timed(

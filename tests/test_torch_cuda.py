@@ -580,3 +580,59 @@ def test_smoke_gate_passes_on_the_card(dev, tmp_path):
     assert res["coverage"] >= smoke.COVERAGE_MIN and res["health_checks"] > 0
     for name in ("resample", "fftprep", "fold_spectrum", "serial_mean"):
         assert res["launches"].get(name, 0) > 0, name
+
+
+def test_end_of_run_rescoring_on_the_card_is_the_host_oracle_pass(dev):
+    """At the production width (2^22 samples, bank200, the whitened
+    production workunit): the series of every winner resampled on the
+    card (kernel A's LUT gather, the exact serial mean) and padded on the
+    host is the host oracle's ``resample`` bit for bit, and the toplist
+    the pass patches is the host oracle pass's, byte for byte.  The pass
+    launches A and the exact mean under the rescoring's own entries."""
+    from boinc_app_eah_brp_tpu_torch.io import empty_candidates
+    from boinc_app_eah_brp_tpu_torch.ops.whiten import whiten_and_zap
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig, rescore
+    from boinc_app_eah_brp_tpu_torch.oracle import resample as oracle
+    from boinc_app_eah_brp_tpu_torch.oracle.stats import base_thresholds
+    from boinc_app_eah_brp_tpu_torch.oracle.toplist import finalize_candidates, update_toplist_from_maxima
+    from boinc_app_eah_brp_tpu_torch.tools import _inputs
+
+    n = 1 << 22
+    b = np.loadtxt(BANK200)
+    P, tau, psi0 = b[:, 0], b[:, 1], search.normalize_psi0(b[:, 2])
+    inj = _inputs.INJECT
+    x = _inputs.pulsed_series(n, DT * 1e6, (P[inj], tau[inj], psi0[inj]), 123.4567, 0.4, _inputs.SEED)
+    cfg = SearchConfig(f0=400.0, padding=3.0, fA=0.08, window=1000, white=True)
+    d = DerivedParams.derive(n, DT * 1e6, cfg)
+    zap = np.array([[60.0, 60.5], [180.0, 180.2]])
+    ts = whiten_and_zap(x, d, cfg, zap, device=dev)
+    geom = search.SearchGeometry.from_derived(
+        d, max_slope=search.max_slope_for_bank(P, tau), lut_step=search.lut_step_for_bank(P, DT),
+        lut_tiles=search.lut_tiles_for_bank(P, psi0, n, DT),
+    )
+    M, T = search.run_bank(ts, P, tau, psi0, geom, batch_size=32)
+    cands = update_toplist_from_maxima(
+        empty_candidates(), search.state_to_natural(M, geom), search.state_to_natural(T, geom),
+        P.astype(np.float32), tau.astype(np.float32), psi0.astype(np.float32),
+        base_thresholds(cfg.fA, d.fft_size), geom.window_2,
+    )
+    emitted = finalize_candidates(cands, d.t_obs)
+    host = ts.cpu().numpy()
+    winners = sorted(rescore._winning_pairs(cands, emitted)[0])
+    assert len(winners) > rescore.DEVICE_CHUNK
+    rows = [oracle.ResampleParams.from_template(*t, d.dt, d.nsamples, n) for t in winners]
+    for row, (head, n_steps, mean) in zip(rows, rescore.device_heads(ts, rows, lambda: torch.empty(n))):
+        want, w_steps, w_mean = oracle.resample(host, row)
+        assert n_steps == w_steps and mean.tobytes() == w_mean.tobytes()
+        assert oracle.pad_head(head.numpy(), n_steps, mean, d.nsamples).tobytes() == want.tobytes()
+    before = dict(kernels.launch_counts)
+    got, n_got = rescore.rescore_winners(ts, cands, emitted, d)
+    chunks = -(-len(winners) // rescore.DEVICE_CHUNK)
+    assert kernels.launch_counts["rescore_resample"] == before["rescore_resample"] + chunks
+    assert kernels.launch_counts["rescore_serial_mean"] == before["rescore_serial_mean"] + chunks
+    for k in ("resample", "resample_t1", "serial_mean"):
+        assert kernels.launch_counts[k] == before[k], k
+    want, n_want = rescore.rescore_winners(host, cands, emitted, d)
+    assert n_got == n_want == len(winners)
+    assert got.tobytes() == want.tobytes()
+    assert not np.array_equal(got["power"], cands["power"])

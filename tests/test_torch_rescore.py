@@ -1,19 +1,28 @@
 """PyTorch port, the host oracle and its rescoring against the JAX
 package's.  Both are numpy on the same inputs, so every comparison is
-bitwise."""
+bitwise.
+
+The end-of-run pass takes each template's resampled series from the
+session's device (``rescore.device_heads``: kernel A's gather and the
+exact serial mean, their plain versions on a CPU tensor) and the power at
+the bins the harmonic sums read (``spectrum.power_at``); both are held
+bitwise against the host oracle here, and the patched toplist bytes
+against the host pass's and the JAX package's."""
 
 import importlib
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from boinc_app_eah_brp_tpu_torch.io import empty_candidates
+from boinc_app_eah_brp_tpu_torch.io import empty_candidates, write_template_bank, write_workunit
 from boinc_app_eah_brp_tpu_torch.models import search
 from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
 from boinc_app_eah_brp_tpu_torch.oracle import harmonic, rescore, resample, spectrum
 from boinc_app_eah_brp_tpu_torch.oracle.stats import base_thresholds
 from boinc_app_eah_brp_tpu_torch.oracle.toplist import finalize_candidates, update_toplist_from_maxima
+from boinc_app_eah_brp_tpu_torch.runtime import metrics, tracing
 from fixtures import small_bank, synthetic_timeseries
 from torch_parity import DT
 
@@ -23,6 +32,7 @@ jax_harmonic, jax_rescore, jax_resample, jax_spectrum = (
     importlib.import_module(f"boinc_app_eah_brp_tpu.oracle.{m}") for m in ("harmonic", "rescore", "resample", "spectrum")
 )
 N = 4096
+BANK200 = os.path.join(os.path.dirname(__file__), "golden", "bank200.txt")
 
 
 @pytest.fixture(scope="module")
@@ -91,3 +101,256 @@ def test_incremental_cache_gives_the_cold_rescore(toplist):
     assert n_eval == 0
     assert warm.tobytes() == cold.tobytes()
     r.abort()  # safe after finalize
+
+
+def _fixture_rows(d, extra=()):
+    """The oracle's parameters of the fixture bank and the first ten rows
+    of bank200 (two launches of ``DEVICE_CHUNK``), then ``extra``."""
+    b = small_bank(P_true=2.2, tau_true=0.04, psi_true=1.2)
+    b200 = np.loadtxt(BANK200)[:10]
+    tpls = list(zip(b.P, b.tau, search.normalize_psi0(b.psi0))) + [tuple(r) for r in b200]
+    rows = [resample.ResampleParams.from_template(*t, d.dt, d.nsamples, d.n_unpadded) for t in tpls]
+    return rows + list(extra)
+
+
+def _no_sample_row(d, s0):
+    """A parameter set whose integer S0 leaves no sample before the
+    trailing run (n_steps = -1 for s0 >= n - 1)."""
+    return resample.ResampleParams(
+        nsamples=d.nsamples, nsamples_unpadded=d.n_unpadded, fft_size=d.nsamples // 2 + 1, tau=np.float32(0.0),
+        omega=np.float32(1.0), psi0=np.float32(0.0), dt=np.float32(d.dt),
+        step_inv=np.float32(1.0) / np.float32(d.dt), s0=np.float32(s0),
+    )
+
+
+def _whitened(ts, d):
+    from boinc_app_eah_brp_tpu_torch.ops.whiten import whiten_and_zap
+
+    cfg = SearchConfig(window=200, padding=1.5, white=True)
+    zap = np.array([[50.0, 51.0], [120.0, 121.5]])
+    return whiten_and_zap(ts, d, cfg, zap, device="cpu").numpy()
+
+
+@pytest.mark.parametrize("case", ["unwhitened", "whitened", "no_sample"])
+def test_device_heads_are_the_oracle_resample(toplist, case):
+    """Every template's device-resampled series, padded on the host, its
+    n_steps and its mean are the host oracle's ``resample`` bit for bit:
+    the raw series and a whitened one (no renorm either way), and
+    parameter sets with n_steps = -1 (an all-mean series) among them."""
+    ts, d, _, _ = toplist
+    series = _whitened(ts, d) if case == "whitened" else ts
+    extra = [_no_sample_row(d, d.n_unpadded - 1), _no_sample_row(d, d.n_unpadded + 40)] if case == "no_sample" else []
+    rows = _fixture_rows(d, extra)
+    assert len(rows) > rescore.DEVICE_CHUNK
+    assert metrics.configure(force=True)
+    try:
+        heads = list(rescore.device_heads(torch.from_numpy(series), rows, lambda: torch.empty(d.n_unpadded)))
+        counted = metrics.snapshot()["counters"]["rescore.device_resamples"]["value"]
+    finally:
+        metrics.finish(0)
+    assert counted == len(heads) == len(rows)
+    for row, (head, n_steps, mean) in zip(rows, heads):
+        want, w_steps, w_mean = resample.resample(series, row)
+        got = resample.pad_head(head.numpy(), n_steps, mean, d.nsamples)
+        assert n_steps == w_steps and mean.tobytes() == w_mean.tobytes()
+        assert got.tobytes() == want.tobytes()
+    if case == "no_sample":
+        assert [h[1] for h in heads[-2:]] == [-1, -1]
+        assert not resample.resample(series, extra[0])[0].any()  # the mean, 0.0
+
+
+@pytest.mark.parametrize("tpl", [(2.2, 0.04, 1.2), (1000.0, 0.0, 0.0)])
+def test_power_at_is_the_power_spectrum_at_its_bins(toplist, tpl):
+    ts, d, _, _ = toplist
+    out = resample.resample(ts, resample.ResampleParams.from_template(*tpl, d.dt, d.nsamples, d.n_unpadded))[0]
+    full = spectrum.power_spectrum(out, 1.0 / d.nsamples)
+    bins = np.unique(np.r_[0, 1, 97, np.random.default_rng(5).integers(0, len(full), 300), len(full) - 1])
+    got = spectrum.power_at(out, bins, 1.0 / d.nsamples)
+    assert got.shape == full.shape and got.dtype == np.float32
+    assert got[bins].tobytes() == full[bins].tobytes()
+    rest = np.ones(len(full), dtype=bool)
+    rest[bins] = False
+    assert not got[rest].any()
+
+
+def test_harmonic_bins_are_every_bin_harmonic_power_at_reads(toplist):
+    """The sums over a spectrum that is NaN outside the listed bins are
+    the full spectrum's, bit for bit: no other bin is read."""
+    ts, d, _, _ = toplist
+    out = resample.resample(ts, resample.ResampleParams.from_template(2.2, 0.04, 1.2, d.dt, d.nsamples, d.n_unpadded))[0]
+    ps = spectrum.power_spectrum(out, 1.0 / d.nsamples)
+    geo = (d.window_2, d.fundamental_idx_hi, d.harmonic_idx_hi)
+    for k in range(5):
+        for j in (0, d.window_2 // 16, d.window_2, 97, d.fundamental_idx_hi - 1, d.fundamental_idx_hi):
+            sparse = np.full_like(ps, np.nan)
+            bins = harmonic.harmonic_bins(j, k, *geo)
+            sparse[bins] = ps[bins]
+            want = harmonic.harmonic_power_at(ps, j, k, *geo)
+            assert harmonic.harmonic_power_at(sparse, j, k, *geo).tobytes() == want.tobytes(), (j, k)
+
+
+def test_rescore_winners_from_a_device_series_is_the_host_pass(toplist, monkeypatch):
+    """Fed the series as a torch tensor, the pass resamples on its device
+    (here the plain versions), in chunks of 3 so that the 4 winners take
+    two: the same bytes as the numpy series gives, and as the JAX
+    package's pass."""
+    ts, d, cands, emitted = toplist
+    monkeypatch.setattr(rescore, "DEVICE_CHUNK", 3)
+    assert metrics.configure(force=True)
+    try:
+        got, n_got = rescore.rescore_winners(torch.from_numpy(ts), cands, emitted, d, max_workers=3)
+        counters = metrics.snapshot()["counters"]
+    finally:
+        metrics.finish(0)
+    host, n_host = rescore.rescore_winners(ts, cands, emitted, d)
+    want, _ = jax_rescore.rescore_winners(ts, cands, emitted, d)
+    assert n_got == n_host == rescore.unique_winner_count(emitted) > rescore.DEVICE_CHUNK
+    assert got.tobytes() == host.tobytes() == want.tobytes()
+    assert counters["rescore.device_resamples"]["value"] == counters["rescore.templates"]["value"] == n_got
+
+
+@pytest.fixture
+def wu_files(tmp_path):
+    ts = synthetic_timeseries(N, f_signal=33.0, P_orb=2.2, tau=0.04, psi0=1.2, amp=7.0)
+    paths = {k: str(tmp_path / v) for k, v in dict(wu="test.bin4", bank="bank.dat").items()}
+    write_workunit(paths["wu"], ts, tsample_us=DT * 1e6, scale=1.0, dm=55.5)
+    write_template_bank(paths["bank"], small_bank(P_true=2.2, tau_true=0.04, psi_true=1.2))
+    paths["tmp"] = tmp_path
+    return paths
+
+
+def _body(path) -> bytes:
+    """A result file's bytes less its ``% Date:`` line."""
+    with open(path, "rb") as f:
+        return b"".join(ln for ln in f if not ln.startswith(b"% Date:"))
+
+
+def _host_pass(monkeypatch):
+    """``rescore_winners`` fed the host copy of whatever series it gets:
+    the host oracle's resample, as before the device resample."""
+    real = rescore.rescore_winners
+    monkeypatch.setattr(
+        rescore, "rescore_winners",
+        lambda ts, *a, **k: real(ts.cpu().numpy() if isinstance(ts, torch.Tensor) else ts, *a, **k),
+    )
+
+
+def test_an_exact_sine_run_rescores_with_the_lut_oracle(wu_files, monkeypatch):
+    """Under --exact-sin the search takes the exact sine, but the oracle
+    (and so the rescoring) the LUT's: the device-resampled pass writes the
+    host oracle pass's file byte for byte."""
+    from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
+
+    def run(name):
+        return run_search(DriverArgs(
+            inputfile=wu_files["wu"], templatebank=wu_files["bank"], window=200, batch_size=2, use_lut=False,
+            outputfile=str(wu_files["tmp"] / f"{name}.cand"), checkpointfile=str(wu_files["tmp"] / f"{name}.cpt"),
+            device="cpu",
+        ))
+
+    assert metrics.configure(force=True)
+    try:
+        assert run("device") == 0
+        counters = metrics.snapshot()["counters"]
+    finally:
+        metrics.finish(0)
+    assert counters["rescore.device_resamples"]["value"] == counters["rescore.templates"]["value"] > 0
+    _host_pass(monkeypatch)
+    assert run("host") == 0
+    files = [_body(wu_files["tmp"] / f"{n}.cand") for n in ("device", "host")]
+    assert files[0] == files[1] and b"%DONE%" in files[0]
+
+
+def _bank_past_the_overlap_floor(path, n=260):
+    rng = np.random.default_rng(3)
+    P = np.concatenate([[1000.0, 2.2], rng.uniform(1.6, 3.0, n - 2)])
+    tau = np.concatenate([[0.0, 0.04], rng.uniform(0.0, 0.09, n - 2)])
+    psi = np.concatenate([[0.0, 1.2], rng.uniform(0.0, 2 * np.pi, n - 2)])
+    from boinc_app_eah_brp_tpu_torch.io import TemplateBank
+
+    write_template_bank(path, TemplateBank(P, tau, psi))
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_a_served_end_of_run_pass_resamples_every_template_on_the_device(wu_files, monkeypatch, overlap):
+    """On a served workunit every template of the end-of-run pass is
+    device-resampled; with the background rescorer armed (260 templates,
+    a checkpoint every batch) the templates it scored are not, and run
+    the host oracle's resample.  The file is the host pass's either way."""
+    from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs
+    from boinc_app_eah_brp_tpu_torch.serving import FleetServer
+
+    if overlap:
+        _bank_past_the_overlap_floor(wu_files["bank"])
+        monkeypatch.setattr(os, "cpu_count", lambda: 4)
+        monkeypatch.setenv("ERP_CHECKPOINT_PERIOD", "0")
+
+    def args(name):
+        return DriverArgs(
+            inputfile=wu_files["wu"], templatebank=wu_files["bank"], window=200, batch_size=16 if overlap else 2,
+            outputfile=str(wu_files["tmp"] / f"{name}.cand"), checkpointfile=str(wu_files["tmp"] / f"{name}.cpt"),
+            device="cpu",
+        )
+
+    armed = []
+    real_init = rescore.IncrementalRescorer.__init__
+    monkeypatch.setattr(
+        rescore.IncrementalRescorer, "__init__", lambda self, *a, **k: armed.append(1) or real_init(self, *a, **k)
+    )
+    assert metrics.configure(force=True) and tracing.configure(force=True)
+    try:
+        with FleetServer(name="t-rescore", device="cpu") as server:
+            assert server.result(server.submit(args("device"))).ok
+        counters = {k: v["value"] for k, v in metrics.snapshot()["counters"].items()}
+        spans = [r["name"] for r in tracing.events() if r.get("kind") == "span"]
+    finally:
+        metrics.finish(0)
+        tracing.finish(0)
+    assert armed == ([1] if overlap else [])
+    background = counters.get("rescore.submitted", 0)
+    assert background == spans.count("rescore.resample") and (background > 0) == overlap
+    assert counters.get("rescore.device_resamples", 0) + background == counters["rescore.templates"] > 0
+    assert spans.count("rescore.fft") == counters["rescore.templates"]
+    n_dev = counters.get("rescore.device_resamples", 0)
+    assert spans.count("rescore.device-resample") == -(-n_dev // rescore.DEVICE_CHUNK)
+    _host_pass(monkeypatch)
+    with FleetServer(name="t-rescore-host", device="cpu") as server:
+        assert server.result(server.submit(args("host"))).ok
+    files = [_body(wu_files["tmp"] / f"{n}.cand") for n in ("device", "host")]
+    assert files[0] == files[1] and b"%DONE%" in files[0]
+
+
+@pytest.mark.parametrize("extra_workers", [None, 4])
+def test_the_staging_ring_under_thread_pressure(toplist, monkeypatch, extra_workers):
+    """Two pool threads (fewer buffers than a chunk's templates), or more
+    threads than cores; a short switch interval, more templates than
+    buffers and a pad that waits before it reads its buffer: every score
+    of the device-resampled pass is the host pass's, so no buffer went
+    back to the ring before its worker had padded it."""
+    import sys
+    import time
+
+    real_pad = rescore.pad_head
+
+    def slow_pad(*a):
+        time.sleep(0.002)
+        return real_pad(*a)
+
+    monkeypatch.setattr(rescore, "pad_head", slow_pad)
+
+    ts, d, _, _ = toplist
+    b = np.loadtxt(BANK200)[:30]
+    todo = {rescore._template_key(P, tau, psi): {(k, f0) for k in range(5) for f0 in (97, 101, 150)}
+            for P, tau, psi in b}
+    monkeypatch.setattr(rescore, "DEVICE_CHUNK", 7)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = 2 if extra_workers is None else (os.cpu_count() or 1) + extra_workers
+        got = rescore._score_device_resampled(torch.from_numpy(ts), d, todo, workers, None)
+    finally:
+        sys.setswitchinterval(interval)
+    assert got.keys() == todo.keys()
+    for tpl, pairs in todo.items():
+        want = rescore._score_template(ts, d, tpl, pairs)
+        assert {p: v.tobytes() for p, v in got[tpl].items()} == {p: v.tobytes() for p, v in want.items()}, tpl

@@ -227,10 +227,11 @@ def rescore_winners(
 
     import torch
 
-    from ..runtime import tracing
+    from ..runtime import metrics, tracing
 
     wu = tracing.workunit()
     workers = max_workers or min(8, os.cpu_count() or 1, len(todo) or 1)
+    metrics.gauge("rescore.workers").set(workers)
     if not todo:
         fresh = {}
     elif isinstance(ts, torch.Tensor):

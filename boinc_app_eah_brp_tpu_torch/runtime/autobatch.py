@@ -16,7 +16,11 @@ the same selection order, clamps, log lines and ``autobatch.*`` metrics:
 
 The budget is the card's free memory (``torch.cuda.mem_get_info``) plus
 what the caching allocator holds reserved but unused: ``mem_get_info``
-alone does not count memory torch has cached for reuse.
+alone does not count memory torch has cached for reuse.  A task given a
+share of the card (BOINC's ``gpu_usage`` in ``init_data.xml``: 0.25 runs
+four tasks on one card, all starting with the whole card free) budgets at
+most that share of the card's total memory, and a sweep rung, which
+proved a fit on a whole card, is held to that budget too.
 """
 
 from __future__ import annotations
@@ -73,6 +77,19 @@ def device_memory_budget(device=None) -> int | None:
         return None
 
 
+def device_total_memory(device=None) -> int | None:
+    """The card's total memory in bytes; None on the CPU or when unknown."""
+    try:
+        import torch
+
+        dev = _device(device)
+        if dev.type != "cuda":
+            return None
+        return int(torch.cuda.get_device_properties(dev).total_memory)
+    except Exception:
+        return None
+
+
 def _current_device_kind(device=None) -> str | None:
     try:
         import torch
@@ -125,9 +142,12 @@ def _record(batch: int, decision: str) -> int:
     return batch
 
 
-def choose_batch(nsamples: int, log=None, device=None) -> int:
+def choose_batch(nsamples: int, log=None, device=None, share: float | None = None) -> int:
     """The driver's batch size for a search on ``device``; logs the
-    decision path when ``log`` is a callable."""
+    decision path when ``log`` is a callable.  ``share`` is the task's
+    share of the card (``init_data.xml``'s ``gpu_usage``; None: the whole
+    card): the budget is then at most that share of the card's total
+    memory, and where that is what binds the decision is ``card-share``."""
     env = os.environ.get("ERP_BATCH")
     if env:
         b = max(1, int(env))
@@ -135,16 +155,26 @@ def choose_batch(nsamples: int, log=None, device=None) -> int:
             log(f"Batch size {b} (ERP_BATCH override).\n")
         return _record(b, "env-override")
     budget = device_memory_budget(device)
+    shared = share is not None and share < 1.0
+    share_binds = False
+    if shared and budget is not None:
+        total = device_total_memory(device)
+        if total is not None and share * total < budget:
+            budget, share_binds = int(share * total), True
+    if budget is not None:
+        metrics.gauge("card.budget_bytes").set(int(budget))
     fit = model_batch(nsamples, budget)
     sweep_art = _sweep_best_batch()
     if sweep_art is not None:
         swept, sweep_kind, sweep_n = sweep_art
         # a rung that ran in the sweep proved it fits on the card kind it
-        # ran on, at the size it swept; anything less proven is held to
-        # the memory model, and a sweep of another card kind is refused
+        # ran on, at the size it swept, with the whole card to itself;
+        # anything less proven, or a task sharing the card, is held to the
+        # memory model, and a sweep of another card kind is refused
         kind = _current_device_kind(device)
         mismatch = sweep_kind is not None and kind is not None and sweep_kind != kind
-        proven = sweep_kind is not None and kind == sweep_kind and sweep_n is not None and sweep_n == int(nsamples)
+        proven = (not shared and sweep_kind is not None and kind == sweep_kind
+                  and sweep_n is not None and sweep_n == int(nsamples))
         if not mismatch and (proven or budget is None or swept <= fit):
             if log:
                 log(
@@ -158,12 +188,15 @@ def choose_batch(nsamples: int, log=None, device=None) -> int:
                 f"Sweep batch {swept} ignored (taken on "
                 f"{sweep_kind or 'unknown device'} at nsamples="
                 f"{sweep_n or 'unknown'}, this is {kind or 'unknown'} at "
-                f"nsamples={nsamples}; model fit {fit}).\n"
+                f"nsamples={nsamples}"
+                + (f" with a card share of {share:g}" if shared else "")
+                + f"; model fit {fit}).\n"
             )
     if log:
         budget_s = f"{budget / 1e9:.1f} GB" if budget else "unknown"
-        log(f"Batch size {fit} (memory model, HBM budget {budget_s}).\n")
-    return _record(fit, "memory-model")
+        share_s = f", card share {share:g}" if share_binds else ""
+        log(f"Batch size {fit} (memory model, HBM budget {budget_s}{share_s}).\n")
+    return _record(fit, "card-share" if share_binds else "memory-model")
 
 
 def sweep(ts, bank_P, bank_tau, bank_psi0, geom, batches=SWEEP_BATCHES, runs: int = 2, path: str | None = None) -> dict:

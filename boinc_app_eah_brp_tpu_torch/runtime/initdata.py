@@ -9,6 +9,11 @@ device the scheduler assigned.  The reference reads it twice:
 * the result-file provenance header — userid / user_name / hostid /
   host_cpid (``demod_binary.c:1591-1602``).
 
+The port also reads ``gpu_usage``: the share of the card the client gave
+this task (0.25 where the volunteer's "GPU utilization factor" runs four
+tasks on one card), which bounds the batch's memory budget
+(``runtime/autobatch.py``).
+
 This parser covers exactly those fields.  Absence of the file (standalone
 runs) is not an error — the reference logs "User/host details
 unavailable..." and proceeds with zeros.
@@ -32,6 +37,8 @@ class AppInitData:
     hostid: int = 0
     host_cpid: str | None = None
     gpu_device_num: int | None = None
+    # the task's share of the card, in (0, 1]; None where absent or invalid
+    gpu_usage: float | None = None
 
 
 def _int_text(root: ET.Element, tag: str, default: int = 0) -> int:
@@ -49,6 +56,17 @@ def _str_text(root: ET.Element, tag: str) -> str | None:
     if el is None or el.text is None or not el.text.strip():
         return None
     return el.text.strip()
+
+
+def _share_text(root: ET.Element, tag: str) -> float | None:
+    el = root.find(tag)
+    if el is None or el.text is None:
+        return None
+    try:
+        share = float(el.text.strip())
+    except ValueError:
+        return None
+    return share if 0.0 < share <= 1.0 else None
 
 
 def load_init_data(directory: str = ".") -> AppInitData | None:
@@ -80,4 +98,5 @@ def load_init_data(directory: str = ".") -> AppInitData | None:
             num = -1
         if num >= 0:
             data.gpu_device_num = num
+    data.gpu_usage = _share_text(root, "gpu_usage")
     return data

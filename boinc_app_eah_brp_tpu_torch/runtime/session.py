@@ -354,7 +354,10 @@ class Session:
             _dump_thresholds(cfg.fA, derived.fft_size)
 
         # batch size: pinned by --batch, else the measured sweep or the
-        # memory model (runtime/autobatch.py); the choice is logged either way
+        # memory model (runtime/autobatch.py) within the task's share of the
+        # card (init_data.xml's gpu_usage); the choice is logged either way
+        share = self.init_data.gpu_usage if self.init_data is not None else None
+        metrics.gauge("card.gpu_usage").set(1.0 if share is None else share)
         if args.batch_size is not None:
             self.batch_size = int(args.batch_size)
             erplog.info("Batch size %d (--batch).\n", self.batch_size)
@@ -363,7 +366,7 @@ class Session:
         else:
             from .autobatch import choose_batch
 
-            self.batch_size = choose_batch(geom.nsamples, log=erplog.info, device=self.dev)
+            self.batch_size = choose_batch(geom.nsamples, log=erplog.info, device=self.dev, share=share)
 
         # the checkpoint's candidates re-enter (M, T) as virtual templates
         # past the bank, so the toplist conversion treats them uniformly

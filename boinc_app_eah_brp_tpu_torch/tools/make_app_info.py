@@ -14,10 +14,14 @@ differ from the TPU bundle's file:
 * the ``app_version`` declares the coprocessor, one NVIDIA card
   (``<coproc><type>NVIDIA</type><count>1</count></coproc>``), so the client
   schedules a workunit only where a card is free.  The TPU bundle has no
-  coprocessor to declare.
+  coprocessor to declare.  ``--gpu-usage F`` declares a share of a card
+  instead (``<count>F</count>``, as Einstein@Home's "GPU utilization
+  factor of BRP apps"): 0.25 runs four tasks on one card, and the client
+  writes the share into each task's ``init_data.xml`` (``gpu_usage``),
+  which the port's batch budget honours (``runtime/autobatch.py``).
 
 Usage: python -m boinc_app_eah_brp_tpu_torch.tools.make_app_info
-           [--app-name NAME] [--version N] [--wrapper PATH] [-o OUT]
+           [--app-name NAME] [--version N] [--wrapper PATH] [--gpu-usage F] [-o OUT]
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ TEMPLATE = """<app_info>
         <plan_class>{plan_class}</plan_class>
         <coproc>
             <type>NVIDIA</type>
-            <count>1</count>
+            <count>{count}</count>
         </coproc>
         <cmdline>{cmdline}</cmdline>
         <file_ref>
@@ -61,10 +65,13 @@ def render(
     wrapper: str,
     cmdline: str,
     extra_files: list[str] | None = None,
+    gpu_usage: float = 1.0,
 ) -> str:
     """``extra_files``: the bundled files (worker archive, native
     libraries) registered as <file_info> + <file_ref> beside the main
-    program."""
+    program; ``gpu_usage``: the share of one card a task takes, in (0, 1]."""
+    if not 0.0 < gpu_usage <= 1.0:
+        raise ValueError(f"gpu_usage must be in (0, 1], not {gpu_usage!r}")
     infos = "".join(
         f"    <file_info>\n        <name>{name}</name>\n    </file_info>\n"
         for name in (extra_files or [])
@@ -81,6 +88,7 @@ def render(
         wrapper=wrapper,
         cmdline=cmdline,
         plan_class=PLAN_CLASS,
+        count=f"{gpu_usage:g}",
         extra_infos=infos,
         extra_refs=refs,
     )
@@ -97,9 +105,17 @@ def main(argv=None) -> int:
         default="--worker 'python3 -m boinc_app_eah_brp_tpu_torch'",
         help="extra command line forwarded to the wrapper",
     )
+    ap.add_argument(
+        "--gpu-usage",
+        type=float,
+        default=1.0,
+        help="the share of one card a task takes, in (0, 1]: 0.25 runs four tasks on a card",
+    )
     ap.add_argument("-o", "--output", default="app_info.xml")
     args = ap.parse_args(argv)
-    xml = render(args.app_name, args.version, args.wrapper, args.cmdline)
+    if not 0.0 < args.gpu_usage <= 1.0:
+        ap.error(f"--gpu-usage must be in (0, 1], not {args.gpu_usage}")
+    xml = render(args.app_name, args.version, args.wrapper, args.cmdline, gpu_usage=args.gpu_usage)
     if args.output == "-":
         sys.stdout.write(xml)
     else:

@@ -139,3 +139,69 @@ def test_sweep_writes_the_artifact_choose_batch_reads(tmp_path, monkeypatch):
     lines = []
     assert pab.choose_batch(geom.nsamples, log=lines.append, device="cpu") == art["best_batch"]
     assert lines == [f"Batch size {art['best_batch']} (measured sweep).\n"]
+
+
+# --- the task's share of the card (init_data.xml's gpu_usage): the port's
+# own, so these cases run the port alone
+
+
+@pytest.fixture
+def card(both, monkeypatch):
+    """An 80 GB card with the given free memory, the metrics registry
+    armed, and the port's decision, gauges and log of one choice."""
+    from boinc_app_eah_brp_tpu_torch.runtime import metrics
+
+    metrics.configure(force=True)
+    monkeypatch.setattr(pab, "device_total_memory", lambda device=None: 80 * GB)
+
+    def decide(free=79 * GB, share=None, sweep=None):
+        both(free, sweep=sweep)
+        lines = []
+        b = pab.choose_batch(N, log=lines.append, share=share)
+        gauges = {k: v["value"] for k, v in metrics.snapshot()["gauges"].items()}
+        return b, gauges, lines
+
+    yield decide
+    metrics.finish(0)
+
+
+def test_a_quarter_of_the_card_budgets_a_quarter(card):
+    b, g, lines = card(share=0.25)
+    assert b == 64 and g["autobatch.decision"] == "card-share" and g["autobatch.batch_size"] == 64
+    assert g["card.budget_bytes"] == 20 * GB
+    assert lines == ["Batch size 64 (memory model, HBM budget 20.0 GB, card share 0.25).\n"]
+    # without a share, or with the whole card, the choice is today's
+    for share in (None, 1.0):
+        b, g, lines = card(share=share)
+        assert b == 128 and g["autobatch.decision"] == "memory-model" and g["card.budget_bytes"] == 79 * GB
+        assert lines == ["Batch size 128 (memory model, HBM budget 79.0 GB).\n"]
+
+
+def test_a_share_above_the_free_memory_does_not_bind(card):
+    """With 15 GB free, half of the card is not what binds: the free
+    memory is, as without a share."""
+    b, g, _ = card(free=15 * GB, share=0.5)
+    assert (b, g["autobatch.decision"], g["card.budget_bytes"]) == (32, "memory-model", 15 * GB)
+    assert card(free=15 * GB)[0] == 32
+
+
+@pytest.mark.parametrize("swept, want", [(128, (64, "card-share")), (32, (32, "sweep-model-gated"))])
+def test_a_proven_sweep_is_held_to_the_shared_budget(card, swept, want):
+    """A sweep proves a fit on a whole card only: at a share of 0.25 its
+    rung is taken only where it fits the shared budget."""
+    sweep = {"best_batch": swept, "device_kind": KIND, "nsamples": N}
+    b, g, lines = card(share=0.25, sweep=sweep)
+    assert (b, g["autobatch.decision"]) == want
+    if swept == 128:
+        assert lines[0] == (f"Sweep batch 128 ignored (taken on {KIND} at nsamples={N}, this is {KIND} at "
+                            f"nsamples={N} with a card share of 0.25; model fit 64).\n")
+    # the whole card takes the proven rung, as before
+    b, g, _ = card(sweep=sweep)
+    assert (b, g["autobatch.decision"]) == (swept, "sweep-proven")
+
+
+def test_erp_batch_still_wins_over_a_share(card, monkeypatch):
+    monkeypatch.setenv("ERP_BATCH", "24")
+    b, g, lines = card(share=0.25)
+    assert (b, g["autobatch.decision"]) == (24, "env-override")
+    assert lines == ["Batch size 24 (ERP_BATCH override).\n"]

@@ -107,7 +107,9 @@ def test_graphics_xml_matches_jax(suspended):
 def test_init_data_is_parsed_and_picks_the_card(tmp_path):
     (tmp_path / "init_data.xml").write_text(INIT_DATA)
     data = load_init_data(str(tmp_path))
-    assert vars(data) == vars(jax_load_init_data(str(tmp_path)))
+    jax_data = vars(jax_load_init_data(str(tmp_path)))
+    assert {k: vars(data)[k] for k in jax_data} == jax_data
+    assert data.gpu_usage is None  # the port's own field: no share given
     assert (data.userid, data.user_name, data.hostid, data.host_cpid, data.gpu_device_num) == (
         42, "alice", 7, "abc123", 2
     )
@@ -126,3 +128,57 @@ def test_result_header_carries_the_slot_provenance(args, tmp_path):
     head = open(args.outputfile).read().splitlines()[:2]
     assert head == ["% User: 42 (alice)", "% Host: 7 (abc123)"]
     assert parse_result_file(args.outputfile).done
+
+
+@pytest.mark.parametrize("text, share", [("0.25", 0.25), (" 0.5 ", 0.5), ("1", 1.0), ("1.0", 1.0), (None, None),
+                                         ("0", None), ("-0.25", None), ("1.5", None), ("quarter", None),
+                                         ("nan", None), ("", None)])
+def test_init_data_reads_the_share_of_the_card(tmp_path, text, share):
+    """``<gpu_usage>``: the task's share of the card, in (0, 1]; absent,
+    outside it or not a number, None (the whole card)."""
+    tag = "" if text is None else f"<gpu_usage>{text}</gpu_usage>\n"
+    (tmp_path / "init_data.xml").write_text(INIT_DATA.replace("</app_init_data>", tag + "</app_init_data>"))
+    data = load_init_data(str(tmp_path))
+    assert data.gpu_usage == share
+    assert data.gpu_device_num == 2 and data.userid == 42
+
+
+def test_a_slot_share_reaches_the_batch_and_the_run_report(args, tmp_path, monkeypatch):
+    """The command line in a BOINC slot whose ``init_data.xml`` gives
+    ``gpu_usage`` 0.25, on a stand-in card of 4 MB with 3.5 MB free: the
+    budget is 1 MB, the batch the memory model's at that budget (8,
+    ``card-share``), the run report holds the share and the budget, and
+    the rows equal those of the same search without ``init_data.xml`` at
+    another batch."""
+    import json
+    from dataclasses import replace
+
+    from boinc_app_eah_brp_tpu_torch.runtime import autobatch
+
+    monkeypatch.delenv("ERP_BATCH", raising=False)
+    monkeypatch.setenv(autobatch.SWEEP_ENV, str(tmp_path / "no_sweep.json"))
+    monkeypatch.setattr(autobatch, "device_memory_budget", lambda device=None: 3_500_000)
+    monkeypatch.setattr(autobatch, "device_total_memory", lambda device=None: 4_000_000)
+    slot = tmp_path / "slot"
+    slot.mkdir()
+    (slot / "init_data.xml").write_text(
+        "<app_init_data>\n<gpu_device_num>0</gpu_device_num>\n<gpu_usage>0.25</gpu_usage>\n</app_init_data>\n")
+    monkeypatch.chdir(slot)
+    shared = replace(args, batch_size=None, status_file=None, control_file=None,
+                     metrics_file=str(tmp_path / "m.jsonl"))
+    assert run_search(shared) == 0
+    gauges = {k: v["value"] for k, v in json.load(open(tmp_path / "m.jsonl.report.json"))["metrics"]["gauges"].items()}
+    assert gauges["card.gpu_usage"] == 0.25 and gauges["card.budget_bytes"] == 1_000_000
+    assert (gauges["autobatch.batch_size"], gauges["autobatch.decision"]) == (8, "card-share")
+
+    monkeypatch.chdir(tmp_path)
+    alone = replace(args, batch_size=3, status_file=None, control_file=None, outputfile=str(tmp_path / "alone.cand"),
+                    checkpointfile=str(tmp_path / "alone.cpt"), metrics_file=str(tmp_path / "a.jsonl"))
+    assert run_search(alone) == 0
+    gauges = {k: v["value"] for k, v in json.load(open(tmp_path / "a.jsonl.report.json"))["metrics"]["gauges"].items()}
+    assert gauges["card.gpu_usage"] == 1.0 and "card.budget_bytes" not in gauges
+
+    def rows(path):
+        return [ln for ln in open(path).read().splitlines() if not ln.startswith("%")]
+
+    assert len(rows(shared.outputfile)) > 10 and rows(shared.outputfile) == rows(alone.outputfile)

@@ -133,6 +133,58 @@ def test_make_app_info_valid_xml_with_the_cuda_plan_class(tmp_path):
     assert "boinc_app_eah_brp_tpu_torch" in av.find("cmdline").text
 
 
+# the default render as the one-task-a-card deployment has always shipped it
+DEFAULT_APP_INFO = """<app_info>
+    <app>
+        <name>einsteinbinary_BRP4</name>
+    </app>
+    <file_info>
+        <name>erp_wrapper</name>
+        <executable/>
+    </file_info>
+    <app_version>
+        <app_name>einsteinbinary_BRP4</app_name>
+        <version_num>56</version_num>
+        <avg_ncpus>1.0</avg_ncpus>
+        <max_ncpus>1.0</max_ncpus>
+        <plan_class>cuda_sm90a</plan_class>
+        <coproc>
+            <type>NVIDIA</type>
+            <count>1</count>
+        </coproc>
+        <cmdline>--worker 'python3 -m boinc_app_eah_brp_tpu_torch'</cmdline>
+        <file_ref>
+           <file_name>erp_wrapper</file_name>
+           <main_program/>
+        </file_ref>
+    </app_version>
+</app_info>
+"""
+
+
+@pytest.mark.parametrize("extra, count", [([], None), (["--gpu-usage", "1"], None), (["--gpu-usage", "0.25"], "0.25"),
+                                          (["--gpu-usage", "0.5"], "0.5")])
+def test_make_app_info_declares_a_share_of_the_card(extra, count, capsys):
+    """``--gpu-usage F`` writes ``<count>F</count>``, so the client runs
+    1/F tasks a card; without it (or at 1) the file is byte for byte the
+    one-task file."""
+    assert make_app_info.main(["-o", "-", *extra]) == 0
+    xml = capsys.readouterr().out
+    if count is None:
+        assert xml == DEFAULT_APP_INFO
+    else:
+        assert xml == DEFAULT_APP_INFO.replace("<count>1</count>", f"<count>{count}</count>")
+        assert ET.fromstring(xml).find("app_version/coproc/count").text == count
+
+
+@pytest.mark.parametrize("bad", ["0", "-0.25", "1.5", "nan"])
+def test_make_app_info_refuses_a_share_outside_the_card(bad):
+    with pytest.raises(SystemExit):
+        make_app_info.main(["-o", "-", "--gpu-usage", bad])
+    with pytest.raises(ValueError):
+        make_app_info.render("a", 1, "w", "", gpu_usage=float(bad))
+
+
 @pytest.fixture(scope="module")
 def bundle(tmp_path_factory):
     """The bundle, built with placeholder kernel libraries named by the

@@ -446,7 +446,9 @@ def warm_step(geom: SearchGeometry, batch_size: int, device="cuda") -> None:
     first kernel launch), plan cuFFT's R2C of (batch, nsamples) by one
     :class:`BankStep` on zero operands of the production shapes, take the
     exact mean once where ``geom.exact_mean``, and otherwise (whitened
-    runs) warm whitening (``ops/whiten.py::warm``)."""
+    runs) warm whitening (``ops/whiten.py::warm``).  On a card it also
+    plans the rescoring's float64 R2C of (nsamples,)
+    (``oracle/spectrum.py::power_at_on_device``)."""
     dev = resolve_device(device)
     B = int(batch_size)
     ts = torch.zeros(geom.n_unpadded, dtype=torch.float32, device=dev)
@@ -464,6 +466,7 @@ def warm_step(geom: SearchGeometry, batch_size: int, device="cuda") -> None:
         warm(geom.nsamples, dev)
     BankStep(geom, bank, B, mean=mean)(ts, 0, B)
     if dev.type == "cuda":
+        planned_fft(torch.fft.rfft, torch.zeros(geom.nsamples, dtype=torch.float64, device=dev))
         torch.cuda.synchronize(dev)
 
 

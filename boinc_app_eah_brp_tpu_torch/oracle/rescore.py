@@ -1,43 +1,50 @@
 """Host-oracle rescoring of the winning candidates.
 
 After the (M, T) -> toplist conversion, every template among the emitted
-winners runs once through the numpy oracle (``oracle/resample.py``'s
-reference chain, numpy's FFT and a point evaluation of the harmonic sums)
+winners runs once through the oracle (``oracle/resample.py``'s reference
+chain, numpy's FFT or the same float64 transform on the session's device,
+and a point evaluation of the harmonic sums)
 and the toplist entries of those templates take the oracle's powers.  The
 candidate file then carries the reference's powers whatever FFT library
 and float contraction the device used, and it is the same file the JAX
 package writes by default.
 
-Cost: one oracle pass per unique winning template, on a thread pool
-(numpy releases the interpreter lock in the FFT and the large elementwise
-operations).  :class:`IncrementalRescorer` overlaps that work with the
-search: each committed checkpoint already builds the current toplist, so
-its winners are scored in the background while the card searches on, and
-the end-of-run pass only scores what won after the last checkpoint.  The
-scores are the same either way: a cached value is reused only for the
-exact (template, level, bin) it was computed for.
+Cost: one oracle pass per unique winning template; on a numpy series
+they run on a thread pool (numpy releases the interpreter lock in the
+FFT and the large elementwise operations).  :class:`IncrementalRescorer`
+overlaps that work with the search: each committed checkpoint already
+builds the current toplist, so its winners are scored in the background
+while the card searches on, and the end-of-run pass only scores what won
+after the last checkpoint.  The scores are the same either way: a cached
+value is reused only for the exact (template, level, bin) it was
+computed for.
 
 The end-of-run pass of a session runs after the template loop, when the
-card is idle: it takes each template's resampled series from the card
-(:func:`device_heads`: kernel A's LUT gather and the exact serial mean,
-both bitwise the oracle's resample), so the host runs only numpy's FFT,
-the power at the bins the harmonic sums read and their evaluation.  The
+card is idle, and takes each template's spectrum from the card
+(:func:`device_series`: kernel A's LUT gather and the exact serial mean,
+both bitwise the oracle's resample, padded there; then
+``spectrum.power_at_on_device``: one float64 rfft, the bins the harmonic
+sums read and the float32 power epilogue), so the host copies a few
+thousand powers a template and evaluates the harmonic sums.  The
 background passes of :class:`IncrementalRescorer` run while the card
-searches, so they keep the host oracle's resample.
+searches, so they keep the host oracle's resample and numpy's FFT; a
+session on a card arms none, since its end-of-run pass takes ~10 ms a
+template there.
 
 Each pass is spans of ``runtime/tracing.py``: ``rescore.resample`` (a
-host resample), ``rescore.fft`` and ``rescore.harmonics``, each with its
-template, on the pool's threads, and one ``rescore.device-resample`` a
-chunk of device-resampled templates on the calling thread; it counts one
-``rescore.templates``, and each device-resampled template one
-``rescore.device_resamples``.  The pool's threads carry the workunit id
+host resample), ``rescore.fft`` (the transform and the powers at the
+bins: numpy's on the host, or on the series' device) and
+``rescore.harmonics``, each with its template, and one
+``rescore.device-resample`` a chunk of device-resampled templates; it
+counts one ``rescore.templates``, each device-resampled template one
+``rescore.device_resamples`` and each spectrum taken on the device one
+``rescore.device_ffts``.  The host pool's threads carry the workunit id
 of the thread that handed them the work.
 """
 
 from __future__ import annotations
 
 import os
-import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -45,8 +52,8 @@ import numpy as np
 
 from .harmonic import harmonic_bins, harmonic_power_at
 from .pipeline import DerivedParams
-from .resample import ResampleParams, pad_head, resample
-from .spectrum import power_at
+from .resample import ResampleParams, resample
+from .spectrum import power_at, power_at_on_device
 
 
 _OFF = ("off", "0", "none")
@@ -105,35 +112,42 @@ def _score_template(ts: np.ndarray, derived: DerivedParams, tpl: tuple, pairs) -
     return _score_series(resampled, derived, tpl, pairs)
 
 
-def _score_series(resampled: np.ndarray, derived: DerivedParams, tpl: tuple, pairs) -> dict:
-    """The rest of an oracle pass over the resampled series of ``tpl``:
-    numpy's FFT, the power at the bins the (k, f0) pairs read, and their
-    harmonic sums."""
+def _score_series(resampled, derived: DerivedParams, tpl: tuple, pairs) -> dict:
+    """The rest of an oracle pass over the resampled series of ``tpl``
+    (a numpy array, or a torch tensor whose device takes the spectrum):
+    the power at the bins the (k, f0) pairs read, and their harmonic
+    sums on the host."""
     from ..runtime import metrics, tracing
 
     template = tuple(float(x) for x in tpl)
     geo = (derived.window_2, derived.fundamental_idx_hi, derived.harmonic_idx_hi)
     with tracing.span("rescore.fft", template=template):
         bins = np.unique(np.concatenate([harmonic_bins(f0, k, *geo) for (k, f0) in pairs]))
-        ps = power_at(resampled, bins, 1.0 / derived.nsamples)
+        if isinstance(resampled, np.ndarray):
+            ps = power_at(resampled, bins, 1.0 / derived.nsamples)
+        else:
+            ps = power_at_on_device(resampled, bins, 1.0 / derived.nsamples)
+            metrics.counter("rescore.device_ffts").inc()
     with tracing.span("rescore.harmonics", template=template):
         out = {(k, f0): harmonic_power_at(ps, f0, k, *geo) for (k, f0) in pairs}
     metrics.counter("rescore.templates").inc()
     return out
 
 
-def device_heads(ts, rows, take_buffer):
-    """Yield ``(head, n_steps, mean)`` for each oracle parameter set of
+def device_series(ts, rows):
+    """Yield ``(series, n_steps, mean)`` for each oracle parameter set of
     ``rows`` (``ResampleParams``), in order, resampled on ``ts``'s device:
     kernel A's LUT instantiation (no renorm: the oracle resamples the
     searched series as it is, whatever sine the search took) and the
     exact serial mean, :data:`DEVICE_CHUNK` templates a launch (counted
     as ``rescore_resample`` and ``rescore_serial_mean``), one
-    ``rescore.device-resample`` span a chunk.  ``head`` is a host float32
-    tensor from ``take_buffer()`` (n_unpadded entries) whose first
-    ``max(n_steps, 0)`` hold the gathered samples; ``pad_head`` of it is
-    the oracle's ``resample`` bit for bit.  On a CPU tensor the kernels
-    run their plain versions."""
+    ``rescore.device-resample`` span a chunk.  ``series`` is the padded
+    float32[nsamples] series on that device (the mean everywhere, the
+    first ``max(n_steps, 0)`` gathered samples in front), the oracle's
+    ``resample`` bit for bit; ``mean`` is a numpy float32.  On a CPU
+    tensor the kernels run their plain versions."""
+    import torch
+
     from ..ops.resample import exact_mean_params, resample_stream, stream_params
     from ..runtime import metrics, tracing
 
@@ -149,40 +163,11 @@ def device_heads(ts, rows, take_buffer):
                 for x in exact_mean_params(ts, params, n_unpadded=n, dt=dt, count_as="rescore_serial_mean")
             )
             metrics.counter("rescore.device_resamples").inc(len(chunk))
-            for t in range(len(chunk)):
-                head = take_buffer()
-                m = max(int(n_steps[t]), 0)
-                head[:m].copy_(raw[t].t().reshape(-1)[:m])  # the two parities interleaved
-                yield head, int(n_steps[t]), mean[t]
-
-
-def _score_device_resampled(ts, derived: DerivedParams, todo: dict, workers: int, wu) -> dict:
-    """The oracle passes of ``todo`` with their series from the device
-    (the oracle's parameters, S0 through glibc's sinf on the host): each
-    template goes to the pool as soon as its head is on the host, so the
-    next head's copy overlaps its FFT.  The heads land in a few pinned
-    buffers, each back in the ring once a worker has padded it."""
-    import torch
-
-    from ..runtime import tracing
-
-    ring: queue.SimpleQueue = queue.SimpleQueue()
-    for _ in range(min(workers + 1, len(todo))):
-        ring.put(torch.empty(derived.n_unpadded, dtype=torch.float32, pin_memory=ts.is_cuda))
-
-    def one(tpl, head, n_steps, mean):
-        with tracing.for_workunit(wu):
-            try:
-                series = pad_head(head.numpy(), n_steps, mean, derived.nsamples)
-            finally:
-                ring.put(head)
-            return tpl, _score_series(series, derived, tpl, todo[tpl])
-
-    tpls = sorted(todo)
-    rows = [ResampleParams.from_template(*tpl, derived.dt, derived.nsamples, derived.n_unpadded) for tpl in tpls]
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        futures = [pool.submit(one, tpl, *item) for tpl, item in zip(tpls, device_heads(ts, rows, ring.get))]
-        return dict(f.result() for f in futures)
+        for t, row in enumerate(chunk):
+            m = max(int(n_steps[t]), 0)
+            series = torch.full((row.nsamples,), float(mean[t]), dtype=torch.float32, device=ts.device)
+            series[:m] = raw[t].t().reshape(-1)[:m]  # the two parities interleaved
+            yield series, int(n_steps[t]), mean[t]
 
 
 def unique_winner_count(emitted: np.ndarray) -> int:
@@ -203,8 +188,12 @@ def rescore_winners(
     template among the ``emitted`` winners, and the number of templates
     that ran an oracle pass.  ``ts`` is the searched series: a torch
     tensor (the session's, on its device) gives each pass its resampled
-    series from that device (:func:`device_heads`), a numpy array from
-    the host oracle's resample; the powers are the same bit for bit.
+    series and its spectrum from that device (:func:`device_series`, one
+    template at a time), a numpy array the host oracle's resample and
+    numpy's FFT on a pool of ``max_workers`` threads (up to 8).  The
+    powers are the same bit for bit, except where the two float64
+    transforms round to either side of a float32 value (about one value
+    in 10^7).
     ``cache`` (``{template: {(k, f0): power}}``,
     from :class:`IncrementalRescorer`) saves the pass of every template
     whose pairs it already holds.  The caller finalizes the patched
@@ -229,15 +218,17 @@ def rescore_winners(
 
     from ..runtime import metrics, tracing
 
-    wu = tracing.workunit()
-    workers = max_workers or min(8, os.cpu_count() or 1, len(todo) or 1)
-    metrics.gauge("rescore.workers").set(workers)
-    if not todo:
-        fresh = {}
-    elif isinstance(ts, torch.Tensor):
-        fresh = _score_device_resampled(ts, derived, todo, workers, wu)
+    if isinstance(ts, torch.Tensor):
+        metrics.gauge("rescore.workers").set(1)
+        tpls = sorted(todo)
+        rows = [ResampleParams.from_template(*tpl, derived.dt, derived.nsamples, derived.n_unpadded) for tpl in tpls]
+        fresh = {tpl: _score_series(series, derived, tpl, todo[tpl])
+                 for tpl, (series, _, _) in zip(tpls, device_series(ts, rows))}
     else:
         ts = np.asarray(ts, dtype=np.float32)
+        wu = tracing.workunit()
+        workers = max_workers or min(8, os.cpu_count() or 1, len(todo) or 1)
+        metrics.gauge("rescore.workers").set(workers)
 
         def one(tpl):
             with tracing.for_workunit(wu):

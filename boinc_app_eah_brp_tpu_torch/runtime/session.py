@@ -455,12 +455,14 @@ class Session:
         rescore = args.rescore and rescore_enabled()
         # background rescoring of the winners seen at each checkpoint, so the
         # end-of-run oracle pass only scores what won after the last one;
-        # not worth its threads for a small bank or on a single core, and
-        # off with ERP_RESCORE_OVERLAP=off.  An elastic run rescores on the
-        # merge winner only, at the end: a process's checkpoint-time toplist
-        # is one shard's
+        # not worth its threads for a small bank, on a single core, or on a
+        # card (whose end-of-run pass takes ~10 ms a template), and off with
+        # ERP_RESCORE_OVERLAP=off.  An elastic run rescores on the merge
+        # winner only, at the end: a process's checkpoint-time toplist is
+        # one shard's
         rescorer = None
-        if rescore and overlap_enabled() and template_total >= 256 and (os.cpu_count() or 1) >= 2 and dist is None:
+        if (rescore and overlap_enabled() and template_total >= 256 and (os.cpu_count() or 1) >= 2
+                and dist is None and not self.ts.is_cuda):
             rescorer = IncrementalRescorer(self.host_series, derived, derived.t_obs)
             erplog.debug("Rescore overlap armed (checkpoint cadence).\n")
 
@@ -720,7 +722,7 @@ class Session:
         cache = None
         if rescore:
             # the wait for the background rescorer (none is armed below 256
-            # templates, and the span holds no work)
+            # templates or on a card, and the span holds no work)
             with tracing.span("rescore-finalize"):
                 cache = rescorer.finalize() if rescorer is not None else None
         if rescore and len(emitted):
@@ -728,11 +730,11 @@ class Session:
                 t0 = time.perf_counter()
                 n_winners = unique_winner_count(emitted)
                 # the card is idle now: each pass takes its resampled series
-                # from it, and the host runs numpy's FFT
+                # and its spectrum from it, and the host sums the harmonics
                 patched, n_eval = rescore_winners(self.ts, cands, emitted, derived, cache=cache)
                 emitted = finalize_candidates(patched, derived.t_obs)
             erplog.info(
-                "Rescored %d of %d winning templates through the oracle (resampled on %s) in %.1f s%s.\n",
+                "Rescored %d of %d winning templates through the oracle (resampled and transformed on %s) in %.1f s%s.\n",
                 n_eval, n_winners, self.dev, time.perf_counter() - t0,
                 f" ({rescorer.observed} checkpoints observed, {rescorer.failed} background failures)"
                 if rescorer is not None else "",

@@ -19,9 +19,9 @@ so ``tools/trace_report.py`` can attribute the run wall to named stalls.
 The process's start is spanned too (``import``, ``cuda-init``,
 ``kernel-load``, ``cufft-plan``, ``input-read``), the served queue
 (``exec-wait``) and each oracle pass of the rescoring
-(``rescore.resample`` where the host resamples, ``rescore.fft``,
-``rescore.harmonics``; ``rescore.device-resample`` a chunk of templates
-the card resamples).
+(``rescore.resample`` where the host resamples, ``rescore.fft`` the
+spectrum at the bins read, on the host or the card, ``rescore.harmonics``;
+``rescore.device-resample`` a chunk of templates the card resamples).
 Device-side per-stage spans (measured by ``steptime.capture_profile``,
 moved onto this module's clock) merge onto ``device:*`` lanes of the
 Chrome export via ``add_device_records``; they never enter the JSONL

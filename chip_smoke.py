@@ -118,8 +118,10 @@ Phases:
    workunit and 6,662-template bank) written to disk and run by the
    command line in a subprocess at the default batch, whitened and then
    unwhitened, with ``--metrics-file`` and ``ERP_TRACE_FILE``: ``%DONE%``,
-   7 columns, at most 100 candidates, the rescoring overlap armed; the
-   wall, the loop's templates/s (from the trace) and the rescoring split
+   7 columns, at most 100 candidates, no rescoring overlap armed (a card
+   session takes every winner's spectrum on the card: the run report's
+   ``rescore.device_ffts`` equals its ``rescore.templates``); the wall,
+   the loop's templates/s (from the trace) and the rescoring split
    between the overlap and the end-of-run pass (``tools/trace_report.py``
    and the run report); (3) ``tools/make_bundle.py`` into a directory
    outside the repository, and the bundle's ``erp_wrapper`` running
@@ -152,8 +154,9 @@ Phases:
    phase, the ``rescore.*`` counters 0, and rows equal to phase 4's
    unrescored toplist; (2) ``ERP_RESCORE_OVERLAP=off`` gives phase 4's
    rows byte for byte with no ``rescore-feed`` span, and on (i2)'s
-   whitened production run, where the overlap arms, (i2)'s rows byte for
-   byte with no ``rescore-feed`` span, its wall beside (i2)'s; (3)
+   whitened production run (where a card session arms no overlap
+   either), (i2)'s rows byte for byte with no ``rescore-feed`` span, its
+   wall beside (i2)'s; (3)
    ``ERP_PRECISION=bf16`` (``RADPUL_EMISC``, as the JAX package's
    command line exits) and ``ERP_PRECISION=xx`` (``RADPUL_EVAL``), each
    with cuFFT's plan cache emptied first, launch no kernel, make no plan
@@ -1792,11 +1795,11 @@ def _production_run(files: dict, templates: int, name: str, white: bool, env: di
     ``bench.write_problem``, ``templates`` of them) by the command line in a subprocess at the
     default batch, with the metrics report and the host trace; the
     rescoring split from the trace (``tools/trace_report.py``) and the run
-    report.  The overlap must arm unless ``env`` turns it off."""
+    report.  The overlap must not arm (a card session takes every
+    winner's spectrum on the card)."""
     from boinc_app_eah_brp_tpu_torch.tools import trace_report
 
     pdir = os.path.dirname(files["wu"])
-    overlap = (env or {}).get("ERP_RESCORE_OVERLAP") != "off"
     cand, mfile = os.path.join(pdir, f"{name}.cand"), os.path.join(pdir, f"{name}.metrics.jsonl")
     trace = os.path.join(pdir, f"{name}.trace.jsonl")
     args = [a for a in files["args"] if white or a != "-W"] + (["-l", files["zap"]] if white else [])
@@ -1817,11 +1820,12 @@ def _production_run(files: dict, templates: int, name: str, white: bool, env: di
     # candidate file is a valid result
     check(len(lines) <= 100 and (len(lines) > 0 or not white),
           f"the production run ({name}) wrote {len(lines)} candidates")
-    check(("Rescore overlap armed" in log) == overlap,
-          f"the production run ({name}) {'did not arm' if overlap else 'armed'} the rescoring overlap")
+    check("Rescore overlap armed" not in log, f"the production run ({name}) armed the rescoring overlap on the card")
     report = _report(mfile)
     phases = report["metrics"]["phases"]
     counters = {k: v["value"] for k, v in report["metrics"]["counters"].items()}
+    check(counters.get("rescore.device_ffts", 0) == counters.get("rescore.templates", 0),
+          f"the production run ({name}) took a spectrum off the card: {counters}")
     loaded = trace_report.load_trace(trace)
     table = trace_report.stall_table(loaded)
     # the loop on the card: from the loop's first enqueue to the end of
@@ -1830,7 +1834,7 @@ def _production_run(files: dict, templates: int, name: str, white: bool, env: di
     drain = _first_drain_after(loaded["spans"], loop["end_us"])
     check(drain is not None, f"no drain after the production run's ({name}) loop")
     loop_s = (drain["end_us"] - loop["ts_us"]) / 1e6
-    rescored = [ln.strip() for ln in log.splitlines() if "winning templates through the host oracle" in ln]
+    rescored = [ln.strip() for ln in log.splitlines() if "winning templates through the oracle" in ln]
     return dict(
         wall_s=wall,
         batch=report["metrics"]["gauges"]["autobatch.batch_size"]["value"],
@@ -1865,8 +1869,9 @@ def run_production(workdir: str) -> dict:
     for name, white in (("whitened", True), ("unwhitened", False)):
         out[name] = _production_run(files, len(problem.P), name, white)
         print(json.dumps({f"production_{name}": out[name]}), flush=True)
-    # phase (k2)'s production run holds its rows and its feed against these
-    check(out["whitened"]["rescore_feed_spans"] > 0, "the whitened production run shows no rescore-feed span")
+    # phase (k2)'s production run holds its rows against these; a card
+    # session feeds no background rescorer, with the knob or without
+    check(out["whitened"]["rescore_feed_spans"] == 0, "the whitened production run fed a background rescorer")
     return out
 
 
@@ -2093,9 +2098,9 @@ def run_knobs(torch, workdir: str, wu: str, main_run: dict, production: dict) ->
     ``ERP_RESCORE_OVERLAP=off``: phase 4's rows byte for byte, no
     ``rescore-feed`` span (bank200 is below the overlap's 256-template
     floor, so phase 4 never arms it either), then (i2)'s whitened
-    production run (6,662 templates, where the overlap arms) again with
-    the knob, in a subprocess as (i2) runs it: no ``rescore-feed`` span
-    where (i2)'s had some, (i2)'s rows byte for byte, its wall and
+    production run (6,662 templates; a card session arms no overlap
+    either) again with the knob, in a subprocess as (i2) runs it: no
+    ``rescore-feed`` span, (i2)'s rows byte for byte, its wall and
     rescoring times beside (i2)'s; (3) ``ERP_PRECISION=bf16``
     (``RADPUL_EMISC``: its ``NotImplementedError`` is unmapped, and the
     command line of either package exits so) and ``ERP_PRECISION=xx``

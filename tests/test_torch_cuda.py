@@ -582,17 +582,13 @@ def test_smoke_gate_passes_on_the_card(dev, tmp_path):
         assert res["launches"].get(name, 0) > 0, name
 
 
-def test_end_of_run_rescoring_on_the_card_is_the_host_oracle_pass(dev):
-    """At the production width (2^22 samples, bank200, the whitened
-    production workunit): the series of every winner resampled on the
-    card (kernel A's LUT gather, the exact serial mean) and padded on the
-    host is the host oracle's ``resample`` bit for bit, and the toplist
-    the pass patches is the host oracle pass's, byte for byte.  The pass
-    launches A and the exact mean under the rescoring's own entries."""
+def _production_toplist(dev, seed):
+    """The whitened production workunit of ``seed`` (2^22 samples, the
+    bank200 pulsar injected), its geometry, and the toplist and winners
+    of bank200 searched over it at batch 32 on the card."""
     from boinc_app_eah_brp_tpu_torch.io import empty_candidates
     from boinc_app_eah_brp_tpu_torch.ops.whiten import whiten_and_zap
-    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig, rescore
-    from boinc_app_eah_brp_tpu_torch.oracle import resample as oracle
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
     from boinc_app_eah_brp_tpu_torch.oracle.stats import base_thresholds
     from boinc_app_eah_brp_tpu_torch.oracle.toplist import finalize_candidates, update_toplist_from_maxima
     from boinc_app_eah_brp_tpu_torch.tools import _inputs
@@ -601,7 +597,7 @@ def test_end_of_run_rescoring_on_the_card_is_the_host_oracle_pass(dev):
     b = np.loadtxt(BANK200)
     P, tau, psi0 = b[:, 0], b[:, 1], search.normalize_psi0(b[:, 2])
     inj = _inputs.INJECT
-    x = _inputs.pulsed_series(n, DT * 1e6, (P[inj], tau[inj], psi0[inj]), 123.4567, 0.4, _inputs.SEED)
+    x = _inputs.pulsed_series(n, DT * 1e6, (P[inj], tau[inj], psi0[inj]), 123.4567, 0.4, seed)
     cfg = SearchConfig(f0=400.0, padding=3.0, fA=0.08, window=1000, white=True)
     d = DerivedParams.derive(n, DT * 1e6, cfg)
     zap = np.array([[60.0, 60.5], [180.0, 180.2]])
@@ -616,23 +612,99 @@ def test_end_of_run_rescoring_on_the_card_is_the_host_oracle_pass(dev):
         P.astype(np.float32), tau.astype(np.float32), psi0.astype(np.float32),
         base_thresholds(cfg.fA, d.fft_size), geom.window_2,
     )
-    emitted = finalize_candidates(cands, d.t_obs)
+    return ts, d, geom, cands, finalize_candidates(cands, d.t_obs)
+
+
+def test_end_of_run_rescoring_on_the_card_is_the_host_oracle_pass(dev):
+    """At the production width (2^22 samples, bank200, the whitened
+    production workunit): the series of every winner resampled and
+    padded on the card (kernel A's LUT gather, the exact serial mean) is
+    the host oracle's ``resample`` bit for bit, and the toplist the pass
+    patches with the spectra it takes on the card (a float64 cuFFT
+    transform each) is the host oracle pass's, byte for byte.  The pass
+    launches A and the exact mean under the rescoring's own entries,
+    takes every winner's spectrum on the card, and opens no host
+    resample; after ``warm_step`` neither it nor a second workunit's
+    pass, of another winner count, makes a cuFFT plan."""
+    from boinc_app_eah_brp_tpu_torch.oracle import rescore
+    from boinc_app_eah_brp_tpu_torch.oracle import resample as oracle
+    from boinc_app_eah_brp_tpu_torch.runtime import metrics, tracing
+    from boinc_app_eah_brp_tpu_torch.tools import _inputs
+
+    ts, d, geom, cands, emitted = _production_toplist(dev, _inputs.SEED)
     host = ts.cpu().numpy()
     winners = sorted(rescore._winning_pairs(cands, emitted)[0])
     assert len(winners) > rescore.DEVICE_CHUNK
-    rows = [oracle.ResampleParams.from_template(*t, d.dt, d.nsamples, n) for t in winners]
-    for row, (head, n_steps, mean) in zip(rows, rescore.device_heads(ts, rows, lambda: torch.empty(n))):
+    rows = [oracle.ResampleParams.from_template(*t, d.dt, d.nsamples, d.n_unpadded) for t in winners]
+    for row, (padded, n_steps, mean) in zip(rows, rescore.device_series(ts, rows)):
         want, w_steps, w_mean = oracle.resample(host, row)
         assert n_steps == w_steps and mean.tobytes() == w_mean.tobytes()
-        assert oracle.pad_head(head.numpy(), n_steps, mean, d.nsamples).tobytes() == want.tobytes()
-    before = dict(kernels.launch_counts)
-    got, n_got = rescore.rescore_winners(ts, cands, emitted, d)
+        assert padded.cpu().numpy().tobytes() == want.tobytes()
+    search.warm_step(geom, 32, dev)
+    plans = []
+    kernels.plan_listeners.append(plans.append)
+    assert metrics.configure(force=True) and tracing.configure(force=True)
+    try:
+        before = dict(kernels.launch_counts)
+        got, n_got = rescore.rescore_winners(ts, cands, emitted, d)
+        after = dict(kernels.launch_counts)
+        counters = {k: v["value"] for k, v in metrics.snapshot()["counters"].items()}
+        spans = [r["name"] for r in tracing.events() if r.get("kind") == "span"]
+        ts2, d2, _, cands2, emitted2 = _production_toplist(dev, _inputs.SEED + 1)
+        n_second = rescore.rescore_winners(ts2, cands2, emitted2, d2)[1]
+    finally:
+        kernels.plan_listeners.remove(plans.append)
+        metrics.finish(0)
+        tracing.finish(0)
     chunks = -(-len(winners) // rescore.DEVICE_CHUNK)
-    assert kernels.launch_counts["rescore_resample"] == before["rescore_resample"] + chunks
-    assert kernels.launch_counts["rescore_serial_mean"] == before["rescore_serial_mean"] + chunks
+    assert after["rescore_resample"] == before["rescore_resample"] + chunks
+    assert after["rescore_serial_mean"] == before["rescore_serial_mean"] + chunks
     for k in ("resample", "resample_t1", "serial_mean"):
-        assert kernels.launch_counts[k] == before[k], k
+        assert after[k] == before[k], k
+    assert counters["rescore.device_ffts"] == counters["rescore.device_resamples"] == len(winners)
+    assert spans.count("rescore.fft") == len(winners) and "rescore.resample" not in spans
+    assert n_second != len(winners) and n_second == rescore.unique_winner_count(emitted2) > 0
+    assert sum(plans) == 0
     want, n_want = rescore.rescore_winners(host, cands, emitted, d)
     assert n_got == n_want == len(winners)
     assert got.tobytes() == want.tobytes()
     assert not np.array_equal(got["power"], cands["power"])
+
+
+def test_a_card_session_arms_no_background_rescorer(dev, tmp_path, monkeypatch):
+    """A command-line session on the card with 260 templates (past the
+    background rescorer's floor) arms no ``IncrementalRescorer``: its
+    end-of-run pass takes every winner's spectrum on the card (a CPU
+    session arms one: ``tests/test_torch_rescore.py``)."""
+    from boinc_app_eah_brp_tpu_torch.io import TemplateBank, write_template_bank, write_workunit
+    from boinc_app_eah_brp_tpu_torch.oracle import rescore
+    from boinc_app_eah_brp_tpu_torch.runtime import metrics
+    from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
+
+    n = 1 << 16
+    rng = np.random.default_rng(7)
+    P = np.concatenate([[1000.0], rng.uniform(1.6, 3.0, 259)])
+    tau = np.concatenate([[0.0], rng.uniform(0.0, 0.09, 259)])
+    psi = np.concatenate([[0.0], rng.uniform(0.0, 2 * np.pi, 259)])
+    bank = str(tmp_path / "bank.dat")
+    write_template_bank(bank, TemplateBank(P, tau, psi))
+    x = np.clip(np.round(rng.normal(4.0, 1.0, n)), 0, 15).astype(np.float32)
+    write_workunit(str(tmp_path / "wu.bin4"), x, tsample_us=DT * 1e6, scale=1.0)
+    monkeypatch.setattr(os, "cpu_count", lambda: 4)
+    monkeypatch.setenv("ERP_CHECKPOINT_PERIOD", "0")
+    armed = []
+    real_init = rescore.IncrementalRescorer.__init__
+    monkeypatch.setattr(
+        rescore.IncrementalRescorer, "__init__", lambda self, *a, **k: armed.append(1) or real_init(self, *a, **k)
+    )
+    assert metrics.configure(force=True)
+    try:
+        assert run_search(DriverArgs(
+            inputfile=str(tmp_path / "wu.bin4"), templatebank=bank, window=200, batch_size=16,
+            outputfile=str(tmp_path / "card.cand"), checkpointfile=str(tmp_path / "card.cpt"), device=str(dev),
+        )) == 0
+        counters = {k: v["value"] for k, v in metrics.snapshot()["counters"].items()}
+    finally:
+        metrics.finish(0)
+    assert armed == [] and counters.get("rescore.submitted", 0) == 0
+    assert counters["rescore.device_ffts"] == counters["rescore.templates"] > 0

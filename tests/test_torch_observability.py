@@ -10,8 +10,8 @@ package writes must pass the other package's validator.  A CPU CLI run of
 the port with ``--metrics-file`` must register the counters the JAX
 driver registers on the same synthetic workunit, with equal
 ``search.batches`` and ``search.templates`` (the ``jax.*`` counters, and
-the port's ``torch.*`` build counters and its own ``rescore.templates``
-and ``rescore.device_resamples``, aside).  Tolerance: exact
+the port's ``torch.*`` build counters and its own ``rescore.templates``,
+``rescore.device_resamples`` and ``rescore.device_ffts``, aside).  Tolerance: exact
 (integers, strings and the values the test itself feeds in).
 """
 
@@ -302,10 +302,11 @@ def test_cli_metrics_file_matches_jax_driver(tmp_path, monkeypatch):
     assert pm.validate_report(reports["p"]) == [] and jm.validate_report(reports["p"]) == []
     counters = {k: r["metrics"]["counters"] for k, r in reports.items()}
     names = {k: {n for n in c if not n.startswith(("jax.", "torch."))} for k, c in counters.items()}
-    # the port counts its oracle passes and those resampled on its device;
-    # the JAX package has no such counters
-    assert counters["p"]["rescore.templates"]["value"] == counters["p"]["rescore.device_resamples"]["value"] > 0
-    assert names["p"] - {"rescore.templates", "rescore.device_resamples"} == names["j"]
+    # the port counts its oracle passes and those resampled and transformed
+    # on its device; the JAX package has no such counters
+    own = {"rescore.templates", "rescore.device_resamples", "rescore.device_ffts"}
+    assert len({counters["p"][name]["value"] for name in own}) == 1 and counters["p"]["rescore.templates"]["value"] > 0
+    assert names["p"] - own == names["j"]
     for name in ("search.batches", "search.templates", "checkpoint.count"):
         assert counters["p"][name]["value"] == counters["j"][name]["value"], name
     assert reports["p"]["metrics"]["phases"].keys() == reports["j"]["metrics"]["phases"].keys()

@@ -3,11 +3,14 @@ package's.  Both are numpy on the same inputs, so every comparison is
 bitwise.
 
 The end-of-run pass takes each template's resampled series from the
-session's device (``rescore.device_heads``: kernel A's gather and the
-exact serial mean, their plain versions on a CPU tensor) and the power at
-the bins the harmonic sums read (``spectrum.power_at``); both are held
-bitwise against the host oracle here, and the patched toplist bytes
-against the host pass's and the JAX package's."""
+session's device (``rescore.device_series``: kernel A's gather and the
+exact serial mean, their plain versions on a CPU tensor) and its spectrum
+there (``spectrum.power_at_on_device``: a float64 rfft, which on a CPU
+tensor is torch's own); both are held bitwise against the host oracle
+here, and the patched toplist bytes against the host pass's and the JAX
+package's.  At the production length the float64 transform rounded to
+float32 is numpy's float32 transform but for a few 1-ulp roundings, and
+a float32 transform is not."""
 
 import importlib
 import os
@@ -133,7 +136,7 @@ def _whitened(ts, d):
 
 @pytest.mark.parametrize("case", ["unwhitened", "whitened", "no_sample"])
 def test_device_heads_are_the_oracle_resample(toplist, case):
-    """Every template's device-resampled series, padded on the host, its
+    """Every template's series resampled and padded on the device, its
     n_steps and its mean are the host oracle's ``resample`` bit for bit:
     the raw series and a whitened one (no renorm either way), and
     parameter sets with n_steps = -1 (an all-mean series) among them."""
@@ -144,19 +147,22 @@ def test_device_heads_are_the_oracle_resample(toplist, case):
     assert len(rows) > rescore.DEVICE_CHUNK
     assert metrics.configure(force=True)
     try:
-        heads = list(rescore.device_heads(torch.from_numpy(series), rows, lambda: torch.empty(d.n_unpadded)))
+        got = list(rescore.device_series(torch.from_numpy(series), rows))
         counted = metrics.snapshot()["counters"]["rescore.device_resamples"]["value"]
     finally:
         metrics.finish(0)
-    assert counted == len(heads) == len(rows)
-    for row, (head, n_steps, mean) in zip(rows, heads):
+    assert counted == len(got) == len(rows)
+    for row, (padded, n_steps, mean) in zip(rows, got):
         want, w_steps, w_mean = resample.resample(series, row)
-        got = resample.pad_head(head.numpy(), n_steps, mean, d.nsamples)
         assert n_steps == w_steps and mean.tobytes() == w_mean.tobytes()
-        assert got.tobytes() == want.tobytes()
+        assert padded.dtype == torch.float32 and padded.numpy().tobytes() == want.tobytes()
     if case == "no_sample":
-        assert [h[1] for h in heads[-2:]] == [-1, -1]
+        assert [g[1] for g in got[-2:]] == [-1, -1]
         assert not resample.resample(series, extra[0])[0].any()  # the mean, 0.0
+
+
+def _power_bins(n_bins):
+    return np.unique(np.r_[0, 1, 97, np.random.default_rng(5).integers(0, n_bins, 300), n_bins - 1])
 
 
 @pytest.mark.parametrize("tpl", [(2.2, 0.04, 1.2), (1000.0, 0.0, 0.0)])
@@ -164,13 +170,62 @@ def test_power_at_is_the_power_spectrum_at_its_bins(toplist, tpl):
     ts, d, _, _ = toplist
     out = resample.resample(ts, resample.ResampleParams.from_template(*tpl, d.dt, d.nsamples, d.n_unpadded))[0]
     full = spectrum.power_spectrum(out, 1.0 / d.nsamples)
-    bins = np.unique(np.r_[0, 1, 97, np.random.default_rng(5).integers(0, len(full), 300), len(full) - 1])
+    bins = _power_bins(len(full))
     got = spectrum.power_at(out, bins, 1.0 / d.nsamples)
     assert got.shape == full.shape and got.dtype == np.float32
     assert got[bins].tobytes() == full[bins].tobytes()
     rest = np.ones(len(full), dtype=bool)
     rest[bins] = False
     assert not got[rest].any()
+
+
+@pytest.mark.parametrize("tpl", [(2.2, 0.04, 1.2), (1000.0, 0.0, 0.0)])
+def test_power_at_on_device_is_power_at(toplist, tpl):
+    """The fixture's resampled series as a tensor: the spectrum taken on
+    its device (a float64 rfft, rounded to float32 at the bins) is
+    ``power_at``'s byte for byte, DC and the unlisted bins 0."""
+    ts, d, _, _ = toplist
+    out = resample.resample(ts, resample.ResampleParams.from_template(*tpl, d.dt, d.nsamples, d.n_unpadded))[0]
+    bins = _power_bins(d.nsamples // 2 + 1)
+    want = spectrum.power_at(out, bins, 1.0 / d.nsamples)
+    got = spectrum.power_at_on_device(torch.from_numpy(out), bins, 1.0 / d.nsamples)
+    assert got.dtype == np.float32 and got.tobytes() == want.tobytes()
+    assert got[0] == 0.0 and got[bins[1:]].all()
+
+
+PRODUCTION_NSAMPLES = 12_582_912  # the palfa geometry's padded series, 3 x 2^22
+
+
+@pytest.fixture(scope="module")
+def production_rfft():
+    """A seeded float32 series of the production length and numpy's
+    float32 rfft of it (complex64), as the host oracle takes it."""
+    x = (np.random.default_rng(24).standard_normal(PRODUCTION_NSAMPLES) * 1.5 + 0.25).astype(np.float32)
+    want = np.fft.rfft(x)
+    assert want.dtype == np.complex64
+    return x, want
+
+
+def _ulps_apart(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """The float32 values of ``got`` and ``want`` (complex64, re and im
+    apart) that differ, each as its distance in units in the last place."""
+    a, b = (np.ascontiguousarray(v).view(np.float32).view(np.int32).astype(np.int64) for v in (got, want))
+    # a monotone integer line through 0 for the sign-magnitude bit pattern
+    a, b = (np.where(v < 0, -(v & 0x7FFFFFFF), v) for v in (a, b))
+    return np.abs(a - b)[a != b]
+
+
+@pytest.mark.parametrize("dtype, close", [(torch.float64, True), (torch.float32, False)])
+def test_the_oracle_spectrum_is_a_float64_transform(production_rfft, dtype, close):
+    """numpy's rfft of a float32 series is the float64 transform rounded
+    once: torch's float64 rfft, rounded to complex64, differs from it in
+    at most 4 of the 12,582,914 values, each by 1 ulp, at the production
+    length.  A float32 transform misses nearly every value, so a cheaper
+    FFT in the rescoring would change the candidate file's powers."""
+    x, want = production_rfft
+    got = torch.fft.rfft(torch.from_numpy(x).to(dtype)).to(torch.complex64).numpy()
+    apart = _ulps_apart(got, want)
+    assert (len(apart) <= 4 and apart.max(initial=0) <= 1) == close, (len(apart), apart.max(initial=0))
 
 
 def test_harmonic_bins_are_every_bin_harmonic_power_at_reads(toplist):
@@ -206,7 +261,8 @@ def test_rescore_winners_from_a_device_series_is_the_host_pass(toplist, monkeypa
     want, _ = jax_rescore.rescore_winners(ts, cands, emitted, d)
     assert n_got == n_host == rescore.unique_winner_count(emitted) > rescore.DEVICE_CHUNK
     assert got.tobytes() == host.tobytes() == want.tobytes()
-    assert counters["rescore.device_resamples"]["value"] == counters["rescore.templates"]["value"] == n_got
+    for name in ("rescore.device_resamples", "rescore.device_ffts", "rescore.templates"):
+        assert counters[name]["value"] == n_got, name
 
 
 @pytest.fixture
@@ -255,6 +311,7 @@ def test_an_exact_sine_run_rescores_with_the_lut_oracle(wu_files, monkeypatch):
     finally:
         metrics.finish(0)
     assert counters["rescore.device_resamples"]["value"] == counters["rescore.templates"]["value"] > 0
+    assert counters["rescore.device_ffts"]["value"] == counters["rescore.templates"]["value"]
     _host_pass(monkeypatch)
     assert run("host") == 0
     files = [_body(wu_files["tmp"] / f"{n}.cand") for n in ("device", "host")]
@@ -312,6 +369,7 @@ def test_a_served_end_of_run_pass_resamples_every_template_on_the_device(wu_file
     assert counters.get("rescore.device_resamples", 0) + background == counters["rescore.templates"] > 0
     assert spans.count("rescore.fft") == counters["rescore.templates"]
     n_dev = counters.get("rescore.device_resamples", 0)
+    assert counters.get("rescore.device_ffts", 0) == n_dev
     assert spans.count("rescore.device-resample") == -(-n_dev // rescore.DEVICE_CHUNK)
     _host_pass(monkeypatch)
     with FleetServer(name="t-rescore-host", device="cpu") as server:
@@ -322,35 +380,73 @@ def test_a_served_end_of_run_pass_resamples_every_template_on_the_device(wu_file
 
 @pytest.mark.parametrize("extra_workers", [None, 4])
 def test_the_staging_ring_under_thread_pressure(toplist, monkeypatch, extra_workers):
-    """Two pool threads (fewer buffers than a chunk's templates), or more
-    threads than cores; a short switch interval, more templates than
-    buffers and a pad that waits before it reads its buffer: every score
-    of the device-resampled pass is the host pass's, so no buffer went
-    back to the ring before its worker had padded it."""
+    """The device pass keeps each template's series and spectrum on the
+    device (no host staging ring is left), so passes on several threads
+    at once share nothing but the plan cache: two threads, or more
+    threads than cores, each with its own templates, under a short
+    switch interval, each give the host pass's scores."""
     import sys
-    import time
-
-    real_pad = rescore.pad_head
-
-    def slow_pad(*a):
-        time.sleep(0.002)
-        return real_pad(*a)
-
-    monkeypatch.setattr(rescore, "pad_head", slow_pad)
+    import threading
 
     ts, d, _, _ = toplist
     b = np.loadtxt(BANK200)[:30]
     todo = {rescore._template_key(P, tau, psi): {(k, f0) for k in range(5) for f0 in (97, 101, 150)}
             for P, tau, psi in b}
     monkeypatch.setattr(rescore, "DEVICE_CHUNK", 7)
+    n_threads = 2 if extra_workers is None else (os.cpu_count() or 1) + extra_workers
+    tpls = sorted(todo)
+    shares = [tpls[i::n_threads] for i in range(n_threads)]
+    got: dict = {}
+    lock = threading.Lock()
+
+    def one(mine):
+        rows = [resample.ResampleParams.from_template(*t, d.dt, d.nsamples, d.n_unpadded) for t in mine]
+        out = {t: rescore._score_series(s, d, t, todo[t])
+               for t, (s, _, _) in zip(mine, rescore.device_series(torch.from_numpy(ts), rows))}
+        with lock:
+            got.update(out)
+
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        workers = 2 if extra_workers is None else (os.cpu_count() or 1) + extra_workers
-        got = rescore._score_device_resampled(torch.from_numpy(ts), d, todo, workers, None)
+        threads = [threading.Thread(target=one, args=(m,)) for m in shares]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(interval)
     assert got.keys() == todo.keys()
     for tpl, pairs in todo.items():
         want = rescore._score_template(ts, d, tpl, pairs)
         assert {p: v.tobytes() for p, v in got[tpl].items()} == {p: v.tobytes() for p, v in want.items()}, tpl
+
+
+def test_a_cpu_session_of_256_templates_arms_the_background_rescorer(wu_files, monkeypatch):
+    """A command-line session whose series is on the CPU arms the
+    background rescorer at 260 templates, as before the device spectrum;
+    its end-of-run pass takes on the device only what the background
+    passes left (a session on a card arms none: ``tests/test_torch_cuda.py``)."""
+    from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
+
+    _bank_past_the_overlap_floor(wu_files["bank"])
+    monkeypatch.setattr(os, "cpu_count", lambda: 4)
+    monkeypatch.setenv("ERP_CHECKPOINT_PERIOD", "0")
+    armed = []
+    real_init = rescore.IncrementalRescorer.__init__
+    monkeypatch.setattr(
+        rescore.IncrementalRescorer, "__init__", lambda self, *a, **k: armed.append(1) or real_init(self, *a, **k)
+    )
+    assert metrics.configure(force=True)
+    try:
+        assert run_search(DriverArgs(
+            inputfile=wu_files["wu"], templatebank=wu_files["bank"], window=200, batch_size=16,
+            outputfile=str(wu_files["tmp"] / "cpu.cand"), checkpointfile=str(wu_files["tmp"] / "cpu.cpt"),
+            device="cpu",
+        )) == 0
+        counters = {k: v["value"] for k, v in metrics.snapshot()["counters"].items()}
+    finally:
+        metrics.finish(0)
+    assert armed == [1] and counters["rescore.submitted"] > 0
+    assert counters["rescore.submitted"] + counters.get("rescore.device_ffts", 0) == counters["rescore.templates"]

@@ -1,52 +1,37 @@
-"""Host-oracle rescoring of the winning candidates.
+"""Oracle rescoring of the winning candidates.
 
 After the (M, T) -> toplist conversion, every template among the emitted
 winners runs once through the oracle (``oracle/resample.py``'s reference
-chain, numpy's FFT or the same float64 transform on the session's device,
-and a point evaluation of the harmonic sums)
-and the toplist entries of those templates take the oracle's powers.  The
-candidate file then carries the reference's powers whatever FFT library
-and float contraction the device used, and it is the same file the JAX
-package writes by default.
+chain, the same float64 transform numpy's FFT rounds once, and a point
+evaluation of the harmonic sums) and the toplist entries of those
+templates take the oracle's powers.  The candidate file then carries the
+reference's powers whatever FFT library and float contraction the search
+used, and it is the same file the JAX package writes by default.
 
-Cost: one oracle pass per unique winning template; on a numpy series
-they run on a thread pool (numpy releases the interpreter lock in the
-FFT and the large elementwise operations).  :class:`IncrementalRescorer`
-overlaps that work with the search: each committed checkpoint already
-builds the current toplist, so its winners are scored in the background
-while the card searches on, and the end-of-run pass only scores what won
-after the last checkpoint.  The scores are the same either way: a cached
-value is reused only for the exact (template, level, bin) it was
-computed for.
-
-The end-of-run pass of a session runs after the template loop, when the
-card is idle, and takes each template's spectrum from the card
+The pass runs once, after the template loop, when the device is idle,
+on the session's searched series (a torch tensor, on the card or on the
+CPU).  Each template's series comes from that device
 (:func:`device_series`: kernel A's LUT gather and the exact serial mean,
-both bitwise the oracle's resample, padded there; then
-``spectrum.power_at_on_device``: one float64 rfft, the bins the harmonic
-sums read and the float32 power epilogue), so the host copies a few
-thousand powers a template and evaluates the harmonic sums.  The
-background passes of :class:`IncrementalRescorer` run while the card
-searches, so they keep the host oracle's resample and numpy's FFT; a
-session on a card arms none, since its end-of-run pass takes ~10 ms a
-template there.
+both bitwise the oracle's resample, padded there), and so does its
+spectrum (``spectrum.power_at_on_device``: one float64 rfft, the bins
+the harmonic sums read and the float32 power epilogue); the host copies
+a few thousand powers a template and evaluates the harmonic sums.  On a
+CPU tensor the kernels run their plain versions.
 
-Each pass is spans of ``runtime/tracing.py``: ``rescore.resample`` (a
-host resample), ``rescore.fft`` (the transform and the powers at the
-bins: numpy's on the host, or on the series' device) and
-``rescore.harmonics``, each with its template, and one
-``rescore.device-resample`` a chunk of device-resampled templates; it
-counts one ``rescore.templates``, each device-resampled template one
-``rescore.device_resamples`` and each spectrum taken on the device one
-``rescore.device_ffts``.  The host pool's threads carry the workunit id
-of the thread that handed them the work.
+Each pass is spans of ``runtime/tracing.py``: one
+``rescore.device-resample`` a chunk of templates, and ``rescore.fft``
+(the transform and the powers at the bins) and ``rescore.harmonics``
+each with its template; it counts one ``rescore.templates``, and each
+template one ``rescore.device_resamples`` and one
+``rescore.device_ffts``.  :func:`_score_template`, the host oracle's
+pass for one template (its resample spanned ``rescore.resample``, numpy's
+FFT), is the sentinel probe's (``runtime/health.py``) and the tests'
+reference.
 """
 
 from __future__ import annotations
 
 import os
-import threading
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -66,13 +51,6 @@ def rescore_enabled() -> bool:
     """``ERP_RESCORE=off`` (or ``0``, ``none``) turns the output-boundary
     rescoring off, as ``--no-rescore`` does; it is on by default."""
     return os.environ.get("ERP_RESCORE", "").strip().lower() not in _OFF
-
-
-def overlap_enabled() -> bool:
-    """``ERP_RESCORE_OVERLAP=off`` (or ``0``, ``none``) turns the
-    checkpoint-cadence background rescoring (:class:`IncrementalRescorer`)
-    off; the end-of-run pass then scores every winner.  On by default."""
-    return os.environ.get("ERP_RESCORE_OVERLAP", "").strip().lower() not in _OFF
 
 
 def _template_key(P, tau, psi) -> tuple:
@@ -177,212 +155,39 @@ def unique_winner_count(emitted: np.ndarray) -> int:
 
 
 def rescore_winners(
-    ts,
-    candidates_all: np.ndarray,
-    emitted: np.ndarray,
-    derived: DerivedParams,
-    max_workers: int | None = None,
-    cache: dict | None = None,
+    ts, candidates_all: np.ndarray, emitted: np.ndarray, derived: DerivedParams
 ) -> tuple[np.ndarray, int]:
     """A copy of the 500-entry toplist with oracle powers for every
     template among the ``emitted`` winners, and the number of templates
-    that ran an oracle pass.  ``ts`` is the searched series: a torch
-    tensor (the session's, on its device) gives each pass its resampled
+    that ran an oracle pass.  ``ts`` is the searched series as a torch
+    tensor (the session's, on its device): each pass takes its resampled
     series and its spectrum from that device (:func:`device_series`, one
-    template at a time), a numpy array the host oracle's resample and
-    numpy's FFT on a pool of ``max_workers`` threads (up to 8).  The
-    powers are the same bit for bit, except where the two float64
-    transforms round to either side of a float32 value (about one value
-    in 10^7).
-    ``cache`` (``{template: {(k, f0): power}}``,
-    from :class:`IncrementalRescorer`) saves the pass of every template
-    whose pairs it already holds.  The caller finalizes the patched
-    toplist again, so the statistics, sort and dedup see the new powers."""
+    template at a time).  The powers are the host oracle's bit for bit,
+    except where the two float64 transforms round to either side of a
+    float32 value (about one value in 10^7).  The caller finalizes the
+    patched toplist again, so the statistics, sort and dedup see the new
+    powers."""
+    import torch
+
+    if not isinstance(ts, torch.Tensor):
+        raise TypeError(f"rescore_winners takes the searched series as a torch tensor, not {type(ts).__name__}")
     if len(emitted) == 0:
         return candidates_all, 0
     wanted, entry_key = _winning_pairs(candidates_all, emitted)
     if not wanted:
         return candidates_all, 0
-    cache = cache or {}
 
-    scored: dict[tuple, dict] = {}
-    todo: dict[tuple, set] = {}
-    for tpl, pairs in wanted.items():
-        have = cache.get(tpl, {})
-        scored[tpl] = {p: have[p] for p in pairs if p in have}
-        missing = pairs - scored[tpl].keys()
-        if missing:
-            todo[tpl] = missing
+    from ..runtime import metrics
 
-    import torch
-
-    from ..runtime import metrics, tracing
-
-    if isinstance(ts, torch.Tensor):
-        metrics.gauge("rescore.workers").set(1)
-        tpls = sorted(todo)
-        rows = [ResampleParams.from_template(*tpl, derived.dt, derived.nsamples, derived.n_unpadded) for tpl in tpls]
-        fresh = {tpl: _score_series(series, derived, tpl, todo[tpl])
-                 for tpl, (series, _, _) in zip(tpls, device_series(ts, rows))}
-    else:
-        ts = np.asarray(ts, dtype=np.float32)
-        wu = tracing.workunit()
-        workers = max_workers or min(8, os.cpu_count() or 1, len(todo) or 1)
-        metrics.gauge("rescore.workers").set(workers)
-
-        def one(tpl):
-            with tracing.for_workunit(wu):
-                return tpl, _score_template(ts, derived, tpl, todo[tpl])
-
-        if workers > 1 and len(todo) > 1:
-            with ThreadPoolExecutor(max_workers=workers) as pool:
-                fresh = dict(pool.map(one, sorted(todo)))
-        else:
-            fresh = dict(one(t) for t in sorted(todo))
-    for tpl, pairs in fresh.items():
-        scored[tpl].update(pairs)
+    metrics.gauge("rescore.workers").set(1)  # the run report's width of the pass: the calling thread
+    tpls = sorted(wanted)
+    rows = [ResampleParams.from_template(*tpl, derived.dt, derived.nsamples, derived.n_unpadded) for tpl in tpls]
+    scored = {tpl: _score_series(series, derived, tpl, wanted[tpl])
+              for tpl, (series, _, _) in zip(tpls, device_series(ts, rows))}
 
     out = candidates_all.copy()
     for i, key in enumerate(entry_key):
         if key is not None:
             tpl, k, f0 = key
             out["power"][i] = scored[tpl][(k, f0)]
-    return out, len(fresh)
-
-
-class IncrementalRescorer:
-    """Oracle rescoring that overlaps the search.
-
-    The session hands :meth:`observe_async` the toplist each committed
-    checkpoint builds from its host copy of (M, T).  A feed worker
-    finalizes it and submits every winning template and pair not yet
-    scored to a pool.  The host series is fetched by the first worker
-    that needs it (``get_ts``).  :meth:`finalize` drains both and returns
-    the score cache for ``rescore_winners(cache=...)``."""
-
-    def __init__(self, get_ts, derived: DerivedParams, t_obs: float, max_workers: int | None = None):
-        self._get_ts = get_ts
-        self._derived = derived
-        self._t_obs = float(t_obs)
-        self._ts: np.ndarray | None = None
-        self._ts_lock = threading.Lock()
-        self._scored: dict[tuple, dict] = {}
-        self._scored_lock = threading.Lock()
-        self._pending: dict[tuple, set] = {}
-        self._futures: list = []
-        workers = max_workers or max(1, min(4, (os.cpu_count() or 1) - 1))
-        self._pool: ThreadPoolExecutor | None = ThreadPoolExecutor(max_workers=workers)
-        # one feed worker: observes run one at a time (``_pending`` needs no
-        # lock) and the toplist build stays off the search thread
-        self._feed: ThreadPoolExecutor | None = ThreadPoolExecutor(max_workers=1)
-        self.observed = 0
-        self.submitted = 0
-        self.failed = 0
-
-    def _series(self) -> np.ndarray:
-        with self._ts_lock:
-            if self._ts is None:
-                self._ts = np.asarray(self._get_ts(), dtype=np.float32)
-            return self._ts
-
-    def _run(self, tpl: tuple, pairs: frozenset, wu: str | None) -> None:
-        from ..runtime import tracing
-
-        with tracing.for_workunit(wu):
-            scores = _score_template(self._series(), self._derived, tpl, pairs)
-        with self._scored_lock:
-            self._scored.setdefault(tpl, {}).update(scores)
-
-    def observe(self, candidates_all: np.ndarray) -> None:
-        """Submit the unscored winners of the current toplist; returns at
-        once."""
-        pool = self._pool
-        if pool is None:
-            return
-        from ..runtime import faultinject, flightrec, metrics, tracing
-        from .toplist import finalize_candidates
-
-        # an injected failure here fails this observe's future and counts
-        # in finalize()'s ``failed``: the end-of-run rescore recomputes it
-        faultinject.fault_point("rescore_feed", seq=self.observed + 1)
-        self.observed += 1
-        metrics.counter("rescore.observes").inc()
-        flightrec.record("rescore", what="observe", seq=self.observed)
-        emitted = finalize_candidates(candidates_all, self._t_obs)
-        if len(emitted) == 0:
-            return
-        wanted, _ = _winning_pairs(candidates_all, emitted)
-        wu = tracing.workunit()
-        for tpl, pairs in wanted.items():
-            with self._scored_lock:
-                have = set(self._scored.get(tpl, {}))
-            missing = pairs - have - self._pending.get(tpl, set())
-            if not missing:
-                continue
-            self._pending.setdefault(tpl, set()).update(missing)
-            self.submitted += 1
-            metrics.counter("rescore.submitted").inc()
-            try:
-                self._futures.append(pool.submit(self._run, tpl, frozenset(missing), wu))
-            except RuntimeError:
-                # finalize() or abort() shut the pool down meanwhile; the
-                # end-of-run rescore computes whatever is missing
-                return
-
-    def observe_async(self, build) -> None:
-        """Feed the rescorer without blocking the search: ``build()`` (the
-        toplist from host copies of the state, which its closure must
-        hold: the next batch overwrites the device state in place) runs
-        on the feed worker, then flows into :meth:`observe`."""
-        feed = self._feed
-        if feed is None:
-            return
-        from ..runtime import tracing, watchdog
-
-        # the feed worker's span carries the trace context of the batch
-        # whose checkpoint queued it, and its workunit
-        ctx, wu = tracing.context(), tracing.workunit()
-
-        def feed_observe():
-            tracing.set_context(ctx)
-            tracing.set_workunit(wu)
-            with watchdog.guard("rescore_feed"), tracing.span("rescore-feed", tid="rescore-feed"):
-                self.observe(build())
-
-        try:
-            self._futures.append(feed.submit(feed_observe))
-        except RuntimeError:
-            pass  # shut down meanwhile; nothing to feed
-
-    def finalize(self) -> dict:
-        """Drain the feed worker and the pool; returns the score cache.
-        A failed worker only shrinks the cache (``rescore_winners``
-        computes what is missing); ``failed`` counts them."""
-        feed, self._feed = self._feed, None
-        if feed is not None:
-            feed.shutdown(wait=True)  # queued observes submit scoring work
-        pool, self._pool = self._pool, None
-        if pool is None:
-            return self._scored
-        pool.shutdown(wait=True)
-        self.failed += sum(1 for f in self._futures if f.exception() is not None)
-        if self.failed:
-            from ..runtime import metrics
-
-            metrics.counter("rescore.failed").inc(self.failed)
-        return self._scored
-
-    def series_if_fetched(self) -> np.ndarray | None:
-        """The host series a worker already fetched, or None."""
-        with self._ts_lock:
-            return self._ts
-
-    def abort(self) -> None:
-        """Quit or error: drop queued work without waiting.  Safe to call
-        more than once and after :meth:`finalize`."""
-        feed, self._feed = self._feed, None
-        if feed is not None:
-            feed.shutdown(wait=False, cancel_futures=True)
-        pool, self._pool = self._pool, None
-        if pool is not None:
-            pool.shutdown(wait=False, cancel_futures=True)
+    return out, len(scored)

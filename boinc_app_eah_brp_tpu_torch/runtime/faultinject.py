@@ -5,8 +5,10 @@ module lets us MANUFACTURE that hostility on demand so the recovery paths
 (``runtime/resilience.py``, checkpoint generations, the chaos soak) are
 exercised by tests instead of waiting for real flaky hardware.  Fault
 points are threaded through the hot paths — batch dispatch, the bank H2D
-upload, checkpoint writes, the rescore feed, and the result write — and
-stay inert unless ``ERP_FAULT_SPEC`` names them.
+upload, checkpoint writes and the result write — and stay inert unless
+``ERP_FAULT_SPEC`` names them.  ``rescore_feed`` is the JAX package's
+background rescorer's site: a spec naming it parses, and in the port it
+never fires.
 
 Spec grammar (``ERP_FAULT_SPEC``)::
 

@@ -419,10 +419,6 @@ class Session:
             self.geom.window_2,
         )
 
-    def host_series(self) -> np.ndarray:
-        """The searched series on the host, for the oracle rescoring."""
-        return self.ts.cpu().numpy()
-
     def execute(self, step_cache=None) -> int:
         """Run the prepared search to its result file; returns 0 (also
         after a quit, once the checkpoint is written) or raises one of the
@@ -438,13 +434,7 @@ class Session:
     def _execute(self, step_cache) -> int:
         from ..models.search import run_bank
         from ..ops.harmonic import row_to_natural
-        from ..oracle.rescore import (
-            IncrementalRescorer,
-            overlap_enabled,
-            rescore_enabled,
-            rescore_winners,
-            unique_winner_count,
-        )
+        from ..oracle.rescore import rescore_enabled, rescore_winners, unique_winner_count
 
         args, adapter, bank, geom, derived = self.args, self.adapter, self.bank, self.geom, self.derived
         template_total, quarantined, batch_size = self.template_total, self.quarantined, self.batch_size
@@ -453,18 +443,6 @@ class Session:
 
         # rescoring at all: --no-rescore or ERP_RESCORE=off turn it off
         rescore = args.rescore and rescore_enabled()
-        # background rescoring of the winners seen at each checkpoint, so the
-        # end-of-run oracle pass only scores what won after the last one;
-        # not worth its threads for a small bank, on a single core, or on a
-        # card (whose end-of-run pass takes ~10 ms a template), and off with
-        # ERP_RESCORE_OVERLAP=off.  An elastic run rescores on the merge
-        # winner only, at the end: a process's checkpoint-time toplist is
-        # one shard's
-        rescorer = None
-        if (rescore and overlap_enabled() and template_total >= 256 and (os.cpu_count() or 1) >= 2
-                and dist is None and not self.ts.is_cuda):
-            rescorer = IncrementalRescorer(self.host_series, derived, derived.t_obs)
-            erplog.debug("Rescore overlap armed (checkpoint cadence).\n")
 
         # sentinel drift probe (runtime/health.py): K fixed templates re-run
         # on the card and through the host oracle at each checkpoint, armed
@@ -511,25 +489,20 @@ class Session:
             return M_host, T_host
 
         def checkpoint_now(n_done: int, M_now, T_now) -> None:
-            if not allow_global_ckpt or (not args.checkpointfile and rescorer is None):
+            if not (allow_global_ckpt and args.checkpointfile):
                 return
             with tracing.span("checkpoint", n_done=n_done):
                 # host copies now: the next batch overwrites the device state
                 M_host, T_host = host_state(M_now, T_now, n_done)
                 if snap is not None:
                     snap.maybe_commit(M_host, T_host, n_done)
-                if args.checkpointfile:
-                    write_now(n_done, M_host, T_host)
-                else:
-                    rescorer.observe_async(lambda: self._candidates(M_host, T_host))
+                write_now(n_done, M_host, T_host)
                 if sentinel is not None:
                     with tracing.span("sentinel-probe"):
                         sentinel.probe("checkpoint")
 
         def write_now(n_done: int, M_host, T_host) -> None:
             cands = self._candidates(M_host, T_host)
-            if rescorer is not None:
-                rescorer.observe_async(lambda: cands)
             # transient write failures spend the shared retry budget; a
             # wedged write trips the watchdog
             with watchdog.guard("ckpt_write", n_done=n_done):
@@ -622,122 +595,105 @@ class Session:
         segments = watchdog.runnable_segments(template_total, quarantined, start=self.start_template)
         state = self.state
         elastic_result = None
-        try:
-            # ERP_STEPTIME_PROFILE=<dir> or --profile-dir/ERP_PROFILE_DIR
-            # capture the loop with torch.profiler
-            with steptime.maybe_capture_profile(), profiling.trace(args.profile_dir), profiling.phase("template loop"):
-                if dist is not None:
-                    # one process of an elastic search: it runs (and, when a
-                    # peer dies, adopts) template-range shards under leases;
-                    # whichever process wins the merge lease merges
-                    from ..parallel import make_mesh, run_bank_elastic
-                    from ..parallel.elastic import board_identity
+        # ERP_STEPTIME_PROFILE=<dir> or --profile-dir/ERP_PROFILE_DIR
+        # capture the loop with torch.profiler
+        with steptime.maybe_capture_profile(), profiling.trace(args.profile_dir), profiling.phase("template loop"):
+            if dist is not None:
+                # one process of an elastic search: it runs (and, when a
+                # peer dies, adopts) template-range shards under leases;
+                # whichever process wins the merge lease merges
+                from ..parallel import make_mesh, run_bank_elastic
+                from ..parallel.elastic import board_identity
 
-                    erplog.info(
-                        "Elastic search: host %s of %d, %d-device local mesh, shard board at %s.\n",
-                        dist.host_id, dist.num_processes, n_mesh, dist.shard_dir,
+                erplog.info(
+                    "Elastic search: host %s of %d, %d-device local mesh, shard board at %s.\n",
+                    dist.host_id, dist.num_processes, n_mesh, dist.shard_dir,
+                )
+                max_shard = max([b - a for a, b in shard_layout] or [1])
+                per_dev = max(1, min(batch_size, -(-max(1, max_shard) // n_mesh)))
+                elastic_result = run_bank_elastic(
+                    self.ts, bank.P, bank.tau, bank.psi0, geom, make_mesh(n_mesh, platform=self.dev.type), dist,
+                    board_identity(args.inputfile, args.templatebank, template_total),
+                    per_device_batch=per_dev, state=state, progress_cb=progress_cb,
+                )
+                if elastic_result.state is not None:
+                    state = tuple(torch.from_numpy(a).to(self.dev) for a in elastic_result.state)
+            elif n_mesh > 1:
+                # the bank sharded over the mesh; checkpoints, progress,
+                # screensaver and resume through the same state and
+                # callback (bitwise run_bank's, tests/test_torch_parallel.py)
+                from ..parallel import make_mesh, run_bank_sharded
+
+                erplog.info("Sharding template bank over a %d-device mesh.\n", n_mesh)
+                # a global batch (n_mesh x per_dev) no larger than the
+                # remaining bank, so a small bank is not mostly padding
+                per_dev = min(batch_size, -(-max(1, template_total - self.start_template) // n_mesh))
+                mesh = make_mesh(n_mesh, platform=self.dev.type)
+                for seg_a, seg_b in segments:
+                    if resilience.policy() is not None:
+                        snap = resilience.DispatchSnapshot(state, seg_a)
+                    state = run_bank_sharded(
+                        self.ts, bank.P, bank.tau, bank.psi0, geom, mesh, per_device_batch=per_dev, state=state,
+                        start_template=seg_a, stop_template=seg_b, progress_cb=progress_cb, snapshot=snap,
                     )
-                    max_shard = max([b - a for a, b in shard_layout] or [1])
-                    per_dev = max(1, min(batch_size, -(-max(1, max_shard) // n_mesh)))
-                    elastic_result = run_bank_elastic(
-                        self.ts, bank.P, bank.tau, bank.psi0, geom, make_mesh(n_mesh, platform=self.dev.type), dist,
-                        board_identity(args.inputfile, args.templatebank, template_total),
-                        per_device_batch=per_dev, state=state, progress_cb=progress_cb,
+                    if interrupted:
+                        break
+            else:
+                for seg_a, seg_b in segments:
+                    if resilience.policy() is not None:
+                        snap = resilience.DispatchSnapshot(state, seg_a)
+                    state = run_bank(
+                        self.ts, bank.P, bank.tau, bank.psi0, geom, batch_size=batch_size, state=state,
+                        start_template=seg_a, stop_template=seg_b, progress_cb=progress_cb, snapshot=snap,
+                        step_cache=step_cache,
                     )
-                    if elastic_result.state is not None:
-                        state = tuple(torch.from_numpy(a).to(self.dev) for a in elastic_result.state)
-                elif n_mesh > 1:
-                    # the bank sharded over the mesh; checkpoints, progress,
-                    # screensaver and resume through the same state and
-                    # callback (bitwise run_bank's, tests/test_torch_parallel.py)
-                    from ..parallel import make_mesh, run_bank_sharded
+                    if interrupted:
+                        break
+        # a search on the CPU: the per-stage device lane of the Chrome
+        # export is estimated from the dispatch windows and the roofline
+        # (runtime/devicecost.py); on the card the profiler measures it
+        if tracing.enabled() and self.dev.type == "cpu":
+            n_dev = devicecost.emit_estimated_timeline(geom, batch_size)
+            if n_dev:
+                erplog.debug("Synthesized %d estimated device-lane records.\n", n_dev)
+        if interrupted or (elastic_result is not None and elastic_result.interrupted):
+            erplog.warn("Quit requested! Exiting prematurely...\n")
+            # elastic: no global checkpoint, the committed shard states
+            # on the board are the resume point
+            checkpoint_now(last_done, *state)
+            if watchdog.abort_requested():
+                # the checkpoint is committed: exit with the temporary-exit
+                # code so --supervised (or BOINC) restarts from it
+                raise RadpulError(
+                    RADPUL_TEMPORARY_EXIT, "Watchdog stall: checkpointed and exiting for a supervised restart."
+                )
+            self._obs_record("session-interrupted", last_done=last_done)
+            return 0
+        if elastic_result is not None and not elastic_result.merged:
+            # another process won the merge lease and writes the result
+            erplog.info("Host %s done: all shards committed; the merge winner writes the result.\n", dist.host_id)
+            return 0
+        # the merge winner is the only writer from here on
+        allow_global_ckpt = True
 
-                    erplog.info("Sharding template bank over a %d-device mesh.\n", n_mesh)
-                    # a global batch (n_mesh x per_dev) no larger than the
-                    # remaining bank, so a small bank is not mostly padding
-                    per_dev = min(batch_size, -(-max(1, template_total - self.start_template) // n_mesh))
-                    mesh = make_mesh(n_mesh, platform=self.dev.type)
-                    for seg_a, seg_b in segments:
-                        if resilience.policy() is not None:
-                            snap = resilience.DispatchSnapshot(state, seg_a)
-                        state = run_bank_sharded(
-                            self.ts, bank.P, bank.tau, bank.psi0, geom, mesh, per_device_batch=per_dev, state=state,
-                            start_template=seg_a, stop_template=seg_b, progress_cb=progress_cb, snapshot=snap,
-                        )
-                        if interrupted:
-                            break
-                else:
-                    for seg_a, seg_b in segments:
-                        if resilience.policy() is not None:
-                            snap = resilience.DispatchSnapshot(state, seg_a)
-                        state = run_bank(
-                            self.ts, bank.P, bank.tau, bank.psi0, geom, batch_size=batch_size, state=state,
-                            start_template=seg_a, stop_template=seg_b, progress_cb=progress_cb, snapshot=snap,
-                            step_cache=step_cache,
-                        )
-                        if interrupted:
-                            break
-            # a search on the CPU: the per-stage device lane of the Chrome
-            # export is estimated from the dispatch windows and the roofline
-            # (runtime/devicecost.py); on the card the profiler measures it
-            if tracing.enabled() and self.dev.type == "cpu":
-                n_dev = devicecost.emit_estimated_timeline(geom, batch_size)
-                if n_dev:
-                    erplog.debug("Synthesized %d estimated device-lane records.\n", n_dev)
-            if interrupted or (elastic_result is not None and elastic_result.interrupted):
-                erplog.warn("Quit requested! Exiting prematurely...\n")
-                if rescorer is not None:
-                    rescorer.abort()
-                # elastic: no global checkpoint, the committed shard states
-                # on the board are the resume point
-                checkpoint_now(last_done, *state)
-                if watchdog.abort_requested():
-                    # the checkpoint is committed: exit with the temporary-exit
-                    # code so --supervised (or BOINC) restarts from it
-                    raise RadpulError(
-                        RADPUL_TEMPORARY_EXIT, "Watchdog stall: checkpointed and exiting for a supervised restart."
-                    )
-                self._obs_record("session-interrupted", last_done=last_done)
-                return 0
-            if elastic_result is not None and not elastic_result.merged:
-                # another process won the merge lease and writes the result
-                erplog.info("Host %s done: all shards committed; the merge winner writes the result.\n", dist.host_id)
-                return 0
-            # the merge winner is the only writer from here on
-            allow_global_ckpt = True
+        # final checkpoint (demod_binary.c:1495-1499), then the toplist
+        erplog.debug("Search done!\n")
+        checkpoint_now(template_total, *state)
+        with tracing.span("finalize"):
+            cands = self._candidates(*host_state(*state, template_total))
+            emitted = finalize_candidates(cands, derived.t_obs)
 
-            # final checkpoint (demod_binary.c:1495-1499), then the toplist
-            erplog.debug("Search done!\n")
-            checkpoint_now(template_total, *state)
-            with tracing.span("finalize"):
-                cands = self._candidates(*host_state(*state, template_total))
-                emitted = finalize_candidates(cands, derived.t_obs)
-        except BaseException:
-            # never leave the rescore pool joining background passes on the
-            # way out through an error
-            if rescorer is not None:
-                rescorer.abort()
-            raise
-
-        cache = None
-        if rescore:
-            # the wait for the background rescorer (none is armed below 256
-            # templates or on a card, and the span holds no work)
-            with tracing.span("rescore-finalize"):
-                cache = rescorer.finalize() if rescorer is not None else None
         if rescore and len(emitted):
             with profiling.phase("oracle rescore"):
                 t0 = time.perf_counter()
                 n_winners = unique_winner_count(emitted)
                 # the card is idle now: each pass takes its resampled series
                 # and its spectrum from it, and the host sums the harmonics
-                patched, n_eval = rescore_winners(self.ts, cands, emitted, derived, cache=cache)
+                patched, n_eval = rescore_winners(self.ts, cands, emitted, derived)
                 emitted = finalize_candidates(patched, derived.t_obs)
             erplog.info(
-                "Rescored %d of %d winning templates through the oracle (resampled and transformed on %s) in %.1f s%s.\n",
+                "Rescored %d of %d winning templates through the oracle (resampled and transformed on %s) in %.1f s.\n",
                 n_eval, n_winners, self.dev, time.perf_counter() - t0,
-                f" ({rescorer.observed} checkpoints observed, {rescorer.failed} background failures)"
-                if rescorer is not None else "",
             )
 
         header = ResultHeader(exec_name=EXEC_NAME)

@@ -118,12 +118,10 @@ Phases:
    workunit and 6,662-template bank) written to disk and run by the
    command line in a subprocess at the default batch, whitened and then
    unwhitened, with ``--metrics-file`` and ``ERP_TRACE_FILE``: ``%DONE%``,
-   7 columns, at most 100 candidates, no rescoring overlap armed (a card
-   session takes every winner's spectrum on the card: the run report's
-   ``rescore.device_ffts`` equals its ``rescore.templates``); the wall,
-   the loop's templates/s (from the trace) and the rescoring split
-   between the overlap and the end-of-run pass (``tools/trace_report.py``
-   and the run report); (3) ``tools/make_bundle.py`` into a directory
+   7 columns, at most 100 candidates, every winner's spectrum taken on
+   the card (the run report's ``rescore.device_ffts`` equals its
+   ``rescore.templates``); the wall, the loop's templates/s (from the
+   trace) and the end-of-run pass's time (the run report); (3) ``tools/make_bundle.py`` into a directory
    outside the repository, and the bundle's ``erp_wrapper`` running
    ``python3 eah_brp_worker.pyz`` there with no ``PYTHONPATH`` on phase
    4's whitened command line: phase 4's candidate rows byte for byte, no
@@ -150,13 +148,8 @@ Phases:
 16. the operator knobs (k), in-process on phase 4's whitened command line
    with the metrics report and the host trace, counts reset just before
    each run: (1) ``ERP_RESCORE=off`` reaches ``%DONE%`` with no
-   ``rescore-finalize`` or ``rescore-feed`` span, no ``oracle rescore``
-   phase, the ``rescore.*`` counters 0, and rows equal to phase 4's
-   unrescored toplist; (2) ``ERP_RESCORE_OVERLAP=off`` gives phase 4's
-   rows byte for byte with no ``rescore-feed`` span, and on (i2)'s
-   whitened production run (where a card session arms no overlap
-   either), (i2)'s rows byte for byte with no ``rescore-feed`` span, its
-   wall beside (i2)'s; (3)
+   rescoring span, no ``oracle rescore`` phase, the ``rescore.*``
+   counters 0, and rows equal to phase 4's unrescored toplist; (2)
    ``ERP_PRECISION=bf16`` (``RADPUL_EMISC``, as the JAX package's
    command line exits) and ``ERP_PRECISION=xx`` (``RADPUL_EVAL``), each
    with cuFFT's plan cache emptied first, launch no kernel, make no plan
@@ -1790,13 +1783,12 @@ def _first_drain_after(spans, t_us: float):
     return min(drains, key=lambda s: s["ts_us"]) if drains else None
 
 
-def _production_run(files: dict, templates: int, name: str, white: bool, env: dict | None = None) -> dict:
+def _production_run(files: dict, templates: int, name: str, white: bool) -> dict:
     """One run of the bench's production problem (``files``, from
     ``bench.write_problem``, ``templates`` of them) by the command line in a subprocess at the
     default batch, with the metrics report and the host trace; the
     rescoring split from the trace (``tools/trace_report.py``) and the run
-    report.  The overlap must not arm (a card session takes every
-    winner's spectrum on the card)."""
+    report.  A card session takes every winner's spectrum on the card."""
     from boinc_app_eah_brp_tpu_torch.tools import trace_report
 
     pdir = os.path.dirname(files["wu"])
@@ -1806,7 +1798,7 @@ def _production_run(files: dict, templates: int, name: str, white: bool, env: di
     argv = [sys.executable, "-m", "boinc_app_eah_brp_tpu_torch", "-i", files["wu"], "-o", cand, "-t", files["bank"],
             "-c", os.path.join(pdir, f"{name}.cpt"), *args, "--metrics-file", mfile, "--device", DEVICE]
     t0 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=pdir, env=dict(os.environ, PYTHONPATH=REPO, ERP_TRACE_FILE=trace, **(env or {})),
+    proc = subprocess.run(argv, cwd=pdir, env=dict(os.environ, PYTHONPATH=REPO, ERP_TRACE_FILE=trace),
                           capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
@@ -1820,7 +1812,6 @@ def _production_run(files: dict, templates: int, name: str, white: bool, env: di
     # candidate file is a valid result
     check(len(lines) <= 100 and (len(lines) > 0 or not white),
           f"the production run ({name}) wrote {len(lines)} candidates")
-    check("Rescore overlap armed" not in log, f"the production run ({name}) armed the rescoring overlap on the card")
     report = _report(mfile)
     phases = report["metrics"]["phases"]
     counters = {k: v["value"] for k, v in report["metrics"]["counters"].items()}
@@ -1841,17 +1832,11 @@ def _production_run(files: dict, templates: int, name: str, white: bool, env: di
         loop_s=loop_s,
         loop_templates_per_s=templates / loop_s,
         n_candidates=len(lines),
-        rescore_feed_spans=sum(s["name"] == "rescore-feed" for s in loaded["spans"]),
-        rescore_overlap_feed_s=table["background_busy_s"].get("rescore-feed", 0.0),
-        rescore_finalize_s=table["categories"].get("rescore-feed", {}).get("self_s", 0.0),
         rescore_end_pass_s=phases.get("oracle rescore", {}).get("wall_s", 0.0),
-        rescore_observes=counters.get("rescore.observes", 0),
-        rescore_submitted=counters.get("rescore.submitted", 0),
         rescored_line=rescored[-1] if rescored else None,
         whitening_s=phases.get("whitening", {}).get("wall_s"),
         trace_coverage=table["coverage"],
         stall_categories={k: v["self_s"] for k, v in table["categories"].items()},
-        cand=cand,
     )
 
 
@@ -1869,9 +1854,6 @@ def run_production(workdir: str) -> dict:
     for name, white in (("whitened", True), ("unwhitened", False)):
         out[name] = _production_run(files, len(problem.P), name, white)
         print(json.dumps({f"production_{name}": out[name]}), flush=True)
-    # phase (k2)'s production run holds its rows against these; a card
-    # session feeds no background rescorer, with the knob or without
-    check(out["whitened"]["rescore_feed_spans"] == 0, "the whitened production run fed a background rescorer")
     return out
 
 
@@ -2089,19 +2071,13 @@ def run_smoke_modes(workdir: str) -> dict:
     return out
 
 
-def run_knobs(torch, workdir: str, wu: str, main_run: dict, production: dict) -> dict:
+def run_knobs(torch, workdir: str, wu: str, main_run: dict) -> dict:
     """Phase (k): the operator knobs on the card, in-process on phase 4's
     whitened command line (own output and checkpoint files, the metrics
     report and the host trace), counts reset just before each run and read
     just after.  (1) ``ERP_RESCORE=off``: the rows of phase 4's
     unrescored toplist, no rescoring span, phase or counter; (2)
-    ``ERP_RESCORE_OVERLAP=off``: phase 4's rows byte for byte, no
-    ``rescore-feed`` span (bank200 is below the overlap's 256-template
-    floor, so phase 4 never arms it either), then (i2)'s whitened
-    production run (6,662 templates; a card session arms no overlap
-    either) again with the knob, in a subprocess as (i2) runs it: no
-    ``rescore-feed`` span, (i2)'s rows byte for byte, its wall and
-    rescoring times beside (i2)'s; (3) ``ERP_PRECISION=bf16``
+    ``ERP_PRECISION=bf16``
     (``RADPUL_EMISC``: its ``NotImplementedError`` is unmapped, and the
     command line of either package exits so) and ``ERP_PRECISION=xx``
     (``RADPUL_EVAL``) with cuFFT's plan cache emptied first: no kernel
@@ -2134,12 +2110,6 @@ def run_knobs(torch, workdir: str, wu: str, main_run: dict, production: dict) ->
         with open(r["path"] + ".trace.jsonl") as f:
             return {json.loads(ln).get("name") for ln in f if ln.strip()}
 
-    def row_lines(cand: str) -> list:
-        with open(cand) as f:
-            text = f.read()
-        check(text.endswith("%DONE%\n"), f"{cand} does not end with %DONE%")
-        return [ln for ln in text.splitlines() if ln and not ln.startswith("%")]
-
     out = {}
     # (1) ERP_RESCORE=off
     r = run("rescore_off", {"ERP_RESCORE": "off"})
@@ -2147,7 +2117,7 @@ def run_knobs(torch, workdir: str, wu: str, main_run: dict, production: dict) ->
     for name in MAIN_PATH:
         check(r["launches"][name] > 0, f"(k1) kernel {name} was not launched")
     names = spans(r)
-    check("rescore-finalize" not in names and "rescore-feed" not in names, f"(k1) a rescoring span ran: {names}")
+    check(not any(str(n).startswith("rescore") for n in names), f"(k1) a rescoring span ran: {names}")
     report = _report(r["path"] + ".metrics.jsonl")
     check("oracle rescore" not in report["metrics"]["phases"], "(k1) the oracle rescore phase ran")
     counters = {k: v["value"] for k, v in report["metrics"]["counters"].items() if k.startswith("rescore.")}
@@ -2162,24 +2132,7 @@ def run_knobs(torch, workdir: str, wu: str, main_run: dict, production: dict) ->
         n_candidates=len(rows), rows_differing_from_phase4=int((rows != rescored).any(axis=1).sum()) if same_shape
         else None, launches=r["launches"],
     )
-    # (2) ERP_RESCORE_OVERLAP=off
-    r = run("overlap_off", {"ERP_RESCORE_OVERLAP": "off"})
-    check(r["rc"] == 0, f"(k2) ERP_RESCORE_OVERLAP=off exited {r['rc']}")
-    for name in MAIN_PATH:
-        check(r["launches"][name] > 0, f"(k2) kernel {name} was not launched")
-    check("rescore-feed" not in spans(r), "(k2) the overlap's feed ran")
-    check(row_lines(r["path"] + ".cand") == row_lines(os.path.join(workdir, "smoke.cand")),
-          "(k2) the rows differ from phase 4's")
-    out["overlap_off"] = dict(wall_s=r["wall_s"], phase4_wall_s=main_run["wall_s"], launches=r["launches"])
-    base = production["whitened"]
-    p = _production_run(production["files"], production["templates"], "whitened_overlap_off", True,
-                        {"ERP_RESCORE_OVERLAP": "off"})
-    check(p["rescore_feed_spans"] == 0, f"(k2) the production run fed the overlap {p['rescore_feed_spans']} times")
-    check(row_lines(p["cand"]) == row_lines(base["cand"]), "(k2) the production rows differ from (i2)'s")
-    keys = ("wall_s", "loop_s", "rescore_overlap_feed_s", "rescore_finalize_s", "rescore_end_pass_s",
-            "rescore_submitted", "rescore_feed_spans", "n_candidates")
-    out["overlap_off_production"] = {"knob": {k: p[k] for k in keys}, "i2": {k: base[k] for k in keys}}
-    # (3) refused modes: nothing launched, nothing planned, no result
+    # (2) refused modes: nothing launched, nothing planned, no result
     plans = torch.backends.cuda.cufft_plan_cache[0]
     for name, env, want in (
         ("precision_bf16", {"ERP_PRECISION": "bf16"}, RADPUL_EMISC),
@@ -2187,10 +2140,10 @@ def run_knobs(torch, workdir: str, wu: str, main_run: dict, production: dict) ->
     ):
         plans.clear()
         r = run(name, env)
-        check(r["rc"] == want, f"(k3) {env} exited {r['rc']}, not {want}")
-        check(not any(r["launches"].values()), f"(k3) {env} launched kernels: {r['launches']}")
-        check(plans.size == 0, f"(k3) {env} made {plans.size} cuFFT plans")
-        check(not os.path.exists(r["path"] + ".cand"), f"(k3) {env} wrote a result")
+        check(r["rc"] == want, f"(k2) {env} exited {r['rc']}, not {want}")
+        check(not any(r["launches"].values()), f"(k2) {env} launched kernels: {r['launches']}")
+        check(plans.size == 0, f"(k2) {env} made {plans.size} cuFFT plans")
+        check(not os.path.exists(r["path"] + ".cand"), f"(k2) {env} wrote a result")
         out[name] = dict(exit=r["rc"], wall_s=r["wall_s"], plans=0, launches=0)
     return out
 
@@ -2538,7 +2491,7 @@ def main() -> int:
         phase_j_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        knobs_k = run_knobs(torch, workdir, wu, run, production)
+        knobs_k = run_knobs(torch, workdir, wu, run)
         phase_k_s = time.perf_counter() - t0
         golden_l = run_golden_diff(workdir, wu, P_inj, tau_inj)
         torch.cuda.empty_cache()
@@ -2609,9 +2562,7 @@ def main() -> int:
         print(
             f"production {name}: {production['templates']} templates at batch {r['batch']} "
             f"({production['cpu_count']} cores): wall {r['wall_s']:.2f} s, loop {r['loop_s']:.3f} s = "
-            f"{r['loop_templates_per_s']:.1f} templates/s; rescoring: overlap feed {r['rescore_overlap_feed_s']:.3f} s "
-            f"({r['rescore_observes']} observes, {r['rescore_submitted']} scored), finalize wait "
-            f"{r['rescore_finalize_s']:.3f} s, end-of-run pass {r['rescore_end_pass_s']:.3f} s"
+            f"{r['loop_templates_per_s']:.1f} templates/s; end-of-run rescoring {r['rescore_end_pass_s']:.3f} s"
         )
     print(
         f"bench: {bench_i['autobatch']['value']} templates/s at batch {bench_i['autobatch']['batch']} "
@@ -2631,16 +2582,11 @@ def main() -> int:
         f"phase (j) {phase_j_s:.1f} s"
     )
     print(json.dumps({"knobs": knobs_k, "phase_k_s": phase_k_s}))
-    k1, k2 = knobs_k["rescore_off"], knobs_k["overlap_off"]
-    kp, ki = knobs_k["overlap_off_production"]["knob"], knobs_k["overlap_off_production"]["i2"]
+    k1 = knobs_k["rescore_off"]
     print(
         f"knobs (k): ERP_RESCORE=off wall {k1['wall_s']:.2f} s beside phase 4's {k1['phase4_wall_s']:.2f} s "
         f"(its rescoring alone {k1['phase4_rescore_s']:.2f} s), {k1['n_candidates']} unrescored rows, "
-        f"{k1['rows_differing_from_phase4']} differing from phase 4's; ERP_RESCORE_OVERLAP=off wall "
-        f"{k2['wall_s']:.2f} s, rows byte for byte phase 4's; on (i2)'s production run wall {kp['wall_s']:.2f} s "
-        f"(finalize wait {kp['rescore_finalize_s']:.3f} s, end-of-run pass {kp['rescore_end_pass_s']:.3f} s) "
-        f"beside (i2)'s {ki['wall_s']:.2f} s (finalize wait {ki['rescore_finalize_s']:.3f} s, end-of-run pass "
-        f"{ki['rescore_end_pass_s']:.3f} s), rows byte for byte (i2)'s; ERP_PRECISION=bf16 exit "
+        f"{k1['rows_differing_from_phase4']} differing from phase 4's; ERP_PRECISION=bf16 exit "
         f"{knobs_k['precision_bf16']['exit']}, ERP_PRECISION=xx exit {knobs_k['precision_xx']['exit']}, "
         f"no launch and no cuFFT plan each; "
         f"phase (k) {phase_k_s:.1f} s"

@@ -11,7 +11,9 @@ in :data:`NOT_PORTED` with one reason:
 * ``ORACLE``: the test-only numpy oracle;
 * ``RENAMED``: ported under another name, the port's ``module::name``
   (which must exist);
-* ``REFERENCE``: waits on the reference sources.
+* ``REFERENCE``: waits on the reference sources;
+* ``SUPERSEDED``: the port had it, and the ledger showed it no longer
+  pays; the reason cites the measurement.
 
 The same holds for every ``ERP_*`` knob the JAX package reads (a string
 literal ``"ERP_*"`` in its sources): the port reads it too, or it stands
@@ -31,8 +33,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX = REPO / "boinc_app_eah_brp_tpu"
 PORT = REPO / "boinc_app_eah_brp_tpu_torch"
 
-TPU, ORACLE, RENAMED, REFERENCE = "tpu", "oracle", "renamed", "reference"
-KINDS = (TPU, ORACLE, RENAMED, REFERENCE)
+TPU, ORACLE, RENAMED, REFERENCE, SUPERSEDED = "tpu", "oracle", "renamed", "reference", "superseded"
+KINDS = (TPU, ORACLE, RENAMED, REFERENCE, SUPERSEDED)
 
 _PALLAS_GATE = "Pallas opt-in gate (ERP_PALLAS_*): the port always runs its CUDA kernels"
 _PARITY = "parity-split operands of the TPU's packed half-length FFT: the port's kernels take the series itself"
@@ -40,6 +42,10 @@ _MXU = "the MXU matmul-cascade FFT of ops/fft.py"
 _XLA_CACHE = "XLA's persistent compilation cache: the port builds its kernels into build/ or loads ERP_KERNEL_DIR"
 _XPLANE = "decodes XLA's XPlane profile protos"
 _LEDGER = "reads XLA's optimized HLO or AOT cost artifacts (hlo_attrib, cost_ledger)"
+_OVERLAP = (
+    "the background rescorer: the card's end-of-run pass scores a winner in ~10 ms "
+    "(PERF_LEDGER.jsonl, rescore_s_per_wu); no card session armed it"
+)
 
 # JAX "module::name" -> (kind, the port's "module::name" for RENAMED, else the reason)
 NOT_PORTED = {
@@ -99,6 +105,13 @@ NOT_PORTED = {
     "oracle/pipeline.py::template_sumspec": (ORACLE, "one template through the numpy search oracle"),
     "oracle/pipeline.py::run_search_oracle": (ORACLE, "the numpy whole-search oracle"),
     "oracle/pipeline.py::finalize": (RENAMED, "oracle/toplist.py::finalize_candidates"),
+    "oracle/rescore.py::overlap_enabled": (SUPERSEDED, _OVERLAP),
+    "oracle/rescore.py::IncrementalRescorer": (SUPERSEDED, _OVERLAP),
+    "oracle/rescore.py::IncrementalRescorer.observe": (SUPERSEDED, _OVERLAP),
+    "oracle/rescore.py::IncrementalRescorer.observe_async": (SUPERSEDED, _OVERLAP),
+    "oracle/rescore.py::IncrementalRescorer.finalize": (SUPERSEDED, _OVERLAP),
+    "oracle/rescore.py::IncrementalRescorer.series_if_fetched": (SUPERSEDED, _OVERLAP),
+    "oracle/rescore.py::IncrementalRescorer.abort": (SUPERSEDED, _OVERLAP),
     "oracle/spectrum.py::fft_size_for": (RENAMED, "oracle/pipeline.py::fft_size_for"),
     "oracle/toplist.py::dynamic_thresholds": (ORACLE, "the per-template toplist thresholds of the numpy search oracle"),
     "oracle/toplist.py::update_toplist_literal": (
@@ -142,6 +155,7 @@ KNOBS = {
     "ERP_PALLAS_RESAMPLE": (TPU, _PALLAS_GATE),
     "ERP_PALLAS_RESIDENT": (TPU, _PALLAS_GATE),
     "ERP_PALLAS_SUMSPEC": (TPU, _PALLAS_GATE),
+    "ERP_RESCORE_OVERLAP": (SUPERSEDED, _OVERLAP),
 }
 
 _KNOB = re.compile(r"""(["'])(ERP_[A-Z0-9_]+)\1""")
@@ -215,6 +229,6 @@ def test_every_jax_knob_is_read_by_the_port_or_listed():
             assert detail in port_knobs, f"{knob}: the port does not read {detail}"
 
 
-@pytest.mark.parametrize("knob", ["ERP_RESCORE", "ERP_RESCORE_OVERLAP", "ERP_PRECISION", "ERP_MEDIAN"])
+@pytest.mark.parametrize("knob", ["ERP_RESCORE", "ERP_PRECISION", "ERP_MEDIAN"])
 def test_the_operator_knobs_are_read_by_the_port(knob):
     assert knob in knobs(PORT)

@@ -630,6 +630,7 @@ def test_end_of_run_rescoring_on_the_card_is_the_host_oracle_pass(dev):
     from boinc_app_eah_brp_tpu_torch.oracle import resample as oracle
     from boinc_app_eah_brp_tpu_torch.runtime import metrics, tracing
     from boinc_app_eah_brp_tpu_torch.tools import _inputs
+    from torch_parity import host_rescore
 
     ts, d, geom, cands, emitted = _production_toplist(dev, _inputs.SEED)
     host = ts.cpu().numpy()
@@ -665,46 +666,7 @@ def test_end_of_run_rescoring_on_the_card_is_the_host_oracle_pass(dev):
     assert spans.count("rescore.fft") == len(winners) and "rescore.resample" not in spans
     assert n_second != len(winners) and n_second == rescore.unique_winner_count(emitted2) > 0
     assert sum(plans) == 0
-    want, n_want = rescore.rescore_winners(host, cands, emitted, d)
+    want, n_want = host_rescore(host, cands, emitted, d)
     assert n_got == n_want == len(winners)
     assert got.tobytes() == want.tobytes()
     assert not np.array_equal(got["power"], cands["power"])
-
-
-def test_a_card_session_arms_no_background_rescorer(dev, tmp_path, monkeypatch):
-    """A command-line session on the card with 260 templates (past the
-    background rescorer's floor) arms no ``IncrementalRescorer``: its
-    end-of-run pass takes every winner's spectrum on the card (a CPU
-    session arms one: ``tests/test_torch_rescore.py``)."""
-    from boinc_app_eah_brp_tpu_torch.io import TemplateBank, write_template_bank, write_workunit
-    from boinc_app_eah_brp_tpu_torch.oracle import rescore
-    from boinc_app_eah_brp_tpu_torch.runtime import metrics
-    from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
-
-    n = 1 << 16
-    rng = np.random.default_rng(7)
-    P = np.concatenate([[1000.0], rng.uniform(1.6, 3.0, 259)])
-    tau = np.concatenate([[0.0], rng.uniform(0.0, 0.09, 259)])
-    psi = np.concatenate([[0.0], rng.uniform(0.0, 2 * np.pi, 259)])
-    bank = str(tmp_path / "bank.dat")
-    write_template_bank(bank, TemplateBank(P, tau, psi))
-    x = np.clip(np.round(rng.normal(4.0, 1.0, n)), 0, 15).astype(np.float32)
-    write_workunit(str(tmp_path / "wu.bin4"), x, tsample_us=DT * 1e6, scale=1.0)
-    monkeypatch.setattr(os, "cpu_count", lambda: 4)
-    monkeypatch.setenv("ERP_CHECKPOINT_PERIOD", "0")
-    armed = []
-    real_init = rescore.IncrementalRescorer.__init__
-    monkeypatch.setattr(
-        rescore.IncrementalRescorer, "__init__", lambda self, *a, **k: armed.append(1) or real_init(self, *a, **k)
-    )
-    assert metrics.configure(force=True)
-    try:
-        assert run_search(DriverArgs(
-            inputfile=str(tmp_path / "wu.bin4"), templatebank=bank, window=200, batch_size=16,
-            outputfile=str(tmp_path / "card.cand"), checkpointfile=str(tmp_path / "card.cpt"), device=str(dev),
-        )) == 0
-        counters = {k: v["value"] for k, v in metrics.snapshot()["counters"].items()}
-    finally:
-        metrics.finish(0)
-    assert armed == [] and counters.get("rescore.submitted", 0) == 0
-    assert counters["rescore.device_ffts"] == counters["rescore.templates"] > 0

@@ -1,6 +1,5 @@
 """PyTorch port, the operator knobs against the JAX package on the CPU:
-``ERP_RESCORE``, ``ERP_RESCORE_OVERLAP``, ``ERP_PRECISION`` and
-``ERP_MEDIAN``, each set with ``monkeypatch.setenv`` for both drivers on
+``ERP_RESCORE``, ``ERP_PRECISION`` and ``ERP_MEDIAN``, each set with ``monkeypatch.setenv`` for both drivers on
 ``test_torch_session.py``'s fixture workunit.
 
 Tolerances:
@@ -9,8 +8,6 @@ Tolerances:
   (``io/validate.py::compare_candidate_rows``): without the rescoring the
   powers are the device FFT's, torch's against XLA's on the CPU.  The
   port's rows equal its own ``--no-rescore`` rows;
-* ``ERP_RESCORE_OVERLAP=off``: rows equal, and no ``IncrementalRescorer``
-  is made by either package;
 * ``ERP_PRECISION`` and ``ERP_MEDIAN=native`` with the library missing:
   the same exception class, or the same exit code;
 * ``ERP_MEDIAN=device``, and the knob unset with the library missing:
@@ -21,8 +18,6 @@ Tolerances:
 * ``check_median``: the same path, or the same refusal, as the JAX
   package's dispatch for every value, with the library and without.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -36,7 +31,6 @@ import boinc_app_eah_brp_tpu_torch.ops.whiten as whiten
 import boinc_app_eah_brp_tpu_torch.oracle.rescore as rescore
 from boinc_app_eah_brp_tpu.io import parse_result_file as jax_parse
 from boinc_app_eah_brp_tpu.io.validate import compare_candidate_rows
-from boinc_app_eah_brp_tpu_torch.io import TemplateBank, write_template_bank
 from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EVAL
 from test_torch_session import _run, _rows, workdir  # noqa: F401  (workdir: the fixture)
 from torch_parity import DT
@@ -51,7 +45,7 @@ def _jax_rows(workdir, name):
 
 
 @pytest.mark.parametrize("value", SPELLINGS)
-@pytest.mark.parametrize("knob,fn", [("ERP_RESCORE", "rescore_enabled"), ("ERP_RESCORE_OVERLAP", "overlap_enabled")])
+@pytest.mark.parametrize("knob,fn", [("ERP_RESCORE", "rescore_enabled")])
 def test_rescore_knob_spellings_match_jax(monkeypatch, knob, fn, value):
     monkeypatch.setenv(knob, value)
     assert getattr(rescore, fn)() == getattr(jax_rescore, fn)()
@@ -84,58 +78,6 @@ def test_rescore_off_rows_match_jax(workdir, monkeypatch):
     )
     assert run_search(args) == 0
     np.testing.assert_array_equal(got, _rows(workdir, "flag"))
-
-
-def _big_bank(workdir, n=260):
-    """The fixture bank grown past the overlap's 256-template floor."""
-    rng = np.random.default_rng(3)
-    P = np.concatenate([[1000.0, 2.2], rng.uniform(1.6, 3.0, n - 2)])
-    tau = np.concatenate([[0.0, 0.04], rng.uniform(0.0, 0.09, n - 2)])
-    psi = np.concatenate([[0.0, 1.2], rng.uniform(0.0, 2 * np.pi, n - 2)])
-    write_template_bank(workdir["bank"], TemplateBank(P, tau, psi))
-
-
-def test_rescore_overlap_off_arms_no_rescorer_and_keeps_the_rows(workdir, monkeypatch):
-    """260 templates at batch 16, a checkpoint every batch, four cores:
-    with the knob unset the port arms the overlap; with it off neither
-    package does, and the rows are the JAX package's."""
-    from boinc_app_eah_brp_tpu.runtime.boinc import BoincAdapter as JaxAdapter
-    from boinc_app_eah_brp_tpu.runtime.driver import DriverArgs as JaxArgs
-    from boinc_app_eah_brp_tpu.runtime.driver import run_search as jax_run_search
-    from boinc_app_eah_brp_tpu_torch.runtime.boinc import BoincAdapter
-    from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
-
-    _big_bank(workdir)
-    monkeypatch.setattr(os, "cpu_count", lambda: 4)
-    armed = []
-    for mod, tag in ((rescore, "port"), (jax_rescore, "jax")):
-        real_init = mod.IncrementalRescorer.__init__
-
-        def init(self, *a, _real=real_init, _tag=tag, **k):
-            armed.append(_tag)
-            _real(self, *a, **k)
-
-        monkeypatch.setattr(mod.IncrementalRescorer, "__init__", init)
-
-    def run(pkg, name):
-        common = dict(
-            inputfile=workdir["wu"], templatebank=workdir["bank"], window=200, batch_size=16,
-            outputfile=str(workdir["tmp"] / f"{name}.cand"), checkpointfile=str(workdir["tmp"] / f"{name}.cpt"),
-        )
-        if pkg == "port":
-            return run_search(DriverArgs(device="cpu", **common), BoincAdapter(checkpoint_period_s=0.0))
-        return jax_run_search(JaxArgs(mesh_devices=1, **common), JaxAdapter(checkpoint_period_s=0.0))
-
-    assert run("port", "armed") == 0
-    assert armed == ["port"]
-    monkeypatch.setenv("ERP_RESCORE_OVERLAP", "off")
-    armed.clear()
-    assert run("port", "port") == 0
-    assert run("jax", "jax") == 0
-    assert armed == []
-    got = _rows(workdir, "port")
-    np.testing.assert_array_equal(got, _jax_rows(workdir, "jax"))
-    np.testing.assert_array_equal(got, _rows(workdir, "armed"))
 
 
 @pytest.mark.parametrize("value", [None, "f32", " F32 ", "bf16", "BF16", "xx", "fp16", ""])

@@ -27,7 +27,7 @@ from boinc_app_eah_brp_tpu_torch.oracle.stats import base_thresholds
 from boinc_app_eah_brp_tpu_torch.oracle.toplist import finalize_candidates, update_toplist_from_maxima
 from boinc_app_eah_brp_tpu_torch.runtime import metrics, tracing
 from fixtures import small_bank, synthetic_timeseries
-from torch_parity import DT
+from torch_parity import DT, host_rescore
 
 # the JAX package's oracle/__init__ re-exports functions named like its
 # modules, so the modules are fetched by name
@@ -85,25 +85,19 @@ def test_oracle_copies_match(toplist, tpl):
 
 def test_rescore_winners_matches_jax(toplist):
     ts, d, cands, emitted = toplist
-    got, n_got = rescore.rescore_winners(ts, cands, emitted, d)
+    got, n_got = rescore.rescore_winners(torch.from_numpy(ts), cands, emitted, d)
     want, n_want = jax_rescore.rescore_winners(ts, cands, emitted, d)
     assert n_got == n_want == rescore.unique_winner_count(emitted) == jax_rescore.unique_winner_count(emitted)
     assert got.tobytes() == want.tobytes()
     assert not np.array_equal(got["power"], cands["power"])  # the device powers were replaced
 
 
-def test_incremental_cache_gives_the_cold_rescore(toplist):
+def test_rescore_winners_refuses_a_numpy_series(toplist):
+    """The pass takes the searched series as a torch tensor: a numpy
+    array is refused before any work, not scored on another path."""
     ts, d, cands, emitted = toplist
-    cold, _ = rescore.rescore_winners(ts, cands, emitted, d)
-    r = rescore.IncrementalRescorer(lambda: ts, d, d.t_obs, max_workers=2)
-    r.observe_async(lambda: cands.copy())
-    r.observe_async(lambda: cands)  # the same winners again: nothing new to submit
-    cache = r.finalize()
-    assert r.observed == 2 and r.failed == 0 and r.series_if_fetched() is not None
-    warm, n_eval = rescore.rescore_winners(ts, cands, emitted, d, cache=cache)
-    assert n_eval == 0
-    assert warm.tobytes() == cold.tobytes()
-    r.abort()  # safe after finalize
+    with pytest.raises(TypeError, match="torch tensor"):
+        rescore.rescore_winners(ts, cands, emitted, d)
 
 
 def _fixture_rows(d, extra=()):
@@ -244,22 +238,26 @@ def test_harmonic_bins_are_every_bin_harmonic_power_at_reads(toplist):
             assert harmonic.harmonic_power_at(sparse, j, k, *geo).tobytes() == want.tobytes(), (j, k)
 
 
-def test_rescore_winners_from_a_device_series_is_the_host_pass(toplist, monkeypatch):
-    """Fed the series as a torch tensor, the pass resamples on its device
-    (here the plain versions), in chunks of 3 so that the 4 winners take
-    two: the same bytes as the numpy series gives, and as the JAX
-    package's pass."""
+@pytest.mark.parametrize("chunk", [1, 3, 4])
+def test_rescore_winners_from_a_device_series_is_the_host_pass(toplist, monkeypatch, chunk):
+    """The pass resamples the 4 winners on the series' device (here the
+    plain versions) in launches of ``chunk``: one template a launch, a
+    short last launch, or one whole launch.  The same bytes as the host
+    oracle's pass, and as the JAX package's."""
     ts, d, cands, emitted = toplist
-    monkeypatch.setattr(rescore, "DEVICE_CHUNK", 3)
-    assert metrics.configure(force=True)
+    monkeypatch.setattr(rescore, "DEVICE_CHUNK", chunk)
+    assert metrics.configure(force=True) and tracing.configure(force=True)
     try:
-        got, n_got = rescore.rescore_winners(torch.from_numpy(ts), cands, emitted, d, max_workers=3)
+        got, n_got = rescore.rescore_winners(torch.from_numpy(ts), cands, emitted, d)
         counters = metrics.snapshot()["counters"]
+        launches = [r["args"]["templates"] for r in tracing.events() if r.get("name") == "rescore.device-resample"]
     finally:
         metrics.finish(0)
-    host, n_host = rescore.rescore_winners(ts, cands, emitted, d)
+        tracing.finish(0)
+    host, n_host = host_rescore(ts, cands, emitted, d)
     want, _ = jax_rescore.rescore_winners(ts, cands, emitted, d)
-    assert n_got == n_host == rescore.unique_winner_count(emitted) > rescore.DEVICE_CHUNK
+    assert n_got == n_host == rescore.unique_winner_count(emitted) == 4
+    assert launches == {1: [1, 1, 1, 1], 3: [3, 1], 4: [4]}[chunk]
     assert got.tobytes() == host.tobytes() == want.tobytes()
     for name in ("rescore.device_resamples", "rescore.device_ffts", "rescore.templates"):
         assert counters[name]["value"] == n_got, name
@@ -282,13 +280,9 @@ def _body(path) -> bytes:
 
 
 def _host_pass(monkeypatch):
-    """``rescore_winners`` fed the host copy of whatever series it gets:
-    the host oracle's resample, as before the device resample."""
-    real = rescore.rescore_winners
-    monkeypatch.setattr(
-        rescore, "rescore_winners",
-        lambda ts, *a, **k: real(ts.cpu().numpy() if isinstance(ts, torch.Tensor) else ts, *a, **k),
-    )
+    """``rescore_winners`` replaced by the host oracle's pass over the
+    host copy of the session's series (``torch_parity.host_rescore``)."""
+    monkeypatch.setattr(rescore, "rescore_winners", lambda ts, *a: host_rescore(ts.cpu().numpy(), *a))
 
 
 def test_an_exact_sine_run_rescores_with_the_lut_oracle(wu_files, monkeypatch):
@@ -318,7 +312,7 @@ def test_an_exact_sine_run_rescores_with_the_lut_oracle(wu_files, monkeypatch):
     assert files[0] == files[1] and b"%DONE%" in files[0]
 
 
-def _bank_past_the_overlap_floor(path, n=260):
+def _bank_260(path, n=260):
     rng = np.random.default_rng(3)
     P = np.concatenate([[1000.0, 2.2], rng.uniform(1.6, 3.0, n - 2)])
     tau = np.concatenate([[0.0, 0.04], rng.uniform(0.0, 0.09, n - 2)])
@@ -328,32 +322,26 @@ def _bank_past_the_overlap_floor(path, n=260):
     write_template_bank(path, TemplateBank(P, tau, psi))
 
 
-@pytest.mark.parametrize("overlap", [False, True])
-def test_a_served_end_of_run_pass_resamples_every_template_on_the_device(wu_files, monkeypatch, overlap):
+@pytest.mark.parametrize("big", [False, True])
+def test_a_served_end_of_run_pass_resamples_every_template_on_the_device(wu_files, monkeypatch, big):
     """On a served workunit every template of the end-of-run pass is
-    device-resampled; with the background rescorer armed (260 templates,
-    a checkpoint every batch) the templates it scored are not, and run
-    the host oracle's resample.  The file is the host pass's either way."""
+    device-resampled and takes its spectrum there, and no host resample
+    runs: the fixture bank, and 260 templates with a checkpoint every
+    batch.  The file is the host oracle pass's."""
     from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs
     from boinc_app_eah_brp_tpu_torch.serving import FleetServer
 
-    if overlap:
-        _bank_past_the_overlap_floor(wu_files["bank"])
-        monkeypatch.setattr(os, "cpu_count", lambda: 4)
+    if big:
+        _bank_260(wu_files["bank"])
         monkeypatch.setenv("ERP_CHECKPOINT_PERIOD", "0")
 
     def args(name):
         return DriverArgs(
-            inputfile=wu_files["wu"], templatebank=wu_files["bank"], window=200, batch_size=16 if overlap else 2,
+            inputfile=wu_files["wu"], templatebank=wu_files["bank"], window=200, batch_size=16 if big else 2,
             outputfile=str(wu_files["tmp"] / f"{name}.cand"), checkpointfile=str(wu_files["tmp"] / f"{name}.cpt"),
             device="cpu",
         )
 
-    armed = []
-    real_init = rescore.IncrementalRescorer.__init__
-    monkeypatch.setattr(
-        rescore.IncrementalRescorer, "__init__", lambda self, *a, **k: armed.append(1) or real_init(self, *a, **k)
-    )
     assert metrics.configure(force=True) and tracing.configure(force=True)
     try:
         with FleetServer(name="t-rescore", device="cpu") as server:
@@ -363,14 +351,13 @@ def test_a_served_end_of_run_pass_resamples_every_template_on_the_device(wu_file
     finally:
         metrics.finish(0)
         tracing.finish(0)
-    assert armed == ([1] if overlap else [])
-    background = counters.get("rescore.submitted", 0)
-    assert background == spans.count("rescore.resample") and (background > 0) == overlap
-    assert counters.get("rescore.device_resamples", 0) + background == counters["rescore.templates"] > 0
-    assert spans.count("rescore.fft") == counters["rescore.templates"]
-    n_dev = counters.get("rescore.device_resamples", 0)
-    assert counters.get("rescore.device_ffts", 0) == n_dev
-    assert spans.count("rescore.device-resample") == -(-n_dev // rescore.DEVICE_CHUNK)
+    n = counters["rescore.templates"]
+    assert counters["rescore.device_resamples"] == counters["rescore.device_ffts"] == n > 0
+    assert spans.count("rescore.fft") == n
+    assert "rescore.resample" not in spans
+    assert spans.count("rescore.device-resample") == -(-n // rescore.DEVICE_CHUNK)
+    if big:
+        assert counters["checkpoint.count"] >= 17  # 17 batches, each checkpointed
     _host_pass(monkeypatch)
     with FleetServer(name="t-rescore-host", device="cpu") as server:
         assert server.result(server.submit(args("host"))).ok
@@ -379,12 +366,12 @@ def test_a_served_end_of_run_pass_resamples_every_template_on_the_device(wu_file
 
 
 @pytest.mark.parametrize("extra_workers", [None, 4])
-def test_the_staging_ring_under_thread_pressure(toplist, monkeypatch, extra_workers):
+def test_device_passes_on_many_threads_give_the_host_oracle_scores(toplist, monkeypatch, extra_workers):
     """The device pass keeps each template's series and spectrum on the
-    device (no host staging ring is left), so passes on several threads
-    at once share nothing but the plan cache: two threads, or more
+    device, so passes on several threads at once (a resident server's
+    sessions) share nothing but the plan cache: two threads, or more
     threads than cores, each with its own templates, under a short
-    switch interval, each give the host pass's scores."""
+    switch interval, each give the host oracle's scores."""
     import sys
     import threading
 
@@ -423,21 +410,15 @@ def test_the_staging_ring_under_thread_pressure(toplist, monkeypatch, extra_work
         assert {p: v.tobytes() for p, v in got[tpl].items()} == {p: v.tobytes() for p, v in want.items()}, tpl
 
 
-def test_a_cpu_session_of_256_templates_arms_the_background_rescorer(wu_files, monkeypatch):
-    """A command-line session whose series is on the CPU arms the
-    background rescorer at 260 templates, as before the device spectrum;
-    its end-of-run pass takes on the device only what the background
-    passes left (a session on a card arms none: ``tests/test_torch_cuda.py``)."""
+def test_a_cpu_session_of_256_templates_takes_every_winner_through_the_device_pass(wu_files, monkeypatch):
+    """A command-line session whose series is on the CPU, with 260
+    templates and a checkpoint every batch, takes every winner's series
+    and spectrum through the device pass at the end of the run, as a
+    session on a card does (``tests/test_torch_cuda.py``)."""
     from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
 
-    _bank_past_the_overlap_floor(wu_files["bank"])
-    monkeypatch.setattr(os, "cpu_count", lambda: 4)
+    _bank_260(wu_files["bank"])
     monkeypatch.setenv("ERP_CHECKPOINT_PERIOD", "0")
-    armed = []
-    real_init = rescore.IncrementalRescorer.__init__
-    monkeypatch.setattr(
-        rescore.IncrementalRescorer, "__init__", lambda self, *a, **k: armed.append(1) or real_init(self, *a, **k)
-    )
     assert metrics.configure(force=True)
     try:
         assert run_search(DriverArgs(
@@ -448,5 +429,38 @@ def test_a_cpu_session_of_256_templates_arms_the_background_rescorer(wu_files, m
         counters = {k: v["value"] for k, v in metrics.snapshot()["counters"].items()}
     finally:
         metrics.finish(0)
-    assert armed == [1] and counters["rescore.submitted"] > 0
-    assert counters["rescore.submitted"] + counters.get("rescore.device_ffts", 0) == counters["rescore.templates"]
+    n = counters["rescore.templates"]
+    assert counters["rescore.device_resamples"] == counters["rescore.device_ffts"] == n > 0
+    assert counters["checkpoint.count"] >= 17
+
+
+def test_a_session_without_a_checkpoint_file_copies_the_state_to_the_host_once(wu_files, monkeypatch):
+    """260 templates on the CPU, no checkpoint file, a checkpoint due
+    every batch: no checkpoint is taken, so (M, T) comes to the host once,
+    for the final toplist, and ``search.d2h_bytes`` is one state's bytes."""
+    from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs, run_search
+    from boinc_app_eah_brp_tpu_torch.runtime.session import Session
+
+    _bank_260(wu_files["bank"])
+    monkeypatch.setenv("ERP_CHECKPOINT_PERIOD", "0")
+    state_bytes = []
+    real_execute = Session.execute
+
+    def execute(self, *a, **k):
+        state_bytes.append(sum(t.numel() * t.element_size() for t in self.state))
+        return real_execute(self, *a, **k)
+
+    monkeypatch.setattr(Session, "execute", execute)
+    assert metrics.configure(force=True)
+    try:
+        assert run_search(DriverArgs(
+            inputfile=wu_files["wu"], templatebank=wu_files["bank"], window=200, batch_size=16,
+            outputfile=str(wu_files["tmp"] / "nocp.cand"), device="cpu",
+        )) == 0
+        counters = {k: v["value"] for k, v in metrics.snapshot()["counters"].items()}
+    finally:
+        metrics.finish(0)
+    assert len(state_bytes) == 1 and state_bytes[0] > 0
+    assert counters["search.d2h_bytes"] == state_bytes[0]
+    assert counters.get("checkpoint.count", 0) == 0
+    assert counters["rescore.device_resamples"] == counters["rescore.templates"] > 0

@@ -131,36 +131,83 @@ def test_interrupted_run_resumes_across_packages(workdir, first, second):
     assert read_checkpoint(str(workdir["tmp"] / "split.cpt")).n_template == len(workdir["bank_rows"])
 
 
-def test_rescore_overlap_gives_the_same_rows(workdir, monkeypatch):
-    """With 260 templates and a checkpoint every batch the session scores
-    winners in the background (IncrementalRescorer); its rows equal a run
-    whose rescoring all happens at the end (one core: not armed)."""
+def _bank_260(workdir, n=260):
+    """The fixture's injected orbit and a DC template among 258 seeded
+    ones: 17 batches of 16, past the JAX package's 256-template floor for
+    its background rescorer."""
     from boinc_app_eah_brp_tpu_torch.io import TemplateBank
-    from boinc_app_eah_brp_tpu_torch.oracle.rescore import IncrementalRescorer
 
     rng = np.random.default_rng(3)
-    n = 260
     P = np.concatenate([[1000.0, 2.2], rng.uniform(1.6, 3.0, n - 2)])
     tau = np.concatenate([[0.0, 0.04], rng.uniform(0.0, 0.09, n - 2)])
     psi = np.concatenate([[0.0, 1.2], rng.uniform(0.0, 2 * np.pi, n - 2)])
     write_template_bank(workdir["bank"], TemplateBank(P, tau, psi))
+
+
+def _body(path) -> bytes:
+    """A result file's bytes less its ``% Date:`` line."""
+    with open(path, "rb") as f:
+        return b"".join(ln for ln in f if not ln.startswith(b"% Date:"))
+
+
+def test_rescore_overlap_gives_the_same_rows(workdir, monkeypatch):
+    """260 templates at batch 16, a checkpoint every batch: the port's
+    rows equal the JAX driver's with its background rescorer armed (four
+    cores), and its file is byte for byte, but for the date, a run
+    without a checkpoint file."""
+    import boinc_app_eah_brp_tpu.oracle.rescore as jax_rescore
+
+    _bank_260(workdir)
+    monkeypatch.setattr(os, "cpu_count", lambda: 4)
     observes = []
-    real_observe = IncrementalRescorer.observe
-    monkeypatch.setattr(IncrementalRescorer, "observe", lambda self, c: (observes.append(1), real_observe(self, c)))
+    real_observe = jax_rescore.IncrementalRescorer.observe
+    monkeypatch.setattr(
+        jax_rescore.IncrementalRescorer, "observe", lambda self, c: (observes.append(1), real_observe(self, c))
+    )
+    common = dict(_common(workdir), batch_size=16)
 
-    def rows(name, cores):
-        monkeypatch.setattr(os, "cpu_count", lambda: cores)
-        args = DriverArgs(
-            device="cpu",
-            outputfile=str(workdir["tmp"] / f"{name}.cand"),
-            checkpointfile=str(workdir["tmp"] / f"{name}.cpt"),
-            **dict(_common(workdir), batch_size=16),
-        )
-        assert run_search(args, BoincAdapter(checkpoint_period_s=0.0)) == 0
-        return _rows(workdir, name)
+    def files(name, checkpoint=True):
+        out = {"outputfile": str(workdir["tmp"] / f"{name}.cand")}
+        if checkpoint:
+            out["checkpointfile"] = str(workdir["tmp"] / f"{name}.cpt")
+        return out
 
-    overlapped = rows("overlap", 4)
-    assert len(observes) == 18  # one per checkpoint: 17 batches and the final one
-    at_end = rows("at_end", 1)
-    assert len(observes) == 18
-    np.testing.assert_array_equal(overlapped, at_end)
+    assert run_search(DriverArgs(device="cpu", **files("port"), **common), BoincAdapter(checkpoint_period_s=0.0)) == 0
+    assert jax_run_search(JaxArgs(mesh_devices=1, **files("jax"), **common), JaxAdapter(checkpoint_period_s=0.0)) == 0
+    assert len(observes) == 18  # the JAX rescorer armed: 17 batches and the final checkpoint
+    assert run_search(DriverArgs(device="cpu", **files("nocp", checkpoint=False), **common),
+                      BoincAdapter(checkpoint_period_s=0.0)) == 0
+    got = _rows(workdir, "port")
+    np.testing.assert_array_equal(got, jax_parse(str(workdir["tmp"] / "jax.cand")).lines)
+    assert _body(workdir["tmp"] / "port.cand") == _body(workdir["tmp"] / "nocp.cand")
+
+
+@pytest.mark.parametrize("every_batch", [True, False], ids=["checkpoint_every_batch", "checkpoint_at_quit"])
+def test_a_260_template_run_quit_after_its_first_checkpoint_resumes_to_the_whole_rows(workdir, every_batch):
+    """260 templates at batch 16, quit after the first batch, with a
+    checkpoint every batch or only the one the quit writes: the run
+    checkpoints 16 templates and writes no result, and the resumed run's
+    file is the uninterrupted run's, but for the date."""
+    _bank_260(workdir)
+    common = dict(_common(workdir), batch_size=16)
+    period = 0.0 if every_batch else 3600.0
+
+    class QuitAfterOne(BoincAdapter):
+        def __init__(self):
+            super().__init__(checkpoint_period_s=period)
+
+        def quit_requested(self):
+            return True
+
+    def run(name, adapter):
+        args = DriverArgs(device="cpu", outputfile=str(workdir["tmp"] / f"{name}.cand"),
+                          checkpointfile=str(workdir["tmp"] / f"{name}.cpt"), **common)
+        return run_search(args, adapter)
+
+    assert run("whole", BoincAdapter(checkpoint_period_s=period)) == 0
+    assert run("split", QuitAfterOne()) == 0
+    assert not os.path.exists(workdir["tmp"] / "split.cand")
+    assert read_checkpoint(str(workdir["tmp"] / "split.cpt")).n_template == 16
+    assert run("split", BoincAdapter(checkpoint_period_s=period)) == 0
+    assert read_checkpoint(str(workdir["tmp"] / "split.cpt")).n_template == 260
+    assert _body(workdir["tmp"] / "split.cand") == _body(workdir["tmp"] / "whole.cand")

@@ -190,38 +190,28 @@ def _toplist():
     return ts, d, cands, finalize_candidates(cands, d.t_obs)
 
 
-@pytest.mark.parametrize("workers", [1, 3])
-def test_rescoring_spans_each_oracle_pass_and_counts_it(default_trace, workers):
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_rescoring_spans_each_oracle_pass_and_counts_it(default_trace, monkeypatch, chunk):
     ts, d, cands, emitted = _toplist()
+    monkeypatch.setattr(rescore, "DEVICE_CHUNK", chunk)
     assert metrics.configure(force=True)
     try:
         with tracing.for_workunit("wu-7"):
-            _, n_eval = rescore.rescore_winners(ts, cands, emitted, d, max_workers=workers)
+            _, n_eval = rescore.rescore_winners(torch.from_numpy(ts), cands, emitted, d)
         counted = metrics.snapshot()["counters"]["rescore.templates"]["value"]
     finally:
         metrics.finish(0)
     assert n_eval == rescore.unique_winner_count(emitted) > 1
     assert counted == n_eval
     spans = [r for r in tracing.events() if r["name"].startswith("rescore.")]
-    for stage in ("rescore.resample", "rescore.fft", "rescore.harmonics"):
+    for stage in ("rescore.fft", "rescore.harmonics"):
         mine = [r for r in spans if r["name"] == stage]
         assert len(mine) == n_eval, stage
         assert len({r["args"]["template"] for r in mine}) == n_eval
-    # the pool's threads carry the workunit of the thread that handed them the work
+    assert sum(r["name"] == "rescore.device-resample" for r in spans) == -(-n_eval // chunk)
+    assert not any(r["name"] == "rescore.resample" for r in spans)
+    # the pass runs on the calling thread and carries its workunit
     assert {r.get("wu") for r in spans} == {"wu-7"}
-
-
-def test_the_background_rescorer_carries_the_workunit(default_trace):
-    ts, d, cands, emitted = _toplist()
-    inc = rescore.IncrementalRescorer(lambda: ts, d, d.t_obs, max_workers=2)
-    with tracing.for_workunit("wu-bg"):
-        inc.observe_async(lambda: cands)
-    assert tracing.workunit() is None
-    cache = inc.finalize()
-    assert len(cache) == rescore.unique_winner_count(emitted)
-    spans = [r for r in tracing.events() if r["name"] in ("rescore-feed", "rescore.fft")]
-    assert {r["name"] for r in spans} == {"rescore-feed", "rescore.fft"}
-    assert {r.get("wu") for r in spans} == {"wu-bg"}
 
 
 def _fixture_files(tmp_path, n):
@@ -267,7 +257,7 @@ def test_the_command_line_spans_its_start_and_its_files(tmp_path, monkeypatch):
     assert tracing.validate_stream(lines) == []
     spans = [r for r in lines if r.get("kind") == "span"]
     names = {r["name"] for r in spans}
-    assert {"startup", "import", "input-read", "ckpt-write", "result-write", "rescore-finalize",
+    assert {"startup", "import", "input-read", "ckpt-write", "result-write", "rescore.device-resample",
             "oracle rescore", "rescore.fft"} <= names
     assert "cuda-init" not in names  # a CPU run makes no CUDA context
     # the workunit file's name without ERP_CORR_ID, on the session's spans

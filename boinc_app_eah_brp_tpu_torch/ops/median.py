@@ -3,9 +3,10 @@
 Counterpart of the reference package's ``ops/median.py``: the sliding
 median of a float32 spectrum over a window of ``bsize`` bins, the two
 central order statistics' float32 midpoint ``(a + b) * 0.5`` for an even
-window.  The whitening takes it where ``ERP_MEDIAN=device`` asks for it,
-or where the native ``rngmed`` (``ops/native_median.py``) does not load
-(``ops/whiten.py::check_median``); the native median stays the default.
+window.  The whitening takes it on a card unless ``ERP_MEDIAN=native``
+asks for the host's ``rngmed`` (``ops/native_median.py``), and on the CPU
+where ``ERP_MEDIAN=device`` asks for it or the native library does not
+load (``ops/whiten.py::check_median``).
 
 :func:`running_median` launches ``csrc/median.cu`` on a CUDA tensor: a
 block sorts the inputs of a tile of outputs once, and each thread carries
@@ -62,16 +63,16 @@ def running_median(x: torch.Tensor, *, bsize: int, block: int = 4096) -> torch.T
     """float32[len(x) - bsize + 1] sliding median of ``x`` (float32[n]),
     window ``bsize``: the kernel on a CUDA tensor, the plain version in
     blocks of ``block`` outputs on a CPU tensor.  Logs once a process that
-    the device median was chosen over the native one."""
+    the plain version was chosen over the CPU's native median."""
     global _warned
-    if not _warned:
-        _warned = True
-        erplog.warn(
-            "Device running median selected: the whitening's default is the native rngmed "
-            "(ops/native_median.py); this path serves ERP_MEDIAN=device and hosts where that "
-            "library does not load.\n"
-        )
     if x.device.type == "cpu":
+        if not _warned:
+            _warned = True
+            erplog.warn(
+                "Device running median selected on the CPU: its plain PyTorch version runs, where the "
+                "native rngmed (ops/native_median.py) is the default; this path serves ERP_MEDIAN=device "
+                "and hosts where that library does not load.\n"
+            )
         return running_median_plain(x, bsize=bsize, block=block)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")

@@ -1,13 +1,15 @@
 """ctypes binding for the native running median (``native/erp_rngmed.cpp``).
 
-The whitening stage's sliding median over the spectrum is the one
-inherently serial stage, and it stays on the host as in the reference
-(``demod_binary.c:856-1079``).  The library is compiled with ``g++`` into
-the package's git-ignored ``build/`` directory at first use.  A build or
-load failure raises ``RadpulError(RADPUL_EVAL)`` from :func:`load` and
-:func:`running_median`; :func:`available` answers False instead, and the
-whitening then takes the device median (``ops/whiten.py::check_median``),
-as the reference package does.
+The reference's sliding median over the spectrum (``rngmed``,
+``demod_binary.c:856-1079``) on the host.  It is the whitening's median on
+the CPU, as in the reference package; on a card the whitening takes the
+device median unless ``ERP_MEDIAN=native`` asks for this one
+(``ops/whiten.py::check_median``).  The library is compiled with ``g++``
+into the package's git-ignored ``build/`` directory at first use.  A build
+or load failure raises ``RadpulError(RADPUL_EVAL)`` from :func:`load` and
+:func:`running_median`; :func:`available` answers False instead, and a
+whitening on the CPU then takes the device median's plain version, as the
+reference package does.
 
 ``$ERP_RNGMED_LIB`` names a prebuilt library (a deployment bundle ships
 one, ``tools/make_bundle.py``) and is exclusive, as in the JAX package:

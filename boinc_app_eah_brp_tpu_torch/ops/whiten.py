@@ -3,9 +3,12 @@ native-FFT branch of the reference package's ``ops/whiten.py``.
 
 The FFTs run on the device (cuFFT through ``torch.fft``); the zap-noise
 stream (a serial taus2 RNG) stays on the host, as in the reference.  The
-sliding median is the native ``rngmed`` on the host, or the device median
-(``ops/median.py``) where ``ERP_MEDIAN=device`` asks for it or the native
-library does not load, as in the reference package (:func:`check_median`).
+sliding median follows the device of the series (:func:`check_median`): on
+a card the device median (``ops/median.py``, the kernel ``csrc/median.cu``)
+runs on the spectrum where it is, so the spectrum never leaves the card; on
+the CPU it is the native ``rngmed``, or the device median's plain version
+where the native library does not load, as in the reference package.
+``ERP_MEDIAN`` picks either path on either device.
 """
 
 from __future__ import annotations
@@ -19,24 +22,46 @@ from ..device import resolve_device
 from ..oracle.pipeline import DerivedParams, SearchConfig
 from ..oracle.whiten import seed_from_samples, zap_noise
 from ..runtime import logging as erplog
+from ..runtime import metrics
 from . import native_median
 from .kernels import planned_fft
 from .median import running_median
 
 
-def check_median() -> str:
-    """The running median the whitening takes, resolved before any
-    whitening work, as the reference package resolves it: ``"native"``
-    (the host ``rngmed``) where its library loads and ``ERP_MEDIAN`` is
-    not ``device``, else ``"device"`` (``ops/median.py``).  The value is
-    compared as given.  ``ERP_MEDIAN=native`` with a library that does not
-    load raises ``RadpulError(RADPUL_EVAL)``: an explicit request never
-    degrades.  Logs the choice."""
+def default_median(device: str | torch.device) -> str:
+    """The running median a whitening on ``device`` takes when
+    ``ERP_MEDIAN`` names neither path: ``"device"`` (``ops/median.py``)
+    on a CUDA device, where the spectrum already is; on the CPU
+    ``"native"`` (the host ``rngmed``) where its library loads, else
+    ``"device"``, as the reference package resolves it."""
+    if torch.device(device).type == "cuda":
+        return "device"
+    return "native" if native_median.available() else "device"
+
+
+def check_median(device: str | torch.device = "cpu") -> str:
+    """The running median a whitening on ``device`` takes, resolved before
+    any whitening work: ``"native"`` (the host ``rngmed``) or ``"device"``
+    (``ops/median.py``).  ``ERP_MEDIAN=native`` and ``ERP_MEDIAN=device``
+    take their path on either device; the value is compared as given.  Any
+    other value, or none, takes :func:`default_median`.
+    ``ERP_MEDIAN=native`` with a library that does not load raises
+    ``RadpulError(RADPUL_EVAL)``: an explicit request never degrades.
+    Logs the choice.  The default ``device``, the CPU, gives the reference
+    package's answer for every value."""
     requested = os.environ.get("ERP_MEDIAN", "")
+    on_card = torch.device(device).type == "cuda"
     if requested == "native":
         native_median.load()  # raises RADPUL_EVAL when it does not load
-    path = "native" if requested != "device" and native_median.available() else "device"
-    erplog.info("Running median path: %s\n", "native C++" if path == "native" else "device")
+        path = "native"
+    elif requested == "device":
+        path = "device"
+    else:
+        path = default_median(device)
+    erplog.info(
+        "Running median path: %s\n",
+        "native C++ on the host" if path == "native" else "device, on the card" if on_card else "device, on the CPU",
+    )
     return path
 
 
@@ -54,8 +79,8 @@ def whiten_and_zap(
     tensor runs its plain version ``median_block`` outputs at a time),
     ``sqrt(ln 2 / median)`` scale, zap-noise scatter, edge bins zeroed,
     ``irfft * sqrt(nsamples)``."""
-    path = check_median()
     dev = resolve_device(device)
+    path = check_median(dev)
     n_unpadded = derived.n_unpadded
     nsamples = derived.nsamples
     fft_size = derived.fft_size
@@ -79,6 +104,8 @@ def whiten_and_zap(
         rm = torch.from_numpy(native_median.running_median(ps.cpu().numpy(), window)).to(dev)
     else:
         rm = running_median(ps, bsize=window, block=median_block)
+        if dev.type == "cuda":
+            metrics.counter("whiten.device_medians").inc()
 
     white_size = fft_size - window + 1
     # tensor / tensor: a Python scalar numerator would go through
@@ -119,12 +146,13 @@ def _inverse(re: torch.Tensor, im: torch.Tensor, nsamples: int) -> torch.Tensor:
 def warm(nsamples: int, device: str | torch.device = "cuda") -> None:
     """Make what :func:`whiten_and_zap` of a series padded to ``nsamples``
     needs before its first workunit: its two transforms' cuFFT plans, on
-    zeros, and the median of the path it will take (:func:`check_median`):
-    the host median's library, or the device median's kernel."""
+    zeros, and the median of the path it will take on ``device``
+    (:func:`check_median`): the host median's library, or the device
+    median's kernel."""
     dev = resolve_device(device)
     F = _forward(torch.zeros(nsamples, dtype=torch.float32, device=dev))
     _inverse(F.real, F.imag, nsamples)
-    if check_median() == "native":
+    if check_median(dev) == "native":
         native_median.running_median(np.zeros(3, dtype=np.float32), 3)
     else:
         running_median(torch.zeros(3, dtype=torch.float32, device=dev), bsize=3)

@@ -201,18 +201,29 @@ def write_problem(problem: Problem, directory: str) -> dict:
     return paths
 
 
-def ensure_native(log=log) -> str:
-    """Load the whitening's default median, the native ``rngmed``
-    (``ops/native_median.py``), before the bench starts and return its
-    file: the bench times that path and no other.  ``ERP_MEDIAN=device``
-    exits, and a library that does not load raises
-    ``RadpulError(RADPUL_EVAL)``, naming it."""
-    from ..ops import native_median
+def ensure_median(device, log=log) -> str:
+    """Resolve the whitening's median on ``device`` before the bench
+    starts, and return it: the bench times the path a whitening there takes
+    by default (``ops/whiten.py::check_median``) and no other, the device
+    median (``csrc/median.cu``) on a card and the native ``rngmed`` on the
+    CPU.  An ``ERP_MEDIAN`` that takes the other path exits; on the CPU a
+    native library that does not load raises ``RadpulError(RADPUL_EVAL)``,
+    naming it."""
+    import torch
 
-    if os.environ.get("ERP_MEDIAN", "").strip() == "device":
-        raise SystemExit("bench: ERP_MEDIAN=device would time the device median, not the default native one; unset it")
-    path = native_median.load()
-    log(f"bench: native median {path}")
+    from ..ops import native_median
+    from ..ops.whiten import check_median, default_median
+
+    # on the CPU the bench times the native median and no fallback
+    library = "csrc/median.cu" if torch.device(device).type == "cuda" else native_median.load()
+    default = default_median(device)
+    path = check_median(device)
+    if path != default:
+        raise SystemExit(
+            f"bench: ERP_MEDIAN={os.environ.get('ERP_MEDIAN')} would time the {path} median, not the {default} "
+            f"one a whitening on {device} takes; unset it"
+        )
+    log(f"bench: {path} median {library}")
     return path
 
 
@@ -258,7 +269,7 @@ def run_bench(problem: Problem, device: str = "cuda", batch: int | None = None, 
         if on_card:
             torch.cuda.synchronize(dev)
 
-    ensure_native(log)
+    ensure_median(dev, log)
     # in-memory metrics: the payload carries a run report (phase walls,
     # kernel builds, cuFFT plans, the autobatch decision)
     metrics.configure(force=True)

@@ -25,12 +25,11 @@ and 999 (``kernel_split``): ``csrc/median.cu`` rebuilt with nvcc cut
 after each block's sort and rank map, and after each run's first output,
 so that the sort, the first walks and the slides each get their share.
 
-The default stays the native median, as in the JAX package: it is the
-reference's algorithm (``rngmed``), its library ships with the deployment
-bundle, and it runs once per workunit on the host while the card is idle.
-The device median is the path for ``ERP_MEDIAN=device`` and for hosts
-where the library does not load; whether the default should follow the
-faster path on the card is measured first (ROADMAP, Queue 4).
+The default follows the device of the series (``ops/whiten.py::
+check_median``): on a card the device median, which is bitwise the native
+one on a spectrum and runs where the spectrum is, so the 25 MB spectrum
+never goes to the host and back; on the CPU the native median, as in the
+JAX package.  ``ERP_MEDIAN`` takes either path on either device.
 
 Usage: python -m boinc_app_eah_brp_tpu_torch.tools.median_study
            [--json PATH] [--skip-device] [--repeat 3] [--device cuda] [--n N]
@@ -55,7 +54,6 @@ N_PRODUCTION = 6291457  # fft_size for 3 x 2^22 padded samples
 WINDOW = 1000
 # chip_smoke.py phase (m1)'s cases: (window, bins or None for all, timed calls)
 KERNEL_WINDOWS = ((WINDOW, None, 10), (WINDOW - 1, None, 10), (40001, 400_000, 3))
-DEFAULT = "native"
 
 
 def chi2_spectrum(n: int, seed: int = 0) -> np.ndarray:
@@ -76,14 +74,14 @@ def study(n: int = N_PRODUCTION, window: int = WINDOW, device: str = "cuda", rep
     """Both paths on :func:`chi2_spectrum` of ``n`` bins; returns the
     artifact."""
     from ..ops import native_median
+    from ..ops.whiten import default_median
 
     ps = chi2_spectrum(n)
     out: dict = {
         "what": f"sliding median paths at production size (n={n}, window={window})",
-        "default": DEFAULT,
-        "decision": "the native rngmed stays the whitening's default, as in the JAX package: the reference's "
-        "algorithm, shipped in the bundle, once a workunit on the host; the device median serves "
-        "ERP_MEDIAN=device and hosts without the library",
+        "default": default_median(device),
+        "decision": "the whitening's median follows its series: the device median on a card, where the "
+        "spectrum is and bitwise the native one; the native rngmed on the CPU, as in the JAX package",
     }
     native_median.load()  # its first use builds the library: not the median's time
     t0 = time.perf_counter()

@@ -20,8 +20,9 @@ events around ``--repeat`` calls after one warm-up; on the CPU
 * ``running_median_ms``: the device running median over one spectrum
   (``ops/median.py``, ``csrc/median.cu`` on a card), with ``--median``,
   as the JAX tool's ``--median`` times its device median; beside it
-  ``running_median_native_ms``, the whitening's default host median
-  (``ops/native_median.py``) once over the same spectrum.
+  ``running_median_native_ms``, the host median (``ops/native_median.py``,
+  the whitening's median on the CPU and under ``ERP_MEDIAN=native``) once
+  over the same spectrum.
 
 The artifact (``--json``) also carries the JAX tool's keys: ``resample_s``
 (A and B: the padded series the FFT reads), ``rfft_power_s`` (the rfft; the
@@ -31,8 +32,9 @@ stages) and ``templates_per_sec_pipeline``.
 ``--whiten`` decomposes the whitening pass instead (``ops/whiten.py``),
 one cold pass and ``--repeat`` warm ones, each stage synchronized: the
 forward rfft, the power, the running median of the path the whitening
-takes (``ops/whiten.py::check_median``: the host median with its copy to
-the host, or the device median), the scale, the zap noise and its
+takes on the device (``ops/whiten.py::check_median``: on a card the device
+median, unless ``ERP_MEDIAN=native`` asks for the host median with its copy
+to the host and back), the scale, the zap noise and its
 scatter, the inverse rfft; ``TOTAL`` is ``whiten_and_zap`` itself.  ``warm_device_split_total_s`` is a warm
 ``whiten_and_zap`` timed alone: the port's production path, whose output
 stays on the card.
@@ -180,7 +182,7 @@ def whiten_decompose(problem, device: str = "cuda", repeat: int = 3, log=print) 
     timer = _Timer(torch, dev)
     d, cfg = problem.derived, problem.cfg
     window_2 = int(0.5 * cfg.window + 0.5)
-    if check_median() == "native":
+    if check_median(dev) == "native":
         def median(ps):
             return torch.from_numpy(native_median.running_median(ps.cpu().numpy(), cfg.window)).to(dev)
     else:

@@ -30,7 +30,8 @@ Phases:
    synthetic 4-bit workunit with a binary-pulsar signal injected at one
    bank template, whitened, with a checkpoint file and oracle rescoring,
    with the kernel launch counts reset just before, and check the
-   candidate file and that every kernel of the main path ran; then time
+   candidate file and that every kernel of the main path ran, the
+   whitening's device median once; then time
    its stages alone (rescoring and the checkpoint write among them);
 5. the same workunit unwhitened (the JAX driver's default), counts reset
    just before: the injected template must be among the candidates and
@@ -126,7 +127,10 @@ Phases:
    ``python3 eah_brp_worker.pyz`` there with no ``PYTHONPATH`` on phase
    4's whitened command line: phase 4's candidate rows byte for byte, no
    kernel built in the worker (its run report's ``torch.kernel_builds``
-   0), kernels A, B and C launched, the median from the bundle;
+   0), kernels A, B and C launched, the whitening's median the bundle's
+   kernel (launched once, one ``whiten.device_medians``); then the same
+   run under ``ERP_MEDIAN=native``: phase 4's rows byte for byte, the
+   median the bundle's ``liberp_rngmed.so``, no median launch;
 15. the port's last tools (j): (1) ``tools/smoke.py``'s default gate on
    phase 4's workunit and bank200 at the production width (unwhitened,
    window 1000, batch 32) on the card, every check green (exit 0, the
@@ -174,19 +178,18 @@ Phases:
    bins, each timed beside its plain version (and at 1000 and 999 beside
    the kernel's step model), and ``torch.median`` of
    every odd window as the yardstick; (2) its outputs against the native
-   rngmed's, counted with their largest ulp; (3) phase 4's command line
-   under ``ERP_MEDIAN=device`` and with the knob unset and
-   ``$ERP_RNGMED_LIB`` naming a missing file, counts reset just before
-   each: the median launched once beside the main path's kernels, and
+   rngmed's: none may differ; (3) phase 4's command line under
+   ``ERP_MEDIAN=native`` (the host median once, no median launch) and
+   with the knob unset and ``$ERP_RNGMED_LIB`` naming a missing file (the
+   median launched once, no host median), counts reset just before each,
    each file held against phase 4's by ``tools/golden_ref.py``'s compare
-   (``ok``), its rows byte for byte or each differing row's cause; (4)
+   (``ok``) and its rows byte for byte; (4)
    ``ERP_MEDIAN=native`` with the missing file exits ``RADPUL_EVAL`` with
    no launch, no cuFFT plan and no result;
 19. print the kernel table as one JSON line (launches from the whitened
    run; the serial mean's from the unwhitened one, A1's from the health
    run, C's float-power entry's from the audits, the exact-sine ones from
-   the ``--exact-sin`` run, the median's from (m3)'s ``ERP_MEDIAN=device``
-   run), the `bounds` line of the package's roofline
+   the ``--exact-sin`` run), the `bounds` line of the package's roofline
    model (``runtime/roofline.py``), the runs' numbers, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -246,17 +249,18 @@ KERNEL_ROWS = {
     # sort that XLA runs
     "median": ("boinc_app_eah_brp_tpu/ops/median.py:57", "median.cu"),
 }
-# the kernels the search's main path must launch; the unwhitened run
-# launches these and the serial mean
-MAIN_PATH = ("resample", "fftprep", "fold_spectrum")
-UNWHITENED_PATH = MAIN_PATH + ("serial_mean",)
+# the kernels the search's loop launches; the whitened command line (the
+# main path) launches these and the median, the unwhitened one these and
+# the serial mean
+SEARCH_PATH = ("resample", "fftprep", "fold_spectrum")
+MAIN_PATH = SEARCH_PATH + ("median",)
+UNWHITENED_PATH = SEARCH_PATH + ("serial_mean",)
 # the phase whose launches a kernel's row reports: the sentinel probe runs
 # kernel A at T = 1 (phase f, health), the precision audit's harmonic-sum
 # tap kernel C's float-power entry (phase f, audit)
 LAUNCHES_FROM = {
     "serial_mean": "unwhitened", "resample_t1": "health", "fold": "audit",
     "resample_exact": "exact_sin", "resample_t1_exact": "exact_sin", "serial_mean_exact": "exact_sin",
-    "median": "median",
 }
 EXACT_SIN = ("resample_exact", "resample_t1_exact", "serial_mean_exact")
 EXACT_SIN_PATH = ("resample_exact", "resample_t1_exact", "fftprep", "fold_spectrum", "serial_mean_exact")
@@ -624,11 +628,12 @@ def run_main_path(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_in
     )
     for name in MAIN_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched by the search")
+    check(launches["median"] == 1, f"the whitened search launched the median {launches['median']} times")
     check(launches["fold"] == 0, "the search folded a float power tensor")
     check(launches["serial_mean"] == 0, "the whitened search took the serial mean")
 
     # The same run again from scratch, now that cuFFT plans and the median
-    # library are loaded, and then its stages one at a time in the
+    # kernel are loaded, and then its stages one at a time in the
     # driver's order.
     from boinc_app_eah_brp_tpu_torch.io import (
         ResultFile, empty_candidates, read_template_bank, read_workunit, read_zaplist,
@@ -1511,7 +1516,7 @@ def run_sharded(torch, geom, bank, workdir: str, wu: str, zap: str, unwhite_rows
             r = res.setdefault(name, {"templates_per_s": [], "launches": dict(kernels.launch_counts)})
             r["templates_per_s"].append(len(bank) / dt_s)
         for name, r in res.items():
-            for k in (UNWHITENED_PATH if kind == "unwhitened" else MAIN_PATH):
+            for k in (UNWHITENED_PATH if kind == "unwhitened" else SEARCH_PATH):
                 check(r["launches"][k] > 0, f"{kind} {name} did not launch {k}")
         out[kind] = res
         del ts
@@ -1862,7 +1867,9 @@ def run_bundle(workdir: str) -> dict:
     libraries into a directory outside the repository, and its
     ``erp_wrapper`` running the zipapp worker there on phase 4's whitened
     command line, with no ``PYTHONPATH`` and no kernel or median
-    directory in the environment."""
+    directory in the environment: with ``ERP_MEDIAN`` unset (the bundle's
+    median kernel), then under ``ERP_MEDIAN=native`` (the bundle's
+    ``liberp_rngmed.so``)."""
     import tempfile
 
     from boinc_app_eah_brp_tpu_torch.tools import make_bundle
@@ -1872,39 +1879,56 @@ def run_bundle(workdir: str) -> dict:
         t0 = time.perf_counter()
         names = make_bundle.make_bundle(bdir)
         bundle_s = time.perf_counter() - t0
-        env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "ERP_KERNEL_DIR", "ERP_RNGMED_LIB")}
-        env["ERP_METRICS_FILE"] = os.path.join(bdir, "worker.metrics.jsonl")
-        argv = [
-            os.path.join(bdir, "erp_wrapper"), "--worker", BUNDLE_WORKER,
-            "-i", os.path.join(workdir, "smoke.bin4"), "-o", "out.cand", "-c", "out.cpt", "-t", BANK,
-            "-l", os.path.join(workdir, "smoke.zap"), "-W", "-P", str(PADDING), "-f", str(F0), "-A", str(FA),
-            "-B", str(WINDOW), "--batch", str(BATCH), "--stderr-file", "stderr.txt",
-            "--shmem", os.path.join(bdir, "shm"),
-        ]
-        t0 = time.perf_counter()
-        proc = subprocess.run(argv, cwd=bdir, env=env, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        archive = open(os.path.join(bdir, "stderr.txt")).read() if os.path.exists(os.path.join(bdir, "stderr.txt")) else ""
-        check(proc.returncode == 0, f"the bundle's wrapper exited {proc.returncode}: {proc.stderr[-2000:]} {archive[-2000:]}")
+        base = {k: v for k, v in os.environ.items()
+                if k not in ("PYTHONPATH", "ERP_KERNEL_DIR", "ERP_RNGMED_LIB", "ERP_MEDIAN")}
 
         def row_text(path):
             return [ln for ln in open(path).read().splitlines() if ln and not ln.startswith("%")]
 
-        _candidate_rows(os.path.join(bdir, "out.cand"))
-        check(row_text(os.path.join(bdir, "out.cand")) == row_text(os.path.join(workdir, "smoke.cand")),
-              "the bundle's candidate rows differ from phase 4's")
-        report = _report(env["ERP_METRICS_FILE"])
-        counters = {k: v["value"] for k, v in report["metrics"]["counters"].items()}
-        gauges = {k: v["value"] for k, v in report["metrics"]["gauges"].items()}
-        check(counters.get("torch.kernel_builds") == 0,
-              f"the bundle's worker did not record 0 kernel builds: {counters.get('torch.kernel_builds')}")
+        def worker(name: str, extra: dict):
+            env = {**base, **extra, "ERP_METRICS_FILE": os.path.join(bdir, f"{name}.metrics.jsonl")}
+            stderr_file = os.path.join(bdir, f"{name}.stderr.txt")  # the wrapper's, relative to bdir
+            argv = [
+                os.path.join(bdir, "erp_wrapper"), "--worker", BUNDLE_WORKER,
+                "-i", os.path.join(workdir, "smoke.bin4"), "-o", f"{name}.cand", "-c", f"{name}.cpt", "-t", BANK,
+                "-l", os.path.join(workdir, "smoke.zap"), "-W", "-P", str(PADDING), "-f", str(F0), "-A", str(FA),
+                "-B", str(WINDOW), "--batch", str(BATCH), "--stderr-file", f"{name}.stderr.txt",
+                "--shmem", os.path.join(bdir, f"{name}.shm"),
+            ]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=bdir, env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            archive = open(stderr_file).read() if os.path.exists(stderr_file) else ""
+            check(proc.returncode == 0,
+                  f"the bundle's wrapper ({name}) exited {proc.returncode}: {proc.stderr[-2000:]} {archive[-2000:]}")
+            cand = os.path.join(bdir, f"{name}.cand")
+            _candidate_rows(cand)
+            check(row_text(cand) == row_text(os.path.join(workdir, "smoke.cand")),
+                  f"the bundle's candidate rows ({name}) differ from phase 4's")
+            report = _report(env["ERP_METRICS_FILE"])
+            counters = {k: v["value"] for k, v in report["metrics"]["counters"].items()}
+            gauges = {k: v["value"] for k, v in report["metrics"]["gauges"].items()}
+            check(counters.get("torch.kernel_builds") == 0,
+                  f"the bundle's worker ({name}) did not record 0 kernel builds: {counters.get('torch.kernel_builds')}")
+            return wall, archive + proc.stdout, counters, gauges
+
+        wall, _, counters, gauges = worker("out", {})
         launches = {k: gauges.get(f"torch.kernel_launches.{k}", 0) for k in MAIN_PATH}
         for k, n in launches.items():
             check(n > 0, f"kernel {k} was not launched by the bundle's worker")
-        check(f"Running median library: {os.path.join(bdir, 'liberp_rngmed.so')}" in archive + proc.stdout,
-              "the bundle's worker did not load the bundle's median")
-        return dict(bundle_s=bundle_s, files=names, wall_s=wall, kernel_builds=0, launches=launches,
-                    rows_equal_phase4=True)
+        # on the card the whitening takes the bundle's median kernel, not the host median
+        check(gauges.get("torch.kernel_launches.median") == 1 and counters.get("whiten.device_medians") == 1,
+              f"the bundle's worker did not whiten with the bundle's median kernel: launches "
+              f"{gauges.get('torch.kernel_launches.median')}, whiten.device_medians {counters.get('whiten.device_medians')}")
+        # ERP_MEDIAN=native takes the host median from the bundle's library
+        native_wall, log, counters, gauges = worker("native", {"ERP_MEDIAN": "native"})
+        check(f"Running median library: {os.path.join(bdir, 'liberp_rngmed.so')}" in log,
+              "the bundle's worker under ERP_MEDIAN=native did not load the bundle's median")
+        check(not gauges.get("torch.kernel_launches.median") and not counters.get("whiten.device_medians"),
+              f"the bundle's worker under ERP_MEDIAN=native launched the median kernel: launches "
+              f"{gauges.get('torch.kernel_launches.median')}, whiten.device_medians {counters.get('whiten.device_medians')}")
+        return dict(bundle_s=bundle_s, files=names, wall_s=wall, native_wall_s=native_wall, kernel_builds=0,
+                    launches=launches, rows_equal_phase4=True)
     finally:
         shutil.rmtree(bdir, ignore_errors=True)
 
@@ -2267,14 +2291,15 @@ def run_median(torch, workdir: str, wu: str) -> dict:
     MEDIAN_WIDE, above one block's shared memory, over its first
     MEDIAN_WIDE_BINS bins, each timed beside its plain version; the
     library yardstick ``torch.median`` of every odd window (WINDOW - 1) in
-    blocks; (2) the kernel against the native rngmed at WINDOW: outputs
-    that differ and their largest ulp; (3) phase 4's command line under
-    ``ERP_MEDIAN=device``, then with the knob unset and
+    blocks; (2) the kernel against the native rngmed at WINDOW: no output
+    differs; (3) phase 4's command line, which took the device median,
+    under ``ERP_MEDIAN=native``, then with the knob unset and
     ``$ERP_RNGMED_LIB`` naming a missing file, counts reset just before
-    and read just after: exit 0, the median launched once with the main
-    path's kernels, and each file held against phase 4's by
-    ``tools/golden_ref.py::compare`` (``ok``), its candidate rows byte
-    for byte or each differing row's cause; (4) ``ERP_MEDIAN=native``
+    and read just after: exit 0, the search's kernels launched, the host
+    median run once and the median kernel not at all (native) or the
+    other way round (no library), and each file held against phase 4's by
+    ``tools/golden_ref.py::compare`` (``ok``) and its candidate rows byte
+    for byte; (4) ``ERP_MEDIAN=native``
     with the missing file: ``RADPUL_EVAL``, no launch, no cuFFT plan, no
     result."""
     from boinc_app_eah_brp_tpu_torch.ops import kernels, median, native_median
@@ -2338,9 +2363,11 @@ def run_median(torch, workdir: str, wu: str) -> dict:
     native_ms = (time.perf_counter() - t0) * 1e3
     differing, max_ulp = ulp_diff(rm.cpu().numpy(), native)
     out["m2"] = dict(window=WINDOW, differing=differing, max_ulp=max_ulp, native_ms=native_ms, outputs=len(native))
+    check(differing == 0, f"(m2) {differing} of {len(native)} device medians differ from the native rngmed's, "
+                          f"max {max_ulp} ulp")
     del ps, rm, host, native
 
-    # (3) the command line under the device median
+    # (3) the command line under the host median, and without its library
     zap = os.path.join(workdir, "smoke.zap")
     base_cand, base_cp = os.path.join(workdir, "smoke.cand"), os.path.join(workdir, "smoke.cpt")
     t_obs = golden_ref.padded_t_obs(wu)
@@ -2353,26 +2380,35 @@ def run_median(torch, workdir: str, wu: str) -> dict:
             f"-B {WINDOW} --batch {BATCH} --device {DEVICE}"
         ).split()
         native_median._lib = None  # the run loads (or fails to load) the library its env names
+        host_calls, real = [], native_median.running_median
+        native_median.running_median = lambda *a, **k: host_calls.append(1) or real(*a, **k)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        with _env(env):
-            rc = cli_main(argv)
-        torch.cuda.synchronize()
-        native_median._lib = None  # the next user loads the real library again
-        return dict(rc=rc, wall_s=time.perf_counter() - t0, launches=dict(kernels.launch_counts), path=path)
+        try:
+            with _env(env):
+                rc = cli_main(argv)
+            torch.cuda.synchronize()
+        finally:
+            native_median.running_median = real
+            native_median._lib = None  # the next user loads the real library again
+        return dict(rc=rc, wall_s=time.perf_counter() - t0, launches=dict(kernels.launch_counts), path=path,
+                    host_medians=len(host_calls))
 
     def rows_of(cand: str) -> list:
         with open(cand) as f:
             return [ln for ln in f.read().splitlines() if ln and not ln.startswith("%")]
 
     out["m3"] = {}
-    for name, env in (("device", {"ERP_MEDIAN": "device"}),
-                      ("no_library", {"ERP_MEDIAN": None, "ERP_RNGMED_LIB": absent})):
+    # (name, env, host medians, median launches)
+    for name, env, host, launched in (("native", {"ERP_MEDIAN": "native"}, 1, 0),
+                                      ("no_library", {"ERP_MEDIAN": None, "ERP_RNGMED_LIB": absent}, 0, 1)):
         r = run(name, env)
         check(r["rc"] == 0, f"(m3) {name} exited {r['rc']}")
-        check(r["launches"]["median"] == 1, f"(m3) {name} launched the median {r['launches']['median']} times")
-        for k in MAIN_PATH:
+        check(r["host_medians"] == host and r["launches"]["median"] == launched,
+              f"(m3) {name} ran the host median {r['host_medians']} times and launched the median "
+              f"{r['launches']['median']} times, not {host} and {launched}")
+        for k in SEARCH_PATH:
             check(r["launches"][k] > 0, f"(m3) {name}: kernel {k} was not launched")
         cand = r["path"] + ".cand"
         summary = golden_ref.compare(base_cand, cand, t_obs, bank=BANK)
@@ -2382,8 +2418,9 @@ def run_median(torch, workdir: str, wu: str) -> dict:
         if not rows_equal:
             l3 = boundary_analysis.analyse(base_cand, cand, base_cp, r["path"] + ".cpt", t_obs)
             causes = _count_causes(l3["boundary"])
-        out["m3"][name] = dict(wall_s=r["wall_s"], launches=r["launches"], summary=summary,
-                               rows_byte_equal=rows_equal, boundary_by_cause=causes)
+        check(rows_equal, f"(m3) {name}'s rows differ from phase 4's: {causes}")
+        out["m3"][name] = dict(wall_s=r["wall_s"], launches=r["launches"], host_medians=r["host_medians"],
+                               summary=summary, rows_byte_equal=rows_equal)
 
     # (4) an explicit native request without its library
     plans = torch.backends.cuda.cufft_plan_cache[0]
@@ -2510,7 +2547,6 @@ def main() -> int:
         "health": health_f["health_run"]["launches"],
         "audit": health_f["audit_launches"],
         "exact_sin": exact["cli"]["launches"],
-        "median": median_m["m3"]["device"]["launches"],
     }
     for name, (replaces, src) in KERNEL_ROWS.items():
         m = measured[name]
@@ -2567,7 +2603,8 @@ def main() -> int:
     print(
         f"bench: {bench_i['autobatch']['value']} templates/s at batch {bench_i['autobatch']['batch']} "
         f"({bench_i['autobatch']['n_batches']} batches), {bench_i['batch32']['value']} at batch 32; "
-        f"bundle: rows equal phase 4's, 0 kernel builds, launches {bundle['launches']}; phase (i) {phase_i_s:.1f} s"
+        f"bundle: rows equal phase 4's, 0 kernel builds, launches {bundle['launches']}; under ERP_MEDIAN=native "
+        f"rows equal phase 4's, the bundle's liberp_rngmed.so, no median launch; phase (i) {phase_i_s:.1f} s"
     )
     print(json.dumps({"smoke_gate": gate_j}))
     print(json.dumps({"step_report": step_j}))
@@ -2620,9 +2657,9 @@ def main() -> int:
         f"({m1['wide']['ms']:.4f} ms, plain {m1['wide']['plain_ms']:.1f} ms); against the native rngmed "
         f"({m2['native_ms']:.1f} ms): {m2['differing']} of {m2['outputs']} outputs differ, max {m2['max_ulp']} ulp; "
         + "; ".join(
-            f"{name}: wall {r['wall_s']:.2f} s (phase 4's {run['wall_s']:.2f} s), median launched "
-            f"{r['launches']['median']}, golden compare ok {r['summary']['ok']} matched {r['summary']['matched']}, "
-            f"rows byte for byte {r['rows_byte_equal']} {r['boundary_by_cause']}"
+            f"{name}: wall {r['wall_s']:.2f} s (phase 4's {run['wall_s']:.2f} s), host median {r['host_medians']}, "
+            f"median launched {r['launches']['median']}, golden compare ok {r['summary']['ok']} matched "
+            f"{r['summary']['matched']}, rows byte for byte {r['rows_byte_equal']}"
             for name, r in m3.items()
         )
         + f"; ERP_MEDIAN=native without the library exit {median_m['m4']['exit']}, no launch, no plan; "

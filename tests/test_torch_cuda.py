@@ -227,6 +227,48 @@ def test_median_refuses_what_it_does_not_take(dev):
         median.running_median(torch.zeros(20, device=dev)[::2], bsize=3)
 
 
+def test_whitening_on_the_card_takes_the_device_median(dev, monkeypatch):
+    """At the palfa200 geometry (2^22 samples, window 1000, padding 3, the
+    benchmark's two zap ranges, ``tools/bench.py::ZAP_RANGES``), a seeded
+    workunit whitened on the card with ``ERP_MEDIAN`` unset takes the
+    device median: one kernel launch, one ``whiten.device_medians`` in the
+    run report, no call of the host median; the series is bitwise the one
+    ``ERP_MEDIAN=native`` gives, which runs the host median once and counts
+    no device median."""
+    from boinc_app_eah_brp_tpu_torch.ops.whiten import whiten_and_zap
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+    from boinc_app_eah_brp_tpu_torch.runtime import metrics
+    from boinc_app_eah_brp_tpu_torch.tools import bench
+
+    n = 1 << 22
+    x = np.clip(np.round(np.random.default_rng(2026).normal(4.0, 1.5, n)), 0, 15).astype(np.float32)
+    cfg = SearchConfig(f0=400.0, padding=3.0, fA=0.08, window=1000, white=True)
+    d = DerivedParams.derive(n, DT * 1e6, cfg)
+    zap = np.array(bench.ZAP_RANGES, dtype=np.float64)
+    host_calls = []
+    real = native_median.running_median
+    monkeypatch.setattr(native_median, "running_median", lambda *a, **k: host_calls.append(1) or real(*a, **k))
+    out, counted = {}, {}
+    assert metrics.configure(force=True)
+    try:
+        for path in (None, "native"):
+            if path is None:
+                monkeypatch.delenv("ERP_MEDIAN", raising=False)
+            else:
+                monkeypatch.setenv("ERP_MEDIAN", path)
+            launches, hosts = kernels.launch_counts["median"], len(host_calls)
+            before = metrics.snapshot()["counters"].get("whiten.device_medians", {}).get("value", 0)
+            out[path] = whiten_and_zap(x, d, cfg, zap, device=dev)
+            torch.cuda.synchronize(dev)
+            after = metrics.snapshot()["counters"].get("whiten.device_medians", {}).get("value", 0)
+            counted[path] = (after - before, kernels.launch_counts["median"] - launches, len(host_calls) - hosts)
+    finally:
+        metrics.finish(0)
+    assert counted[None] == (1, 1, 0)
+    assert counted["native"] == (0, 0, 1)
+    assert out[None].is_cuda and out[None].cpu().numpy().tobytes() == out["native"].cpu().numpy().tobytes()
+
+
 @pytest.mark.parametrize("exact_mean", [False, True])
 def test_bank_step_card_matches_cpu(dev, exact_mean):
     """A search of a few batches on the card against the same search on

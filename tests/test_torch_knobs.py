@@ -16,7 +16,8 @@ Tolerances:
   equal, power and fA within the validator's tolerance: the whitened
   series passes through each package's FFT library);
 * ``check_median``: the same path, or the same refusal, as the JAX
-  package's dispatch for every value, with the library and without.
+  package's dispatch for every value, with the library and without; on a
+  CUDA device the device median unless ``ERP_MEDIAN=native``.
 """
 
 import numpy as np
@@ -231,6 +232,52 @@ def test_check_median_refuses_device_only(monkeypatch, tmp_path, library):
             assert e.code == RADPUL_EVAL
             got = "refused"
         assert got == want, value
+
+
+def _jax_median(value, have: bool) -> str:
+    """The JAX package's median dispatch (``ops/whiten.py:198-218``) for an
+    ``ERP_MEDIAN`` value (None: unset) with the native library loading or
+    not: its path, or ``"refused"`` for ``RADPUL_EVAL``."""
+    value = value or ""
+    return "refused" if value == "native" and not have else "native" if value != "device" and have else "device"
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("library", ["loads", "missing"])
+@pytest.mark.parametrize("value", [None, "", "auto", "Native", "native", "device", "DEVICE", " device"])
+def test_check_median_resolves_by_device(monkeypatch, capfd, device, library, value):
+    """``check_median(device)`` with the native library loading or missing
+    (``available`` and ``load`` monkeypatched, so no card is needed to
+    resolve): on the CPU the JAX package's answer, value for value; on a
+    CUDA device the device median, where the spectrum is, for every value
+    but ``native``, which still takes the host median there and is
+    ``RADPUL_EVAL`` without the library.  The log line names the path."""
+    from boinc_app_eah_brp_tpu_torch.runtime.errors import RadpulError
+
+    have = library == "loads"
+
+    def load():
+        if not have:
+            raise RadpulError(RADPUL_EVAL, "the native running median does not load")
+        return "liberp_rngmed.so"
+
+    monkeypatch.setattr(native_median, "available", lambda: have)
+    monkeypatch.setattr(native_median, "load", load)
+    if value is None:
+        monkeypatch.delenv("ERP_MEDIAN", raising=False)
+    else:
+        monkeypatch.setenv("ERP_MEDIAN", value)
+    want = _jax_median(value, have) if device == "cpu" or value == "native" else "device"
+    capfd.readouterr()
+    try:
+        got = whiten.check_median(device)
+    except RadpulError as e:
+        assert e.code == RADPUL_EVAL
+        got = "refused"
+    assert got == want
+    if got != "refused":
+        label = "native C++ on the host" if got == "native" else f"device, on the {'card' if device == 'cuda' else 'CPU'}"
+        assert f"Running median path: {label}" in capfd.readouterr().err
 
 
 def test_step_cache_key_folds_the_precision_mode(monkeypatch):

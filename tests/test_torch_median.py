@@ -254,6 +254,25 @@ def test_whitening_device_path_equals_native_path(monkeypatch, window):
 
 
 @pytest.mark.parametrize("path", ["native", "device"])
+def test_a_cpu_whitening_counts_no_card_median(monkeypatch, path):
+    """``whiten.device_medians`` counts the whitenings whose median ran on
+    a card: none on the CPU, whichever path runs there."""
+    from boinc_app_eah_brp_tpu_torch.runtime import metrics
+
+    n = 4096
+    cfg = SearchConfig(padding=3.0, window=200, white=True)
+    ts = synthetic_timeseries(n, f_signal=33.0, P_orb=2.2, tau=0.04, psi0=1.2, amp=7.0)
+    monkeypatch.setenv("ERP_MEDIAN", path)
+    assert metrics.configure(force=True)
+    try:
+        whiten_and_zap(ts, DerivedParams.derive(n, 500.0, cfg), cfg, ZAPS, median_block=300, device="cpu")
+        counters = metrics.snapshot()["counters"]
+    finally:
+        metrics.finish(0)
+    assert "whiten.device_medians" not in counters
+
+
+@pytest.mark.parametrize("path", ["native", "device"])
 def test_warm_takes_the_path_the_whitening_will_take(monkeypatch, path):
     """``ops/whiten.py::warm`` runs the median that ``whiten_and_zap``
     will run, so a warmed server builds nothing on its first workunit."""

@@ -327,24 +327,33 @@ def test_stagebench_median_times_the_device_median(monkeypatch):
 
 
 def test_bench_guard_times_the_native_median_only(tmp_path, monkeypatch):
-    """The port's bench guard (``tools/bench.py::ensure_native``): the
-    native median by default; ``ERP_MEDIAN=device`` exits and a library
-    that does not load is ``RADPUL_EVAL``, with no override."""
+    """The port's bench guard (``tools/bench.py::ensure_median``): the
+    median a whitening takes by default on the device, the native one on
+    the CPU and the device median on a card; an ``ERP_MEDIAN`` that takes
+    the other path exits, and on the CPU a library that does not load is
+    ``RADPUL_EVAL``, with no override.  (The name is from when the bench
+    timed the native median alone.)"""
     from boinc_app_eah_brp_tpu_torch.ops import native_median
     from boinc_app_eah_brp_tpu_torch.runtime.errors import RADPUL_EVAL, RadpulError
     from boinc_app_eah_brp_tpu_torch.tools import bench
 
-    quiet = lambda m: None  # noqa: E731
+    logged = []
     monkeypatch.delenv("ERP_MEDIAN", raising=False)
-    assert bench.ensure_native(quiet) == native_median.load()
+    assert bench.ensure_median("cpu", logged.append) == "native"
+    assert logged == [f"bench: native median {native_median.load()}"]
+    assert bench.ensure_median("cuda", logged.append) == "device"
     monkeypatch.setenv("ERP_MEDIAN", "device")
     with pytest.raises(SystemExit, match="ERP_MEDIAN=device"):
-        bench.ensure_native(quiet)
+        bench.ensure_median("cpu", logged.append)
+    assert bench.ensure_median("cuda", logged.append) == "device"
+    monkeypatch.setenv("ERP_MEDIAN", "native")
+    with pytest.raises(SystemExit, match="ERP_MEDIAN=native"):
+        bench.ensure_median("cuda", logged.append)
     monkeypatch.delenv("ERP_MEDIAN")
     monkeypatch.setenv("ERP_RNGMED_LIB", str(tmp_path / "absent.so"))
     monkeypatch.setattr(native_median, "_lib", None)
     with pytest.raises(RadpulError) as e:
-        bench.ensure_native(quiet)
+        bench.ensure_median("cpu", logged.append)
     assert e.value.code == RADPUL_EVAL
 
 

@@ -22,3 +22,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait until the work queued on ``dev``'s current stream has run: the
+    stream's synchronize on a card; nothing on the CPU, whose operations
+    have run when they return."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()

@@ -50,7 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from ..io import (
     N_CAND,
     ResultFile,
@@ -472,8 +472,9 @@ class Session:
         snap = None  # the current segment's recovery point (resilience.DispatchSnapshot)
 
         def drain(fetch, stop: int):
-            """``fetch()`` copies from the card, so the host waits there for
-            every batch queued before it: the watchdog's ``drain`` guard."""
+            """``fetch()`` copies from the card or waits on its stream, so the
+            host waits there for every batch queued before it: the
+            watchdog's ``drain`` guard."""
             t0 = time.perf_counter()
             with watchdog.guard("drain", stop=stop), tracing.span("drain", stop=stop):
                 out = fetch()
@@ -649,6 +650,11 @@ class Session:
                     )
                     if interrupted:
                         break
+            # the loop never waits on the card, so its last batches are
+            # still running here: wait for them inside the phase, which then
+            # holds the search and not only its enqueue (over the whole
+            # 6,662-template bank an H100 runs ~1.4 s past the last enqueue)
+            drain(lambda: synchronize(self.dev), last_done)
         # a search on the CPU: the per-stage device lane of the Chrome
         # export is estimated from the dispatch windows and the roofline
         # (runtime/devicecost.py); on the card the profiler measures it

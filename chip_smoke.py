@@ -862,7 +862,7 @@ def run_default_cli(torch, bank, workdir: str, wu: str, unwhite_rows) -> dict:
         spans = [json.loads(ln) for ln in f if ln.strip()]
     check(tracing.validate_stream(spans) == [], "the host trace stream does not validate")
     # the loop on the card: from its first kernel to its last in the
-    # profile (the host's loop phase ends when the last batch is queued)
+    # profile (the host's loop phase ends once the card has run the last batch)
     records = steptime.device_records_from_chrome(os.path.join(prof, "trace.json"))
     idle = steptime.device_idle_share(records)
     check(idle["n"] > 0, "the profile holds no device records")
@@ -874,7 +874,7 @@ def run_default_cli(torch, bank, workdir: str, wu: str, unwhite_rows) -> dict:
         decision=decision[0],
         autobatch=gauges["autobatch.decision"]["value"],
         wall_s=wall,
-        loop_enqueue_s=report["metrics"]["phases"]["template loop"]["wall_s"],
+        loop_phase_s=report["metrics"]["phases"]["template loop"]["wall_s"],
         loop_templates_per_s=len(bank) / (idle["span_us"] * 1e-6),
         peak_device_bytes=int(peak),
         device_records=idle["n"],

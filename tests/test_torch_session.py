@@ -16,7 +16,9 @@ Tolerances:
 * resumed runs: rows equal to the uninterrupted run's.
 """
 
+import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -211,3 +213,31 @@ def test_a_260_template_run_quit_after_its_first_checkpoint_resumes_to_the_whole
     assert run("split", BoincAdapter(checkpoint_period_s=period)) == 0
     assert read_checkpoint(str(workdir["tmp"] / "split.cpt")).n_template == 260
     assert _body(workdir["tmp"] / "split.cand") == _body(workdir["tmp"] / "whole.cand")
+
+
+def test_the_template_loop_phase_waits_for_the_cards_last_batches(workdir, monkeypatch):
+    """The loop only queues its batches, so on a card the last ones are
+    still running when the loop ends.  The ``template loop`` phase waits
+    for them once, after the last batch is queued, as a ``drain``: the
+    phase holds the search, not its enqueue.  On the CPU the wait is
+    nothing, so a stand-in of 0.3 s plays the card's tail."""
+    from boinc_app_eah_brp_tpu_torch.runtime import metrics, session
+
+    monkeypatch.setenv("ERP_METRICS_INTERVAL", "0")
+    n_batches = -(-len(workdir["bank_rows"].P) // BATCH)
+    waits = []
+
+    def card_tail(dev):
+        assert dev.type == "cpu"
+        waits.append(metrics.snapshot()["counters"]["search.batches"]["value"])
+        time.sleep(0.3)
+
+    monkeypatch.setattr(session, "synchronize", card_tail, raising=False)
+    report = str(workdir["tmp"] / "m.jsonl")
+    args = DriverArgs(device="cpu", outputfile=str(workdir["tmp"] / "tail.cand"), metrics_file=report,
+                      **_common(workdir))
+    assert run_search(args, BoincAdapter(checkpoint_period_s=3600.0)) == 0
+    with open(report + ".report.json") as f:
+        phases = json.load(f)["metrics"]["phases"]
+    assert waits == [n_batches]
+    assert phases["template loop"]["wall_s"] >= 0.3

@@ -16,9 +16,11 @@ device and updates the state in place, one batch per call.
 
 What outlives a workunit in a resident server is keyed by
 :func:`step_cache_key`: the loaded kernel libraries (``ops/kernels.py``)
-and cuFFT's plan of the batch's transform (torch's plan cache), both held
-by the process.  :func:`warm_step` makes them ahead of the first
-workunit; ``run_bank(step_cache=...)`` counts a hit or a miss per attempt.
+and the batch transform's twiddle tables (``ops/spectrum.py``), or
+cuFFT's plan of it where the length has no split of the port's own R2C
+(torch's plan cache), all held by the process.  :func:`warm_step` makes
+them ahead of the first workunit; ``run_bank(step_cache=...)`` counts a
+hit or a miss per attempt.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..oracle.sincos import libm_sinf_array
 from ..ops.harmonic import from_natural_order, state_width, sumspec_spectrum, to_natural_order
 from ..ops.kernels import planned_fft
 from ..ops.resample import exact_mean_params, fftprep_series
+from ..ops.spectrum import search_rfft
 from ..runtime.devicecost import scoped, stage_scope
 
 # below any real summed power: padded batch slots are masked to this before
@@ -377,7 +380,7 @@ class BankStep(nn.Module):
             exact_sin=not g.use_lut,
         )
         with stage_scope("fft"):
-            F = planned_fft(torch.fft.rfft, x)
+            F = search_rfft(x)
         del x
         with stage_scope("sumspec"):
             sums = sumspec_spectrum(F, nsamples=g.nsamples, fund_hi=g.fund_hi, harm_hi=g.harm_hi)
@@ -420,7 +423,7 @@ def template_sumspec(ts: torch.Tensor, P: float, tau: float, psi0: float, geom: 
         exact_sin=not geom.use_lut,
     )
     with stage_scope("fft"):
-        F = planned_fft(torch.fft.rfft, x)
+        F = search_rfft(x)
     with stage_scope("sumspec"):
         return sumspec_spectrum(F, nsamples=geom.nsamples, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)[0]
 
@@ -432,9 +435,9 @@ def step_cache_key(geom: SearchGeometry, batch_size: int, device) -> tuple:
     and :func:`run_bank` read besides their operands: the geometry (a
     frozen dataclass of scalars, hashable, with ``exact_mean`` and
     ``use_lut``: the exact-sine kernels are another instantiation), the batch
-    (the R2C plan is of (batch, nsamples)) and the device (plans are per
-    card), and the ``ERP_PRECISION`` mode (:func:`erp_precision`, which
-    raises for a mode that no step runs).  The health vector is not in it:
+    (a cuFFT R2C plan is of (batch, nsamples)) and the device (plans and
+    twiddle tables are per card), and the ``ERP_PRECISION`` mode
+    (:func:`erp_precision`, which raises for a mode that no step runs).  The health vector is not in it:
     it is eager reductions over the sums, with no build and no plan of its
     own."""
     return ("erp-torch-bank-step/1", geom, int(batch_size), str(resolve_device(device)), erp_precision())
@@ -443,11 +446,12 @@ def step_cache_key(geom: SearchGeometry, batch_size: int, device) -> tuple:
 def warm_step(geom: SearchGeometry, batch_size: int, device="cuda") -> None:
     """Make what a search of ``geom`` at ``batch_size`` needs before its
     first workunit: build and load every kernel library (on a card, at the
-    first kernel launch), plan cuFFT's R2C of (batch, nsamples) by one
-    :class:`BankStep` on zero operands of the production shapes, take the
-    exact mean once where ``geom.exact_mean``, and otherwise (whitened
-    runs) warm whitening (``ops/whiten.py::warm``).  On a card it also
-    plans the rescoring's float64 R2C of (nsamples,)
+    first kernel launch) and the batch transform's twiddle tables (or
+    cuFFT's R2C plan of (batch, nsamples) where ``ops/spectrum.py::r2c_split``
+    has no split) by one :class:`BankStep` on zero operands of the
+    production shapes, take the exact mean once where ``geom.exact_mean``,
+    and otherwise (whitened runs) warm whitening (``ops/whiten.py::warm``).
+    On a card it also plans the rescoring's float64 R2C of (nsamples,)
     (``oracle/spectrum.py::power_at_on_device``)."""
     dev = resolve_device(device)
     B = int(batch_size)
@@ -571,8 +575,8 @@ def _run_bank_attempt(ts, params, geom, n, n_stop, mean, progress_cb, step_cache
     watchdog's cadence check, synchronizes.  Each
     batch is bracketed for the metrics, the trace, the flight recorder,
     the watchdog (``dispatch``: the enqueue, the first one with the kernel
-    build and the cuFFT plan) and the fault points ``h2d`` and
-    ``dispatch``, under the JAX package's names."""
+    build and the transform's tables or cuFFT plan) and the fault points
+    ``h2d`` and ``dispatch``, under the JAX package's names."""
     from ..runtime import faultinject, flightrec, metrics, steptime, tracing, watchdog
     from ..runtime.health import watchdog as health_watchdog
 

@@ -31,9 +31,10 @@ kernel A's device functions), each also in its exact-sine instantiation
 (``--exact-sin``: ``resample_exact``, ``resample_t1_exact``,
 ``serial_mean_exact``), ``fold.cu`` the fold of float power and of
 the complex spectrum; ``median.cu`` the whitening's device running median
-in its two instantiations (entry ``median``).  The end-of-run rescoring's
-launches of kernel A and the exact mean count apart from the search's
-(``rescore_resample``, ``rescore_serial_mean``).
+in its two instantiations (entry ``median``); ``rfft.cu`` the search's
+real-to-complex transform, both its passes (entry ``fft_r2c``).  The
+end-of-run rescoring's launches of kernel A and the exact mean count apart
+from the search's (``rescore_resample``, ``rescore_serial_mean``).
 
 :func:`planned_fft` runs the port's ``torch.fft`` transforms and tells
 :data:`plan_listeners` how many cuFFT plans each created, on the thread
@@ -60,7 +61,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 KERNEL_DIR_ENV = "ERP_KERNEL_DIR"
 
-SOURCES = ("resample", "fftprep", "fold", "median")
+SOURCES = ("resample", "fftprep", "fold", "median", "rfft")
 KERNELS = (
     "resample", "resample_t1", "fftprep", "fold", "fold_spectrum", "serial_mean",
     # the exact-sine instantiations of kernel A, A1 and the exact mean (--exact-sin)
@@ -69,6 +70,8 @@ KERNELS = (
     "median",
     # kernel A and the exact mean (LUT sine) run by the end-of-run rescoring
     "rescore_resample", "rescore_serial_mean",
+    # the search's R2C (both passes of csrc/rfft.cu, one a batch transformed)
+    "fft_r2c",
 )
 MAX_GRID_T = 65535  # templates per FFT-prep launch: the batch is a grid dimension
 NVCC_FLAGS = (
@@ -101,6 +104,9 @@ _SIGNATURES = {
     "median": {
         "erp_median_scratch_entries": [_I, _I, _I],
         "erp_median": [_I, _P, _P, _P, _P, _I, _I],
+    },
+    "rfft": {
+        "erp_fft_r2c": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I],
     },
 }
 

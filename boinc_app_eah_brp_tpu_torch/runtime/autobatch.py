@@ -31,11 +31,13 @@ import time
 
 from . import flightrec, metrics
 
-# float32 arrays of length nsamples live per template, cuFFT's work area
-# included.  Anchored on the card: the whitened production search (2^22
-# samples padded 3x, nsamples 12,582,912) peaked at 4.895 GB at batch 32
-# on an NVIDIA H100 80GB HBM3 (chip_smoke.py), 4.895e9 / 32 /
-# (12,582,912 * 4) = 3.04.
+# float32 arrays of length nsamples live per template.  Anchored on the
+# card when the batch's R2C was cuFFT's, whose work area took a third
+# array: the whitened production search (2^22 samples padded 3x, nsamples
+# 12,582,912) peaked at 4.895 GB at batch 32 on an NVIDIA H100 80GB HBM3
+# (chip_smoke.py), 4.895e9 / 32 / (12,582,912 * 4) = 3.04.  The port's own
+# R2C (csrc/rfft.cu) works in place over the series, so the factor now
+# overstates the working set: a margin, not a measurement.
 _WORKING_SET_FACTOR = 3.04
 _MIN_BATCH = 8
 _MAX_BATCH = 128

@@ -55,11 +55,12 @@ STAGES: dict[str, str] = {
     "health": "health",  # models/search.py batch_health_vec
     "serial_mean": "resample",  # the exact mean, csrc/resample.cu
     "fold": "harmonic-sum",  # kernel C's CUDA kernel
-    "rfft": "fft+power",  # cuFFT's kernels
+    "rfft": "fft+power",  # the R2C's kernels: csrc/rfft.cu's, or cuFFT's
 }
 
 # the kernel -> stage map: a substring of a kernel's name -> its stage,
-# first match wins (``fftprep_kernel`` before cuFFT's ``*fft*`` kernels)
+# first match wins (``fftprep_kernel`` before the R2C's ``*fft*`` kernels,
+# ``csrc/rfft.cu``'s and cuFFT's)
 KERNEL_STAGES = (
     ("exact_mean_kernel", "serial_mean"),
     ("stream_kernel", "resample"),
@@ -115,8 +116,10 @@ def scoped(stage: str):
 
 def stage_of_kernel(name) -> str | None:
     """The stage a CUDA kernel belongs to: the kernels of ``csrc/`` by
-    their symbols, cuFFT's by their names (``regular_fft``,
-    ``vector_fft``, ..., and an R2C's ``postprocess_kernel``); None for
+    their symbols (``csrc/rfft.cu``'s ``r2c_fft_cols_kernel`` and
+    ``r2c_fft_rows_kernel`` by the key ``fft``), cuFFT's by their names
+    (``regular_fft``, ``vector_fft``, ..., and an R2C's
+    ``postprocess_kernel``); None for
     anything else (the merge's elementwise kernels, copies)."""
     if not isinstance(name, str):
         return None

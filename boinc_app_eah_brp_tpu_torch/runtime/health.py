@@ -198,7 +198,8 @@ class SentinelProbe:
     The oracle side is computed once per template (first probe) and
     cached: later probes detect device-side drift over the run.  Cost per
     probe after the first: K one-template device searches and K
-    comparisons; the first also makes the batch-1 cuFFT plan."""
+    comparisons; the first also makes the batch-1 transform's twiddle tables
+    (or its cuFFT plan where ``ops/spectrum.py::r2c_split`` has no split)."""
 
     def __init__(
         self,

@@ -9,8 +9,9 @@ pipeline, one batch of ``batch`` templates at a time:
   with the LUT sine or, with ``exact_sin`` (``--exact-sin``), CUDA's
   ``sinf``;
 * kernel B (``csrc/fftprep.cu``), the mean-padded interleaved series;
-* the rfft (cuFFT) at one pass: the real input read once, the complex
-  output written once (cuFFT's own passes at this size are not modelled);
+* the rfft at one pass: the real input read once, the complex output
+  written once (the passes of ``csrc/rfft.cu``, two, or of cuFFT where a
+  length has no split, are not modelled);
 * kernel C (``csrc/fold.cu``) on the complex spectrum, with the |X|^2/N
   epilogue inside it (``fold_spectrum``), or on float power (``fold``);
 * the max/argmax merge into (M, T);

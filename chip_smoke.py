@@ -21,7 +21,11 @@ Phases:
    plain version and its bound (bytes, float32 instructions and
    conversions, each at its own rate; for the exact mean also its chain
    of dependent adds, and its time at the tiled bank), and a copy of the
-   first port's eager statistics, rfft, the eager power epilogue and a
+   first port's eager statistics, the rfft (``csrc/rfft.cu``, held to
+   1e-5 of max |F| against cuFFT's, which is timed beside it as its
+   library yardstick, against its plain version, and, template by
+   template at each sector phase of F, against the float64 transform
+   with cuFFT's distance beside it), the eager power epilogue and a
    whole batch step, whitened and unwhitened (its means computed ahead),
    are timed alone, and the merge into (M, T) and the device and host
    running medians over one spectrum (the stages of
@@ -31,7 +35,8 @@ Phases:
    bank template, whitened, with a checkpoint file and oracle rescoring,
    with the kernel launch counts reset just before, and check the
    candidate file and that every kernel of the main path ran, the
-   whitening's device median once; then time
+   whitening's device median once and the R2C kernel once a batch, with
+   no cuFFT plan of a batch's R2C; then time
    its stages alone (rescoring and the checkpoint write among them);
 5. the same workunit unwhitened (the JAX driver's default), counts reset
    just before: the injected template must be among the candidates and
@@ -140,7 +145,7 @@ Phases:
    report); (2) ``tools/step_report.py`` on the same problem, counts
    reset just before, inside ``torch.profiler``: ``device_lane``
    "measured", each stage's measured ms beside phase 3's, the rfft
-   stage's cuFFT kernels with their launches and ms a window; (3) the
+   stage's kernels with their launches and ms a window; (3) the
    readers through their command lines: ``metrics_report`` renders and
    diffs (i2)'s run reports, ``blackbox_report --check`` (f)'s dump,
    ``fleet_timeline --check --min-coverage 0.95 --require-adoption`` the
@@ -248,11 +253,14 @@ KERNEL_ROWS = {
     # no Pallas kernel: the JAX package's device running median, a blocked
     # sort that XLA runs
     "median": ("boinc_app_eah_brp_tpu/ops/median.py:57", "median.cu"),
+    # no Pallas kernel: the JAX package's rfft_packed_split, matrix products
+    # that XLA runs
+    "fft_r2c": ("boinc_app_eah_brp_tpu/ops/fft.py:268", "rfft.cu"),
 }
-# the kernels the search's loop launches; the whitened command line (the
-# main path) launches these and the median, the unwhitened one these and
-# the serial mean
-SEARCH_PATH = ("resample", "fftprep", "fold_spectrum")
+# the kernels the search's loop launches at the production length; the
+# whitened command line (the main path) launches these and the median, the
+# unwhitened one these and the serial mean
+SEARCH_PATH = ("resample", "fftprep", "fft_r2c", "fold_spectrum")
 MAIN_PATH = SEARCH_PATH + ("median",)
 UNWHITENED_PATH = SEARCH_PATH + ("serial_mean",)
 # the phase whose launches a kernel's row reports: the sentinel probe runs
@@ -373,7 +381,7 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
     the package's roofline model (``runtime/roofline.py``) of this call."""
     from boinc_app_eah_brp_tpu_torch.models import search
     from boinc_app_eah_brp_tpu_torch.ops import harmonic, kernels, resample
-    from boinc_app_eah_brp_tpu_torch.ops.spectrum import power_from_rfft
+    from boinc_app_eah_brp_tpu_torch.ops.spectrum import power_from_rfft, rfft_fourstep_plain, search_rfft
     from boinc_app_eah_brp_tpu_torch.runtime import roofline
 
     n, nsamples, half = geom.n_unpadded, geom.nsamples, geom.n_unpadded // 2
@@ -473,18 +481,62 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
     )
     del x_p, src, mask, i
 
-    # rfft and the eager power epilogue, each alone
-    F = torch.fft.rfft(x)
+    # the rfft (the step's: csrc/rfft.cu's two passes) against cuFFT's
+    # through torch.fft.rfft, its library yardstick, and its plain version,
+    # each to 1e-5 of max |F|; template by template, the kernel's and
+    # cuFFT's distance from the float64 transform, of max |F| and of rms |F|,
+    # at each template's sector phase in F (the rows pass 2 takes follow
+    # it).  The kernel's first pass overwrites x, so every other transform
+    # of x comes first; then it and the eager power epilogue, each alone
+    F_lib = torch.fft.rfft(x)
+    library_ms = time_ms(torch, lambda: torch.fft.rfft(x), 5)
+    F64 = torch.fft.rfft(x.double())
+    F_plain = rfft_fourstep_plain(x)
+    plain_ms = time_ms(torch, lambda: rfft_fourstep_plain(x), 2)
+    F = search_rfft(x)
+    torch.cuda.synchronize()
+    rfft_gap = float((F - F_lib).abs().max() / F_lib.abs().max())
+    plain_gap = float((F - F_plain).abs().max() / F_plain.abs().max())
+    del F_plain
+    per_template = []
+    for t in range(T):
+        ref = F64[t]
+        scale, rms = float(ref.abs().max()), float(ref.abs().square().mean().sqrt())
+        dk, dc = (F[t].to(torch.complex128) - ref).abs(), (F_lib[t].to(torch.complex128) - ref).abs()
+        k = int(dk.argmax())
+        per_template.append(dict(
+            t=t, sector_phase=F[t].data_ptr() // F.element_size() % 4,
+            vs_cufft=float((F[t] - F_lib[t]).abs().max() / F_lib[t].abs().max()),
+            kernel_vs_f64=float(dk.max()) / scale, cufft_vs_f64=float(dc.max()) / scale,
+            kernel_vs_f64_of_rms=float(dk.max()) / rms, cufft_vs_f64_of_rms=float(dc.max()) / rms,
+            worst_bin=k, worst_bin_of_max=float(ref[k].abs()) / scale, max_over_rms=scale / rms,
+        ))
+        del dk, dc
+    del F64, F_lib
+    print(json.dumps({"rfft_accuracy": per_template}), flush=True)
+    check(rfft_gap <= 1e-5, f"rfft kernel off cuFFT by {rfft_gap:.3g} of max |F|")
+    check(plain_gap <= 1e-5, f"rfft kernel off its plain version by {plain_gap:.3g} of max |F|")
+    # against the float64 transform both float32 transforms err most in
+    # bins 0-2 of these mean-padded noise series (a template's max |F| is
+    # only ~4 rms |F|): the kernel is held to twice cuFFT's largest distance
+    k64, c64 = (max(r[k] for r in per_template) for k in ("kernel_vs_f64", "cufft_vs_f64"))
+    check(k64 <= 2 * c64, f"rfft kernel off the float64 transform by {k64:.3g} of max |F|, cuFFT by {c64:.3g}")
     stages = dict(
         stats_eager_ms=stats_eager_ms,
-        rfft_ms=time_ms(torch, lambda: torch.fft.rfft(x), 5),
+        # x holds the kernel's intermediate now: the time does not depend on
+        # the values
+        rfft_ms=time_ms(torch, lambda: search_rfft(x), 5),
         power_ms=time_ms(torch, lambda: power_from_rfft(F, nsamples=nsamples), 5),
     )
-    # the rfft (cuFFT) has no kernel of ours: its bound is one pass, the
-    # real input read once and the complex output written once; "passes"
-    # is how many such passes its measured time is worth
-    out["rfft"] = roofline.rfft_cost(T, nsamples).bound()
-    out["rfft"]["passes"] = stages["rfft_ms"] / out["rfft"]["bound_ms"]
+    # its bound is one pass, the real input read once and the complex
+    # output written once; "passes" is how many such passes its measured
+    # time is worth
+    out["fft_r2c"] = dict(
+        max_rel_err=rfft_gap, plain_rel_err=plain_gap, f64_rel_err=k64, library_f64_rel_err=c64,
+        ms=stages["rfft_ms"], plain_ms=plain_ms,
+        library_ms=library_ms, **roofline.rfft_cost(T, nsamples).bound(),
+    )
+    out["fft_r2c"]["passes"] = stages["rfft_ms"] / out["fft_r2c"]["bound_ms"]
     del x
     fold_kw = dict(fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
 
@@ -617,6 +669,10 @@ def run_main_path(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_in
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
+    # cuFFT plans of a batch's R2C, (templates, nsamples) in float32, that
+    # the process has made through planned_fft: none, the kernel takes it
+    search_plans = [k for k in kernels.planned_keys
+                    if k[3] is torch.fft.rfft and len(k[1]) == 2 and k[1][1] == geom.nsamples]
 
     check(rc == 0, f"search exited with {rc}")
     rows = _candidate_rows(cand)
@@ -629,6 +685,10 @@ def run_main_path(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_in
     for name in MAIN_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched by the search")
     check(launches["median"] == 1, f"the whitened search launched the median {launches['median']} times")
+    batches = -(-len(bank) // BATCH)
+    check(launches["fft_r2c"] == batches,
+          f"the search launched the R2C kernel {launches['fft_r2c']} times for {batches} batches")
+    check(not search_plans, f"the search's R2C made cuFFT plans: {search_plans}")
     check(launches["fold"] == 0, "the search folded a float power tensor")
     check(launches["serial_mean"] == 0, "the whitened search took the serial mean")
 
@@ -1970,8 +2030,8 @@ def run_step_report(workdir: str, wu: str, measured: dict) -> dict:
     the measured lane, counts reset just before: ``device_lane``
     "measured", each of resample, fftprep, rfft and fold measured above
     0, the document valid under ``report_check``; its stage table beside
-    phase 3's ms of A, B, C and the rfft, and the rfft stage's cuFFT
-    kernels."""
+    phase 3's ms of A, B, C and the rfft, and the rfft stage's kernels
+    (``csrc/rfft.cu``'s two passes)."""
     from boinc_app_eah_brp_tpu_torch.ops import kernels
     from boinc_app_eah_brp_tpu_torch.runtime.driver import DriverArgs
     from boinc_app_eah_brp_tpu_torch.tools import report_check, step_report
@@ -2006,7 +2066,7 @@ def run_step_report(workdir: str, wu: str, measured: dict) -> dict:
         check(stages[name]["measured_ms_per_window"] > 0, f"(j2) no measured time for stage {name}")
     device = doc.get("device") or {}
     rfft_kernels = [k for k in device.get("kernels", []) if k["stage"] == "rfft"]
-    check(rfft_kernels, "(j2) the rfft stage holds no cuFFT kernel")
+    check(rfft_kernels, "(j2) the rfft stage holds no kernel")
     other = sorted((k for k in device.get("kernels", []) if k["stage"] == "other"), key=lambda k: -k["ms"])
     print(json.dumps({"rfft_kernels": rfft_kernels, "other_kernels": other[:10]}), flush=True)
     print(step_report.render(doc), flush=True)
@@ -2071,7 +2131,8 @@ def run_smoke_modes(workdir: str) -> dict:
     """Phase (j4): ``tools/smoke.py --hosts 2`` and ``--fabric`` on the card
     at the smoke's own fixture size, each through its command line; A, B,
     C and the exact mean launched by the hosts (their run reports) and by
-    the fabric's reference run (its run report)."""
+    the fabric's reference run (its run report), and the R2C kernel not
+    (the fixture's length has no split)."""
     from boinc_app_eah_brp_tpu_torch.tools import smoke
 
     mdir = os.path.join(workdir, "smoke_modes")
@@ -2089,8 +2150,12 @@ def run_smoke_modes(workdir: str) -> dict:
         for r in reports:
             for k, n in smoke._launches(_report(os.path.join(mdir, name, r))).items():
                 launches[k] = launches.get(k, 0) + n
+        # the fixture's 4,096 samples have no split of the port's R2C: its
+        # transform is cuFFT's
+        check(not launches.get("fft_r2c"), f"(j4) smoke {' '.join(argv)} launched the R2C kernel")
         for k in UNWHITENED_PATH:
-            check(launches.get(k, 0) > 0, f"(j4) smoke {' '.join(argv)} did not launch {k}")
+            if k != "fft_r2c":
+                check(launches.get(k, 0) > 0, f"(j4) smoke {' '.join(argv)} did not launch {k}")
         out[name] = dict(wall_s=time.perf_counter() - t0, result=last, launches=launches)
     return out
 
@@ -2557,7 +2622,8 @@ def main() -> int:
                 source=f"boinc_app_eah_brp_tpu_torch/csrc/{src}",
                 replaces=replaces,
                 launches=path_launches.get(LAUNCHES_FROM.get(name), run["launches"])[name],
-                max_abs_err=m["max_abs_err"],
+                max_abs_err=m.get("max_abs_err"),
+                **{k: m[k] for k in ("max_rel_err",) if k in m},
                 ms=m["ms"],
                 plain_ms=m["plain_ms"],
                 bound_ms=m["bound_ms"],

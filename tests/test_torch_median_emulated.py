@@ -14,38 +14,19 @@ Tolerance: bitwise, as on the card.
 """
 
 import ctypes
-import os
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
-from boinc_app_eah_brp_tpu_torch.ops import kernels, median
-
-EMU_H = os.path.join(os.path.dirname(__file__), "torch_cuda_emu.h")
+from boinc_app_eah_brp_tpu_torch.ops import median
+from torch_cuda_emu import build
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    """``median.cu`` built for the host: its launches rewritten to
-    ``emu_launch`` and its dynamic shared array to the header's."""
-    gxx = shutil.which("g++")
-    assert gxx, "g++ builds the native median too (ops/native_median.py)"
-    src = open(os.path.join(kernels.CSRC, "median.cu")).read()
-    src = src.replace("#include <cuda_runtime.h>", f'#include "{EMU_H}"')
-    src = re.sub(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), \w+>>>\(", r"emu_launch(\2, \3, \4, \1, ", src)
-    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
-                 r"\1* \2 = reinterpret_cast<\1*>(emu_dynamic_shared.data());", src)
-    assert "<<<" not in src and "extern __shared__" not in src
-    d = tmp_path_factory.mktemp("median_emu")
-    cpp, so = d / "median_emu.cpp", d / "libmedian_emu.so"
-    cpp.write_text(src)
-    subprocess.run([gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-o", str(so), str(cpp)],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
+    """``median.cu`` built for the host (``tests/torch_cuda_emu.py``)."""
+    lib = ctypes.CDLL(build("median", tmp_path_factory.mktemp("median_emu")))
     lib.erp_median.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
     lib.erp_median_scratch_entries.argtypes = [ctypes.c_int] * 3
     return lib

@@ -1,9 +1,11 @@
 // Runs a CUDA source's kernels on the host, for tests on machines without
-// nvcc or a card (tests/test_torch_median_emulated.py): one std::thread a
-// CUDA thread, the blocks of a launch one after another; __syncthreads is a
+// nvcc or a card (tests/torch_cuda_emu.py builds a source against it): one
+// std::thread a CUDA thread, the blocks of a launch one after another, over
+// a grid of one or two dimensions; __syncthreads is a
 // std::barrier of the block, __syncwarp one of the warp, and ballots and
 // shuffles pass their values through an array of the warp.  `__shared__`
-// arrays are statics (the blocks never overlap), the dynamic one a vector.
+// arrays are statics (the blocks never overlap), the dynamic one a vector,
+// filled anew for each block.
 // It checks a kernel's logic, not its speed, its memory model or what nvcc
 // makes of it.
 #include <algorithm>
@@ -16,6 +18,7 @@
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
@@ -24,14 +27,21 @@ using std::max;
 using std::min;
 
 struct emu_dim3 {
-  unsigned x = 0, y = 0, z = 0;
+  unsigned x, y, z;
+  constexpr emu_dim3(unsigned x_ = 0, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
-thread_local emu_dim3 threadIdx;
-static emu_dim3 blockIdx, gridDim;
+using dim3 = emu_dim3;
+thread_local emu_dim3 threadIdx(0, 0, 0);
+static emu_dim3 blockIdx(0, 0, 0), gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaDevAttrMultiProcessorCount = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 2 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaDevAttrMultiProcessorCount = 1,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 2
+};
 constexpr int kEmuSMs = 3;  // the SMs cudaDeviceGetAttribute reports
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
   *v = kEmuSMs;
@@ -96,15 +106,22 @@ inline float __fmul_rn(float a, float b) {
   return r;
 }
 
+// cp.async through <cuda_pipeline.h>: the copy happens at once, so the
+// commits and waits have nothing left to do
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) { std::memcpy(dst, src, n); }
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
+
 // kernel<<<grid, threads, smem, stream>>>(args...), rewritten by the test
 template <class K, class... A>
-void emu_launch(int grid, int threads, int smem, K kernel, A... args) {
-  gridDim.x = grid;
-  emu_dynamic_shared.assign(smem / 8 + 1, 0xdeadbeefdeadbeefull);
+void emu_launch(emu_dim3 grid, int threads, int smem, K kernel, A... args) {
+  gridDim = grid;
   const int warps = (threads + 31) / 32;
   std::vector<unsigned long long> slots(32 * warps);
-  for (int b = 0; b < grid; ++b) {
-    blockIdx.x = b;
+  for (unsigned b = 0; b < grid.x * grid.y; ++b) {
+    blockIdx.x = b % grid.x;
+    blockIdx.y = b / grid.x;
+    emu_dynamic_shared.assign(smem / 8 + 1, 0xdeadbeefdeadbeefull);
     std::barrier<> block(threads);
     emu_block_barrier = &block;
     std::vector<std::unique_ptr<std::barrier<>>> warp;

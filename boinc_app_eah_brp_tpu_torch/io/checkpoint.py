@@ -20,7 +20,8 @@ Generations: each write first rotates the previous checkpoint to
 (default 2) resumable generations.  A live checkpoint that fails its own
 digest is never rotated over a good backup.
 :func:`load_resumable_checkpoint` walks the generations newest first and
-resumes from the first that passes every check.
+resumes from the first that passes every check; :func:`remove_checkpoint`
+removes them all once a pass of a task is finished.
 """
 
 from __future__ import annotations
@@ -104,6 +105,34 @@ def generation_path(path: str, gen: int) -> str:
 
 def generation_paths(path: str) -> list[str]:
     return [generation_path(path, g) for g in range(generations())]
+
+
+def remove_checkpoint(path: str, inputfile: str | None = None) -> bool:
+    """Remove every generation of the checkpoint at ``path`` with its
+    audit sidecar, as the reference's wrapper unlinks a finished pass's
+    checkpoint (``erp_boinc_wrapper.cpp:463-464``); returns whether a file
+    went.  With ``inputfile``, only a checkpoint whose newest readable
+    generation names that input, so another pass's checkpoint stays."""
+    paths = generation_paths(path)
+    if inputfile is not None:
+        named = None
+        for p in paths:
+            try:
+                named = read_checkpoint(p).originalfile
+                break
+            except (CheckpointError, OSError):
+                continue
+        if named != inputfile:
+            return False
+    removed = False
+    for p in paths:
+        for f in (p, audit_path(p)):
+            try:
+                os.remove(f)
+                removed = True
+            except FileNotFoundError:
+                pass
+    return removed
 
 
 def _fsync_dir(path: str) -> None:

@@ -15,6 +15,11 @@ surface for the worker:
   client control. The file protocol is: worker appends
   ``fraction_done <f>\\n`` lines to the status path and polls the control
   path for ``quit``/``abort`` tokens.
+
+A task of several passes (the command line's repeated ``-i``/``-o``
+pairs, ``runtime/driver.py``) reports a pass's fraction ``f`` as
+``(pass_index + f) / n_passes``, as the reference's wrapper scales it
+(``erp_boinc_wrapper.cpp:200-202``), to BOINC and to the screensaver.
 """
 
 from __future__ import annotations
@@ -66,6 +71,9 @@ class BoincAdapter:
         default_factory=_default_progress_min_delta
     )
     shmem: ShmemWriter | None = None
+    # the pass of the task now running, and the task's passes
+    pass_index: int = 0
+    n_passes: int = 1
 
     _last_checkpoint: float = field(default_factory=time.monotonic)
     # ppid at construction: orphan detection must trigger on a CHANGE to
@@ -107,7 +115,14 @@ class BoincAdapter:
 
         return {sig: signal.signal(sig, handler) for sig in (signal.SIGTERM, signal.SIGINT)}
 
+    def task_fraction(self, fraction: float) -> float:
+        """The task's fraction done when the running pass is
+        ``fraction`` done."""
+        return (self.pass_index + fraction) / max(1, self.n_passes)
+
     def fraction_done(self, fraction: float) -> None:
+        """Report the running pass's ``fraction`` as the task's."""
+        fraction = self.task_fraction(fraction)
         self._report_counter += 1
         if self._report_counter % max(1, self.communication_reduction):
             return

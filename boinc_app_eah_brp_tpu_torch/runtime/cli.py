@@ -3,7 +3,9 @@
 port honours, with the same range checks and exit codes, so BOINC
 ``app_info.xml`` command lines work unchanged.  ``--device`` takes a torch
 device (``cuda``, ``cuda:N`` or ``cpu``); ``-D N`` is ``cuda:N``, which
-pins one card and so excludes ``--mesh N`` above 1."""
+pins one card and so excludes ``--mesh N`` above 1.  ``-i`` and ``-o``
+repeat, as the reference wrapper's do: each pair is one pass of the task,
+searched in order in this process (``runtime/driver.py``)."""
 
 from __future__ import annotations
 
@@ -17,8 +19,8 @@ _USAGE = """
 Usage: {prog} [options], options are:
 
  -h, --help\t\t\tboolean\tPrint this message
- -i, --input_file\t\tstring\tThe name of the input file.
- -o, --output_file\t\tstring\tThe name of the candidate output file.
+ -i, --input_file\t\tstring\tThe name of the input file (repeatable: one pass each, paired with -o in order).
+ -o, --output_file\t\tstring\tThe name of the candidate output file (repeatable, one each -i).
  -t, --template_bank\t\tstring\tThe name of the random template bank.
  -c, --checkpoint_file\t\tstring\tThe name of the checkpoint file.
  -l, --zaplist_file\t\tstring\tThe name of the zaplist file.
@@ -54,7 +56,10 @@ _NUMBERS = {
     "--batch": ("batch_size", int, 1, 1 << 16, "batch size"),
     "--mesh": ("mesh_devices", int, 1, 1 << 16, "mesh size"),
 }
-# options that take a path; a missing value is a file error
+# options that take a path; a missing value is a file error.  -i and -o
+# repeat: the k-th -i and the k-th -o are one pass of the task, searched in
+# order in this process (erp_boinc_wrapper.cpp:430-474)
+_PAIRED = ("inputfile", "outputfile")
 _FILES = {
     "-i": "inputfile", "--input_file": "inputfile",
     "-o": "outputfile", "--output_file": "outputfile",
@@ -89,8 +94,11 @@ def _number(flag: str, raw: str, conv, lo, hi, what: str):
 
 
 def parse_args(argv: list[str]) -> DriverArgs | int:
-    """Returns DriverArgs, or an int exit code on error/help."""
+    """Returns DriverArgs, or an int exit code on error/help.  The
+    task's passes are ``DriverArgs.pairs``; ``inputfile`` and
+    ``outputfile`` name the first."""
     kw: dict = {}
+    paired: dict = {k: [] for k in _PAIRED}
     i = 0
     while i < len(argv):
         a = argv[i]
@@ -116,7 +124,10 @@ def parse_args(argv: list[str]) -> DriverArgs | int:
             if _FILES[a] == "inputfile" and ".binary" not in raw and ".bin4" not in raw:
                 erplog.error("Unknown file format (extension) for input file: %s\n", raw)
                 return RADPUL_EFILE
-            kw[_FILES[a]] = raw
+            if _FILES[a] in paired:
+                paired[_FILES[a]].append(raw)
+            else:
+                kw[_FILES[a]] = raw
         elif a == "-D":
             if not raw.isdigit():
                 erplog.error("Invalid CUDA device ID encountered: %s\n", raw)
@@ -131,9 +142,14 @@ def parse_args(argv: list[str]) -> DriverArgs | int:
                 return RADPUL_EVAL
             kw[key] = value
     for req in ("inputfile", "outputfile", "templatebank"):
-        if req not in kw:
+        if req not in kw and not paired.get(req):
             erplog.error("Missing required option for %s.\n", req)
             return RADPUL_EVAL
+    inputs, outputs = paired["inputfile"], paired["outputfile"]
+    if len(inputs) != len(outputs):
+        erplog.error("Need matching -i/-o pairs (got %d inputs, %d outputs).\n", len(inputs), len(outputs))
+        return RADPUL_EVAL
+    kw.update(inputfile=inputs[0], outputfile=outputs[0], pairs=tuple(zip(inputs, outputs)))
     if kw.get("mesh_devices", 1) > 1 and kw.get("device", "cuda").startswith("cuda:"):
         erplog.error("-D/--device and --mesh N>1 are mutually exclusive.\n")
         return RADPUL_EVAL

@@ -1,5 +1,6 @@
-"""The search driver (the reference's ``MAIN()``, ``demod_binary.c:117``):
-the process around one :class:`~.session.Session` — the argument surface,
+"""The search driver (the reference's ``MAIN()``, ``demod_binary.c:117``,
+and its wrapper's loop over a task's passes, ``erp_boinc_wrapper.cpp:430-474``):
+the process around the :class:`~.session.Session` of each pass — the argument surface,
 the observability and resilience layers armed for the run (metrics,
 tracing, the flight recorder, the watchdog, fault injection, the retry
 budget) and closed after it, the BOINC slot's ``init_data.xml``, the
@@ -17,6 +18,7 @@ from __future__ import annotations
 import os
 import sys
 import threading
+import time
 from dataclasses import dataclass, replace
 
 from . import faultinject, flightrec, metrics, resilience, steptime, tracing, watchdog
@@ -64,6 +66,13 @@ class DriverArgs:
     profile_dir: str | None = None
     # metrics JSONL stream + run report (also $ERP_METRICS_FILE; runtime/metrics.py)
     metrics_file: str | None = None
+    # the task's (input, output) pairs, searched in order in this process
+    # (the command line's repeated -i/-o); empty: (inputfile, outputfile)
+    pairs: tuple = ()
+
+    def task(self) -> list[tuple[str, str]]:
+        """The task's passes, each an (input, output) pair."""
+        return [tuple(p) for p in self.pairs] or [(self.inputfile, self.outputfile)]
 
 
 def make_adapter(args: DriverArgs) -> BoincAdapter:
@@ -146,11 +155,9 @@ def _run_search(args: DriverArgs, adapter: BoincAdapter) -> int:
 
         erplog.info("Starting data processing...\n")
         # the fault-injection schedule, loudly (a malformed ERP_FAULT_SPEC is a
-        # usage error: RADPUL_EVAL through the ValueError mapping), and a fresh
-        # retry budget for every resilience site
+        # usage error: RADPUL_EVAL through the ValueError mapping)
         if faultinject.configure():
             erplog.warn("Fault injection armed: ERP_FAULT_SPEC=%s\n", os.environ.get(faultinject.ENV_SPEC, ""))
-        resilience.begin_run()
         # multi-process identity (parallel/distributed.py) before the devices
         from ..parallel import distributed
 
@@ -172,9 +179,81 @@ def _run_search(args: DriverArgs, adapter: BoincAdapter) -> int:
     # batch loop checkpoints and exits (erp_boinc_wrapper.cpp:143-152)
     previous = adapter.install_signal_handlers() if threading.current_thread() is threading.main_thread() else {}
     try:
-        return Session(args, adapter, init_data=init_data).run(n_mesh=n_mesh, dist=dist)
+        return _run_passes(args, adapter, init_data, n_mesh, dist)
     finally:
         restore_signal_handlers(previous)
+
+
+def _phase_walls() -> dict:
+    return {k: v["wall_s"] for k, v in metrics.snapshot().get("phases", {}).items()}
+
+
+def _run_passes(args: DriverArgs, adapter: BoincAdapter, init_data, n_mesh: int, dist) -> int:
+    """Each pass of the task in order (the module's docstring); returns
+    0, or raises the failing pass's error."""
+    from ..io.checkpoint import remove_checkpoint
+    from .scheduler import ClassBatches
+    from .session import Session
+
+    pairs = args.task()
+    adapter.n_passes = len(pairs)
+    batch_for = ClassBatches(init_data.gpu_usage if init_data is not None else None)
+    n_run, n_skipped, n_resumed = (metrics.counter(f"task.{c}") for c in ("passes", "passes_skipped", "passes_resumed"))
+    bank = None
+    for k, (inputfile, outputfile) in enumerate(pairs):
+        adapter.pass_index = k
+        flightrec.update_context(inputfile=inputfile, outputfile=outputfile, task_pass=k, task_passes=len(pairs))
+        record = {"index": k, "inputfile": inputfile, "outputfile": outputfile}
+        if os.path.exists(outputfile):
+            # coarse resume: a written result is a finished pass
+            # (erp_boinc_wrapper.cpp:450-453); a checkpoint of its input is stale
+            erplog.info("Pass %d: output %s exists, skipping (resume).\n", k, outputfile)
+            if args.checkpointfile:
+                remove_checkpoint(args.checkpointfile, inputfile=inputfile)
+            n_skipped.inc()
+            metrics.note_pass({**record, "skipped": True})
+            adapter.fraction_done(1.0)
+            continue
+        erplog.debug("Pass %d of %d: %s -> %s\n", k, len(pairs), inputfile, outputfile)
+        # a fresh retry budget for every resilience site, each pass
+        resilience.begin_run()
+        session = Session(
+            replace(args, inputfile=inputfile, outputfile=outputfile), adapter,
+            init_data=init_data, batch_for=batch_for, bank=bank,
+        )
+        phases0, t0 = _phase_walls(), time.perf_counter()
+        n_run.inc()
+        code: int | None = None
+        try:
+            with tracing.for_workunit(session.wu_id), tracing.span("pass", index=k):
+                code = session.run(n_mesh=n_mesh, dist=dist)
+        except Exception as e:
+            code = exit_code_for(e)
+            raise
+        finally:
+            if session.resumed:
+                n_resumed.inc()
+            finished = code == 0 and os.path.exists(outputfile)
+            phases = {n: w - phases0.get(n, 0.0) for n, w in _phase_walls().items() if w > phases0.get(n, 0.0)}
+            metrics.note_pass({
+                **record, "exit": "exception" if code is None else code, "finished": finished,
+                "resumed": session.resumed, "wall_s": round(time.perf_counter() - t0, 3), "phases": phases,
+            })
+            # the pass's tensors go before the next pass's are made
+            bank = session.bank
+            session.release()
+            del session
+        if not finished:
+            # a quit (or, in an elastic run, the result is another
+            # process's to write): the checkpoint stays for the resume
+            return code
+        if k + 1 < len(pairs):
+            if args.checkpointfile:
+                remove_checkpoint(args.checkpointfile)
+            if adapter.quit_requested():
+                erplog.info("Stopped after pass %d on quit request.\n", k)
+                return 0
+    return 0
 
 
 def run_search(args: DriverArgs, adapter: BoincAdapter | None = None) -> int:

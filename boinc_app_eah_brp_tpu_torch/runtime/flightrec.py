@@ -205,6 +205,12 @@ class Recorder:
                 _enable_faulthandler(self._dump_dir)
         return True
 
+    def update_context(self, **fields) -> None:
+        """Set ``fields`` in the context every later dump carries (the
+        driver names the pass of a task it is running)."""
+        with self._state_lock:
+            self._context.update(fields)
+
     def disarm(self) -> None:
         """Stop recording (any installed hooks stay but gate on the
         armed flag, so a disarmed recorder behaves like one never
@@ -548,6 +554,10 @@ def dispatch_snapshot() -> dict:
 
 def arm(dump_dir: str | None = None, context: dict | None = None) -> bool:
     return _DEFAULT.arm(dump_dir=dump_dir, context=context)
+
+
+def update_context(**fields) -> None:
+    _DEFAULT.update_context(**fields)
 
 
 def disarm() -> None:

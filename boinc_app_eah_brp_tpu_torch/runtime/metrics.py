@@ -302,6 +302,7 @@ class MetricsContext:
         self._trace_dirs: list[str] = []
         self._host_trace_file: str | None = None
         self._corr_id: str | None = None
+        self._passes: list[dict] = []
         with _contexts_lock:
             _all_contexts.add(self)
 
@@ -343,6 +344,14 @@ class MetricsContext:
         if self._enabled:
             with self._lock:
                 self._host_trace_file = str(path)
+
+    def note_pass(self, record: dict) -> None:
+        """One pass of the run's task (``runtime/driver.py``: its index,
+        files, phases and exit), listed in order under the run report's
+        ``passes``."""
+        if self._enabled:
+            with self._lock:
+                self._passes.append(dict(record))
 
     def cufft_plans(self) -> int:
         """cuFFT plans created in this window (0 when disabled or none)."""
@@ -416,6 +425,7 @@ class MetricsContext:
             self._registry = Registry()
             self._trace_dirs = []
             self._host_trace_file = None
+            self._passes = []
             self._stream_broken = False
             self._stream_path = path
             self._report_path = (
@@ -500,6 +510,9 @@ class MetricsContext:
             },
             "devices": _device_peaks(),
         }
+        with self._lock:
+            if self._passes:
+                report["passes"] = [dict(p) for p in self._passes]
         ctx = dict(context) if context else {}
         if self._corr_id and "corr_id" not in ctx:
             ctx["corr_id"] = self._corr_id
@@ -611,6 +624,10 @@ def note_trace(logdir: str) -> None:
 
 def note_host_trace(path: str) -> None:
     _DEFAULT.note_host_trace(path)
+
+
+def note_pass(record: dict) -> None:
+    _DEFAULT.note_pass(record)
 
 
 def snapshot() -> dict:
@@ -838,6 +855,11 @@ def validate_report(report) -> list[str]:
             or not isinstance(p.get("count"), int)
         ):
             errs.append(f"phase {name}: needs numeric wall_s and int count")
+    passes = report.get("passes", [])
+    if not isinstance(passes, list) or not all(
+        isinstance(p, dict) and isinstance(p.get("index"), int) for p in passes
+    ):
+        errs.append("passes must be a list of objects with an int index")
     tracing = report.get("tracing")
     if not isinstance(tracing, dict) or not isinstance(
         tracing.get("active"), bool

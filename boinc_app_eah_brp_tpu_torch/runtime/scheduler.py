@@ -97,6 +97,34 @@ class StepCache:
             return list(self._keys)
 
 
+class ClassBatches:
+    """One batch per (geometry, device) class: the first one set (by a
+    :class:`WarmSpec`, or chosen by ``runtime/autobatch.py`` for the
+    class's first session) holds for every later session.  ``share`` is
+    the task's share of the card (``init_data.xml``'s ``gpu_usage``;
+    None: the whole card) that first choice is sized for.  A Session's
+    ``batch_for``: the scheduler's, and the driver's over a task's
+    passes."""
+
+    def __init__(self, share: float | None = None):
+        self.share = share
+        self._batches: dict = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, geom, device, batch: int | None = None) -> int:
+        key = (geom, str(device))
+        with self._lock:
+            if key not in self._batches:
+                if batch is None:
+                    from .autobatch import choose_batch
+
+                    batch = choose_batch(geom.nsamples, log=erplog.info, device=device, share=self.share)
+                self._batches[key] = int(batch)
+            elif batch is None:
+                erplog.info("Batch size %d (held for this geometry class).\n", self._batches[key])
+            return self._batches[key]
+
+
 @dataclass
 class SessionResult:
     """Outcome of one Session through the resident scheduler: the
@@ -172,8 +200,7 @@ class Scheduler:
         self._seq_lock = threading.Lock()
         # one batch per (geometry, device) class, from a WarmSpec or the
         # class's first session
-        self._class_batches: dict = {}
-        self._batch_lock = threading.Lock()
+        self._class_batch = ClassBatches()
         self._last_exec_end: float | None = None
         self.inter_wu_gaps_s: list[float] = []
         self.warmed = False
@@ -252,25 +279,6 @@ class Scheduler:
             self.slo.warmed = True
         metrics.gauge("fleet.warm_steps").set(len(self.step_cache))
         return {"aot_hit": hits, "aot_miss": misses, "steps": built}
-
-    def _class_batch(self, geom, device, batch: int | None = None) -> int:
-        """The batch of ``geom``'s class on ``device``: the first one set
-        (by a WarmSpec, or chosen by ``runtime/autobatch.py`` for the
-        class's first session) holds for every later session."""
-        key = (geom, str(device))
-        with self._batch_lock:
-            if key not in self._class_batches:
-                if batch is None:
-                    from .autobatch import choose_batch
-
-                    batch = choose_batch(geom.nsamples, log=erplog.info, device=device)
-                self._class_batches[key] = int(batch)
-            elif batch is None:
-                erplog.info(
-                    "Batch size %d (held for this geometry class).\n",
-                    self._class_batches[key],
-                )
-            return self._class_batches[key]
 
     # -- session lifecycle ------------------------------------------------
 

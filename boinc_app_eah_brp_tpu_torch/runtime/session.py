@@ -184,8 +184,10 @@ class Session:
     leaves it None and uses the process-global layers), ``corr_id`` the
     workunit's correlation id (default ``$ERP_CORR_ID``).  ``batch_for(geom,
     device)``, when given, chooses the batch of a run without ``--batch``
-    in place of ``runtime/autobatch.py`` (a resident scheduler holds one
-    batch per geometry class)."""
+    in place of ``runtime/autobatch.py`` (a resident scheduler, or the
+    driver over a task's passes, holds one batch per geometry class).
+    ``bank``, when given, is ``args.templatebank`` already parsed and
+    folded (a task's later passes take the first pass's ``bank``)."""
 
     def __init__(
         self,
@@ -197,6 +199,7 @@ class Session:
         corr_id: str | None = None,
         init_data=None,
         batch_for=None,
+        bank: TemplateBank | None = None,
     ):
         self.args = args
         self.env = env or SessionEnv.capture()
@@ -213,6 +216,9 @@ class Session:
         )
         self.init_data = init_data
         self.batch_for = batch_for
+        self.bank = bank
+        # whether prepare() resumed a checkpoint
+        self.resumed = False
         self.prepared = False
 
     def _obs_record(self, event: str, **fields) -> None:
@@ -255,8 +261,10 @@ class Session:
         self.dev = resolve_device(args.device)
 
         # template bank: the full parse is its validation (demod_binary.c:507-544)
-        with tracing.span("input-read", what="bank"):
-            bank = read_template_bank(args.templatebank)
+        bank = self.bank
+        if bank is None:
+            with tracing.span("input-read", what="bank"):
+                bank = read_template_bank(args.templatebank)
         template_total = len(bank)
         erplog.debug("Total amount of templates: %d\n", template_total)
         psi0_n = normalize_psi0(bank.psi0)
@@ -277,6 +285,7 @@ class Session:
                 )
         seed_cands = None
         self.start_template = 0
+        self.resumed = resumed is not None
         if resumed is not None:
             cp, used_path, generation = resumed
             flightrec.record("resume", n_template=cp.n_template, path=used_path, generation=generation)
@@ -547,7 +556,7 @@ class Session:
                 if snap is not None:
                     snap.maybe_commit(M_now, T_now, done)
                 search_info["power_spectrum"] = binned_spectrum(row_to_natural(row, 2, geom.fund_hi), geom.fund_hi)
-                search_info["fraction_done"] = done / total
+                search_info["fraction_done"] = adapter.task_fraction(done / total)
                 # the current template's orbit (demod_binary.c:1213-1215)
                 t_cur = min(done, template_total) - 1
                 if t_cur >= 0:

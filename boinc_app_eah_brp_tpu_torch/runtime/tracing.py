@@ -17,7 +17,11 @@ copy), the rescorer's feed thread, checkpoint + retry-backoff paths, and
 the driver's coarse phases (``setup``, ``finalize``, ``result-write``) —
 so ``tools/trace_report.py`` can attribute the run wall to named stalls.
 The process's start is spanned too (``import``, ``cuda-init``,
-``kernel-load``, ``cufft-plan``, ``input-read``), the served queue
+``kernel-load``, ``cufft-plan``, ``input-read``; in a task of several
+passes the first three open in its first pass alone, and each pass is a
+``pass`` span tagged with its ``index``, counted in the run report's
+``task.passes``, ``task.passes_skipped`` and ``task.passes_resumed``,
+``runtime/driver.py``), the served queue
 (``exec-wait``) and each oracle pass of the rescoring
 (``rescore.resample`` where the host resamples, ``rescore.fft`` the
 spectrum at the bins read, on the host or the card, ``rescore.harmonics``;

@@ -306,7 +306,10 @@ def test_cli_metrics_file_matches_jax_driver(tmp_path, monkeypatch):
     # on its device; the JAX package has no such counters
     own = {"rescore.templates", "rescore.device_resamples", "rescore.device_ffts"}
     assert len({counters["p"][name]["value"] for name in own}) == 1 and counters["p"]["rescore.templates"]["value"] > 0
-    assert names["p"] - own == names["j"]
+    # and the passes of its task (runtime/driver.py): one pair, one pass
+    task = {"task.passes": 1, "task.passes_skipped": 0, "task.passes_resumed": 0}
+    assert {name: counters["p"][name]["value"] for name in task} == task
+    assert names["p"] - own - set(task) == names["j"]
     for name in ("search.batches", "search.templates", "checkpoint.count"):
         assert counters["p"][name]["value"] == counters["j"][name]["value"], name
     assert reports["p"]["metrics"]["phases"].keys() == reports["j"]["metrics"]["phases"].keys()

@@ -17,7 +17,10 @@
 //     Z[k1 + N1 k2].  Rows k1 and N1 - k1 share a block (rows 0 and N1/2 pair
 //     with themselves), so Z[k] and Z[M - k] meet there for the untangle
 //       X[k] = (Z[k] + conj Z[M-k]) / 2 - i W_N^k (Z[k] - conj Z[M-k]) / 2,
-//     written to F[T, M + 1] in the layout torch.fft.rfft gives.
+//     written to F[T, M + 1] in the layout torch.fft.rfft gives, or (the
+//     search's form) turned into the fold's power |X[k]|^2 / N, DC 0, and
+//     written to p[T, read] for the bins k < read that the fold reads, so
+//     the complex spectrum is never stored.
 //
 // What bounds it on the card: bytes.  Each pass reads and writes the
 // spectrum's size once, twice the least one transform could move (PERF.md,
@@ -277,14 +280,42 @@ __global__ void __launch_bounds__(kThreads1)
   }
 }
 
+// Where pass 2 puts X[k], 0 <= k <= M, of template t: the complex spectrum
+// F[T, M + 1], whose rows start at any phase of a sector ...
+struct SpectrumOut {
+  c32* f;
+  __device__ SpectrumOut row(int t, int M) const { return {f + t * (static_cast<size_t>(M) + 1)}; }
+  // how many bins into a 32-byte sector the row starts
+  __device__ int phase() const { return static_cast<int>(reinterpret_cast<uintptr_t>(f) / sizeof(c32) % kTile); }
+  __device__ void put(int k, c32 v) const { f[k] = v; }
+};
+
+// ... or the fold's power p[T, read], p[k] = |X[k]|^2 * scale with every
+// multiply and add rounded on its own and p[0] = 0 (csrc/fold.cu's power,
+// so each bin is bitwise what the fold forms from F), bins k >= read left
+// out.  The fold reads read = min(M + 1, 16W + 16) bins, 16W + 16 at the
+// production width: a multiple of 16, so each row starts on a sector of an
+// aligned tensor (phase 0; any phase gives the same bins, only slower).
+struct PowerOut {
+  float* p;
+  int read;
+  float scale;
+  __device__ PowerOut row(int t, int) const { return {p + t * static_cast<size_t>(read), read, scale}; }
+  __device__ int phase() const { return 0; }
+  __device__ void put(int k, c32 v) const {
+    if (k < read) p[k] = k == 0 ? 0.0f : __fmul_rn(__fadd_rn(__fmul_rn(v.re, v.re), __fmul_rn(v.im, v.im)), scale);
+  }
+};
+
 // X[k] and X[M - k] from zk = Z[k], zm = Z[M - k] and w = W_N^k:
 // X[k] = A/2 - i P/2 and X[M - k] = conj(A)/2 - i conj(P)/2, with
 // A = zk + conj zm, P = w (zk - conj zm).
-__device__ __forceinline__ void untangle(c32 zk, c32 zm, c32 w, c32* out, int k, int m, bool both) {
+template <class Out>
+__device__ __forceinline__ void untangle(c32 zk, c32 zm, c32 w, const Out& out, int k, int m, bool both) {
   const c32 a = {zk.re + zm.re, zk.im - zm.im};
   const c32 p = mul(w, c32{zk.re - zm.re, zk.im + zm.im});
-  out[k] = {0.5f * a.re + 0.5f * p.im, 0.5f * a.im - 0.5f * p.re};
-  if (both) out[m - k] = {0.5f * a.re - 0.5f * p.im, -(0.5f * a.im) - 0.5f * p.re};
+  out.put(k, {0.5f * a.re + 0.5f * p.im, 0.5f * a.im - 0.5f * p.re});
+  if (both) out.put(m - k, {0.5f * a.re - 0.5f * p.im, -(0.5f * a.im) - 0.5f * p.re});
 }
 
 // Pass 2: block (x, t) takes G = 4 rows k1 of template t and their mirrors
@@ -294,15 +325,17 @@ __device__ __forceinline__ void untangle(c32 zk, c32 zm, c32 w, c32* out, int k,
 // with row N1/2 in place of row 0's mirror.  The mirrors' outputs, at M - k,
 // fall a bin off the sectors whatever the rows.  (A sector written in parts,
 // even by one block microseconds apart, costs far more than a whole one.)
-template <int N2>
+// Into the fold's power (PowerOut) four rows fill half a sector, and blocks
+// x and x + 1 the two halves.
+template <int N2, class Out>
 __global__ void __launch_bounds__(kThreads2)
-    r2c_fft_rows_kernel(const c32* __restrict__ y, c32* __restrict__ f, const c32* __restrict__ tw,
+    r2c_fft_rows_kernel(const c32* __restrict__ y, Out f, const c32* __restrict__ tw,
                         const c64* __restrict__ th, const c64* __restrict__ tl, int n1_len) {
   extern __shared__ c32 sm[];
   constexpr int G = kTile;
   const int M = n1_len * N2;
-  c32* out = f + blockIdx.y * (static_cast<size_t>(M) + 1);
-  const int phi = static_cast<int>(reinterpret_cast<uintptr_t>(out) / sizeof(c32) % G);
+  const Out out = f.row(blockIdx.y, M);
+  const int phi = out.phase();
   const int first = blockIdx.x == 0 ? 0 : G * blockIdx.x - phi;
   // rows first + i for i < n_rows, all below N1/2
   const int n_rows = blockIdx.x == 0 ? G - phi : min(G, n1_len / 2 - first);
@@ -361,11 +394,11 @@ __global__ void __launch_bounds__(kThreads2)
   }
 }
 
-template <int N1, int N2>
-cudaError_t launch(cudaStream_t stream, c32* z, c32* f, const c32* tw1, const c32* tw2, const c64* th,
+template <int N1, int N2, class Out>
+cudaError_t launch(cudaStream_t stream, c32* z, Out f, const c32* tw1, const c32* tw2, const c64* th,
                    const c64* tl, int T) {
   auto cols = r2c_fft_cols_kernel<N1>;
-  auto rows = r2c_fft_rows_kernel<N2>;
+  auto rows = r2c_fft_rows_kernel<N2, Out>;
   const int smem1 = kTile * N1 * static_cast<int>(sizeof(c32));
   const int smem2 = 2 * kTile * N2 * static_cast<int>(sizeof(c32));
   cudaError_t e = cudaFuncSetAttribute(cols, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
@@ -378,8 +411,8 @@ cudaError_t launch(cudaStream_t stream, c32* z, c32* f, const c32* tw1, const c3
   return cudaGetLastError();
 }
 
-template <int N2>
-cudaError_t launch_n1(int n1, cudaStream_t s, c32* z, c32* f, const c32* tw1, const c32* tw2,
+template <int N2, class Out>
+cudaError_t launch_n1(int n1, cudaStream_t s, c32* z, Out f, const c32* tw1, const c32* tw2,
                       const c64* th, const c64* tl, int T) {
   switch (n1) {
     case 16: return launch<16, N2>(s, z, f, tw1, tw2, th, tl, T);
@@ -394,6 +427,22 @@ cudaError_t launch_n1(int n1, cudaStream_t s, c32* z, c32* f, const c32* tw1, co
   }
 }
 
+template <class Out>
+int launch_split(int device, void* stream, float* x, Out f, const float* tw1, const float* tw2,
+                 const double* th, const double* tl, int T, int n1, int n2) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* z = reinterpret_cast<c32*>(x);
+  const auto* w1 = reinterpret_cast<const c32*>(tw1);
+  const auto* w2 = reinterpret_cast<const c32*>(tw2);
+  const auto* h = reinterpret_cast<const c64*>(th);
+  const auto* l = reinterpret_cast<const c64*>(tl);
+  if (n2 == 2048) return static_cast<int>(launch_n1<2048>(n1, s, z, f, w1, w2, h, l, T));
+  if (n2 == 3072) return static_cast<int>(launch_n1<3072>(n1, s, z, f, w1, w2, h, l, T));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // x: float32[T, 2 n1 n2], overwritten (it holds pass 1's Y afterwards); f:
@@ -404,16 +453,16 @@ cudaError_t launch_n1(int n1, cudaStream_t s, c32* z, c32* f, const c32* tw1, co
 // cudaErrorInvalidValue and launches nothing.
 extern "C" int erp_fft_r2c(int device, void* stream, float* x, float* f, const float* tw1, const float* tw2,
                            const double* th, const double* tl, int T, int n1, int n2) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const auto s = static_cast<cudaStream_t>(stream);
-  auto* z = reinterpret_cast<c32*>(x);
-  auto* ff = reinterpret_cast<c32*>(f);
-  const auto* w1 = reinterpret_cast<const c32*>(tw1);
-  const auto* w2 = reinterpret_cast<const c32*>(tw2);
-  const auto* h = reinterpret_cast<const c64*>(th);
-  const auto* l = reinterpret_cast<const c64*>(tl);
-  if (n2 == 2048) return static_cast<int>(launch_n1<2048>(n1, s, z, ff, w1, w2, h, l, T));
-  if (n2 == 3072) return static_cast<int>(launch_n1<3072>(n1, s, z, ff, w1, w2, h, l, T));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_split(device, stream, x, SpectrumOut{reinterpret_cast<c32*>(f)}, tw1, tw2, th, tl, T, n1, n2);
+}
+
+// erp_fft_r2c with the fold's power in place of F: p float32[T, read],
+// p[t][k] = |X_t[k]|^2 * scale for 0 < k < read, p[t][0] = 0; read in
+// [1, n1 n2 + 1], else cudaErrorInvalidValue and nothing launched.
+extern "C" int erp_fft_r2c_power(int device, void* stream, float* x, float* p, const float* tw1,
+                                 const float* tw2, const double* th, const double* tl, int T, int n1,
+                                 int n2, int read, float scale) {
+  if (read < 1 || static_cast<long long>(read) > static_cast<long long>(n1) * n2 + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_split(device, stream, x, PowerOut{p, read, scale}, tw1, tw2, th, tl, T, n1, n2);
 }

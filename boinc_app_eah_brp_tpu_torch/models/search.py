@@ -2,8 +2,9 @@
 
 The reference processes one template at a time (``demod_binary.c:1180-1443``)
 and keeps per-template toplists with dynamic thresholds.  Here a batch of
-templates runs through the resample -> FFT-prep -> rfft -> power + fold
-chain in one pass (the fold forms the power from the complex spectrum),
+templates runs through the resample -> FFT-prep -> rfft + power -> fold
+chain in one pass (on a card the transform's last pass forms the power,
+elsewhere the fold forms it from the complex spectrum: :func:`fold_input`),
 and the device carries ``M[k][j]`` (the largest summed power of
 fundamental bin j at harmonic level k over all templates so far)
 and ``T[k][j]`` (the first template index reaching it), in the phase-major
@@ -37,10 +38,12 @@ from torch import nn
 from ..device import resolve_device
 from ..oracle.pipeline import DerivedParams
 from ..oracle.sincos import libm_sinf_array
-from ..ops.harmonic import from_natural_order, state_width, sumspec_spectrum, to_natural_order
+from ..ops.harmonic import (
+    fold_read, from_natural_order, state_width, sumspec_batch, sumspec_spectrum, to_natural_order,
+)
 from ..ops.kernels import planned_fft
 from ..ops.resample import exact_mean_params, fftprep_series
-from ..ops.spectrum import search_rfft
+from ..ops.spectrum import r2c_split, search_power, search_rfft
 from ..runtime.devicecost import scoped, stage_scope
 
 # below any real summed power: padded batch slots are masked to this before
@@ -334,10 +337,32 @@ def erp_precision() -> str:
     raise ValueError(f"ERP_PRECISION must be 'f32' or 'bf16', got {v!r}")
 
 
+def fold_input(x: torch.Tensor, geom: SearchGeometry) -> torch.Tensor:
+    """The batch's spectra as kernel C takes them, from the FFT-prep output
+    ``x[T, nsamples]`` (which it may overwrite): on a card at a length with
+    a split (``ops/spectrum.py::r2c_split``) the fold's float power,
+    straight from the R2C kernel's last pass (:func:`search_power`: the
+    complex spectrum is never stored); at any other length (cuFFT) and on
+    the CPU the complex spectrum (:func:`search_rfft`)."""
+    if x.device.type == "cuda" and r2c_split(geom.nsamples) is not None:
+        return search_power(x, read=fold_read(geom.nsamples // 2 + 1, state_width(geom.fund_hi)))
+    return search_rfft(x)
+
+
+def fold_batch(S: torch.Tensor, geom: SearchGeometry) -> torch.Tensor:
+    """Kernel C on what :func:`fold_input` gave: its float-power entry
+    (``sumspec_batch``) on power, its complex entry (``sumspec_spectrum``,
+    the power formed in the fold) on a spectrum; float32[T, 5, W]."""
+    if S.is_complex():
+        return sumspec_spectrum(S, nsamples=geom.nsamples, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
+    return sumspec_batch(S, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
+
+
 class BankStep(nn.Module):
     """One batch of the search: slice the resident bank at ``t_offset``,
-    resample (kernel A), FFT-prep (kernel B), rfft, power + fold (kernel C
-    on the complex spectrum), and merge the batch into the (M, T) state in
+    resample (kernel A), FFT-prep (kernel B), rfft and fold (kernel C; the
+    power formed in the rfft's last pass or in the fold, :func:`fold_input`),
+    and merge the batch into the (M, T) state in
     place.  Each stage runs under its ``runtime/devicecost.py`` scope.
 
     ``bank`` is the float32[capacity, 4] resident bank (:func:`upload_bank`
@@ -380,11 +405,11 @@ class BankStep(nn.Module):
             exact_sin=not g.use_lut,
         )
         with stage_scope("fft"):
-            F = search_rfft(x)
+            S = fold_input(x, g)
         del x
         with stage_scope("sumspec"):
-            sums = sumspec_spectrum(F, nsamples=g.nsamples, fund_hi=g.fund_hi, harm_hi=g.harm_hi)
-        del F  # sums: (B, 5, W)
+            sums = fold_batch(S, g)
+        del S  # sums: (B, 5, W)
         valid = self.merge(sums, t_offset, n_total)
         if not self.with_health:
             return self.M, self.T
@@ -413,7 +438,8 @@ def template_sumspec(ts: torch.Tensor, P: float, tau: float, psi0: float, geom: 
     series ``ts``, through the batch step's operations at T = 1: kernel A's
     single-template launch (counted ``resample_t1``, or
     ``resample_t1_exact`` where ``not geom.use_lut``), the exact mean where
-    ``geom.exact_mean``, kernel B, a batch-1 rfft and kernel C.  The
+    ``geom.exact_mean``, kernel B, a batch-1 rfft and kernel C, routed as
+    the step routes (:func:`fold_input`).  The
     counterpart of the reference package's ``template_sumspec_fn``: the
     sentinel probe's device search (``runtime/health.py``)."""
     p = torch.from_numpy(np.stack(bank_params_host([P], [tau], [psi0], geom.dt), axis=1)).to(ts.device)
@@ -423,9 +449,9 @@ def template_sumspec(ts: torch.Tensor, P: float, tau: float, psi0: float, geom: 
         exact_sin=not geom.use_lut,
     )
     with stage_scope("fft"):
-        F = search_rfft(x)
+        S = fold_input(x, geom)
     with stage_scope("sumspec"):
-        return sumspec_spectrum(F, nsamples=geom.nsamples, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)[0]
+        return fold_batch(S, geom)[0]
 
 
 def step_cache_key(geom: SearchGeometry, batch_size: int, device) -> tuple:

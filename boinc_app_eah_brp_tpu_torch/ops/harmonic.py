@@ -137,7 +137,7 @@ def sumspec_batch_plain(ps: torch.Tensor, *, fund_hi: int, harm_hi: int) -> torc
     return out
 
 
-def _fold_read(L: int, W: int) -> int:
+def fold_read(L: int, W: int) -> int:
     """Spectrum prefix that the fold of W columns reads: 16W + 16 bins,
     or the whole spectrum when it is shorter."""
     return min(L, 16 * W + 16)
@@ -172,7 +172,7 @@ def sumspec_batch(ps: torch.Tensor, *, fund_hi: int, harm_hi: int) -> torch.Tens
     out = torch.empty((T, 5, W), dtype=torch.float32, device=dev)
     rc = lib.erp_fold(
         dev.index, kernels.stream_handle(dev), ps.data_ptr(), out.data_ptr(),
-        T, L, _fold_read(L, W), fund_hi, harm_hi, W,
+        T, L, fold_read(L, W), fund_hi, harm_hi, W,
     )
     kernels.check(rc, "fold kernel launch")
     kernels.launch_counts["fold"] += 1
@@ -203,7 +203,7 @@ def sumspec_spectrum(
     _fold_launch_checks(F, torch.complex64, "F")
     T, L = F.shape
     W = state_width(fund_hi)
-    read = _fold_read(L, W)
+    read = fold_read(L, W)
     lib = _fold_library()
     dev = F.device
     # two power slots: the kernel converts template t+1 while it folds t

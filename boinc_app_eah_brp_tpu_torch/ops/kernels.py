@@ -32,7 +32,9 @@ kernel A's device functions), each also in its exact-sine instantiation
 ``serial_mean_exact``), ``fold.cu`` the fold of float power and of
 the complex spectrum; ``median.cu`` the whitening's device running median
 in its two instantiations (entry ``median``); ``rfft.cu`` the search's
-real-to-complex transform, both its passes (entry ``fft_r2c``).  The
+real-to-complex transform, both its passes (entry ``fft_r2c``; with the
+second pass writing the fold's power in place of the complex spectrum,
+``fft_r2c_power``).  The
 end-of-run rescoring's launches of kernel A and the exact mean count apart
 from the search's (``rescore_resample``, ``rescore_serial_mean``).
 
@@ -70,8 +72,9 @@ KERNELS = (
     "median",
     # kernel A and the exact mean (LUT sine) run by the end-of-run rescoring
     "rescore_resample", "rescore_serial_mean",
-    # the search's R2C (both passes of csrc/rfft.cu, one a batch transformed)
-    "fft_r2c",
+    # the search's R2C (both passes of csrc/rfft.cu, one a batch transformed),
+    # with the complex spectrum out and with the fold's power out
+    "fft_r2c", "fft_r2c_power",
 )
 MAX_GRID_T = 65535  # templates per FFT-prep launch: the batch is a grid dimension
 NVCC_FLAGS = (
@@ -107,6 +110,7 @@ _SIGNATURES = {
     },
     "rfft": {
         "erp_fft_r2c": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I],
+        "erp_fft_r2c_power": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F],
     },
 }
 

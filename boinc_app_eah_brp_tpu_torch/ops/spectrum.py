@@ -3,16 +3,19 @@
 reference package's ``ops/spectrum.py``, and the search's real-to-complex
 transform.
 
-:func:`search_rfft` is the batch step's transform: on a card, for a
+:func:`search_rfft` is the batch step's complex transform: on a card, for a
 float32 series whose half length ``M = nsamples / 2`` has a split
 (:func:`r2c_split`), the kernel pair of ``csrc/rfft.cu`` (:func:`rfft_r2c`:
 the packed half-length FFT of the upstream OpenCL backend, four-step in two
 passes, and its untangle; its first pass works in place, so the series is
 overwritten; launch count ``fft_r2c``, run-report counter
 ``fft.r2c_kernel_batches``); any other shape, and every CPU tensor, takes
-``torch.fft.rfft`` (cuFFT on the card).  :func:`rfft_fourstep_plain` is the
-kernel's plain version: the same split, twiddles and untangle in PyTorch
-ops.  The whitening's transforms and the rescoring's float64 one stay on
+``torch.fft.rfft`` (cuFFT on the card).  :func:`search_power` is the same
+kernel pair with the power epilogue in its second pass, which the step
+takes in its place on a card at a split length, handing kernel C its float
+power (``models/search.py::fold_input``).  :func:`rfft_fourstep_plain` is the kernel's
+plain version: the same split, twiddles and untangle in PyTorch ops.  The
+whitening's transforms and the rescoring's float64 one stay on
 ``torch.fft``.
 """
 
@@ -109,6 +112,31 @@ def rfft_fourstep_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.complex(0.5 * a.real + 0.5 * p.imag, 0.5 * a.imag - 0.5 * p.real)
 
 
+def _r2c_operands(x: torch.Tensor) -> tuple[int, int, int, dict[str, torch.Tensor]]:
+    """``(T, n1, n2, tables)`` of a launch of ``csrc/rfft.cu`` on the CUDA
+    tensor ``x``; raises where :func:`rfft_r2c` says."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32[T, nsamples] tensor")
+    T, N = x.shape
+    if not 0 < T <= kernels.MAX_GRID_T:
+        raise ValueError(f"template batch of {T} outside [1, {kernels.MAX_GRID_T}]")
+    split = r2c_split(N)
+    if split is None:
+        raise ValueError(f"no four-step split of a {N}-point transform")
+    n1, n2 = split
+    return T, n1, n2, _device_tables(x.device, n1, n2)
+
+
+def _count_launch(name: str, *counters: str) -> None:
+    kernels.launch_counts[name] += 1
+    from ..runtime import metrics
+
+    for c in ("fft.r2c_kernel_batches",) + counters:
+        metrics.counter(c).inc()
+
+
 def rfft_r2c(x: torch.Tensor) -> torch.Tensor:
     """The kernel pair of ``csrc/rfft.cu``: complex64[T, M + 1], the R2C
     transforms of the float32 series ``x[T, 2M]``, bin for bin the layout
@@ -121,40 +149,55 @@ def rfft_r2c(x: torch.Tensor) -> torch.Tensor:
     split (:func:`r2c_split`)."""
     if x.device.type == "cpu":
         return rfft_fourstep_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous float32[T, nsamples] tensor")
-    T, N = x.shape
-    if not 0 < T <= kernels.MAX_GRID_T:
-        raise ValueError(f"template batch of {T} outside [1, {kernels.MAX_GRID_T}]")
-    split = r2c_split(N)
-    if split is None:
-        raise ValueError(f"no four-step split of a {N}-point transform")
-    n1, n2 = split
+    T, n1, n2, tab = _r2c_operands(x)
     dev = x.device
-    tab = _device_tables(dev, n1, n2)
-    lib = kernels.library("rfft")
     out = torch.empty((T, n1 * n2 + 1), dtype=torch.complex64, device=dev)
-    rc = lib.erp_fft_r2c(
+    rc = kernels.library("rfft").erp_fft_r2c(
         dev.index, kernels.stream_handle(dev), x.data_ptr(), out.data_ptr(),
         tab["tw1"].data_ptr(), tab["tw2"].data_ptr(), tab["th"].data_ptr(), tab["tl"].data_ptr(),
         T, n1, n2,
     )
     kernels.check(rc, "rfft kernel launch")
-    kernels.launch_counts["fft_r2c"] += 1
-    from ..runtime import metrics
+    _count_launch("fft_r2c")
+    return out
 
-    metrics.counter("fft.r2c_kernel_batches").inc()
+
+def search_power(x: torch.Tensor, *, read: int) -> torch.Tensor:
+    """float32[T, read]: the fold's power spectra of the float32 series
+    ``x[T, nsamples]``, :func:`power_from_rfft` of their R2C transforms
+    (DC 0) at the bins ``k < read`` (``read`` in [1, nsamples/2 + 1]).  On
+    a card the kernel pair of ``csrc/rfft.cu`` with its second pass forming
+    the power where it forms each bin, so the complex spectrum is never
+    stored, bitwise the power kernel C forms from :func:`rfft_r2c`'s
+    spectrum (launch count ``fft_r2c_power``; run-report counters
+    ``fft.r2c_kernel_batches`` and ``fft.r2c_power_batches``).  It
+    overwrites ``x`` there, as :func:`rfft_r2c` does, and raises where that
+    does.  On a CPU tensor, the power of :func:`rfft_fourstep_plain`."""
+    N = x.shape[-1]
+    if not 1 <= read <= N // 2 + 1:
+        raise ValueError(f"read {read} outside [1, {N // 2 + 1}]")
+    if x.device.type == "cpu":
+        return power_from_rfft(rfft_fourstep_plain(x)[:, :read], nsamples=N)
+    T, n1, n2, tab = _r2c_operands(x)
+    dev = x.device
+    out = torch.empty((T, read), dtype=torch.float32, device=dev)
+    rc = kernels.library("rfft").erp_fft_r2c_power(
+        dev.index, kernels.stream_handle(dev), x.data_ptr(), out.data_ptr(),
+        tab["tw1"].data_ptr(), tab["tw2"].data_ptr(), tab["th"].data_ptr(), tab["tl"].data_ptr(),
+        T, n1, n2, read, float(np.float32(1.0 / N)),
+    )
+    kernels.check(rc, "rfft kernel launch (power out)")
+    _count_launch("fft_r2c_power", "fft.r2c_power_batches")
     return out
 
 
 def search_rfft(x: torch.Tensor) -> torch.Tensor:
-    """The batch step's R2C of ``x[T, nsamples]``: :func:`rfft_r2c` for a
-    CUDA tensor whose length has a split (which overwrites ``x``: the step
-    drops it after), else ``torch.fft.rfft`` through
-    :func:`~.kernels.planned_fft` (cuFFT on a card, PyTorch's FFT on the
-    CPU).  It routes by device and shape alone."""
+    """The complex R2C of ``x[T, nsamples]``: :func:`rfft_r2c` for a CUDA
+    tensor whose length has a split (which overwrites ``x``), else
+    ``torch.fft.rfft`` through :func:`~.kernels.planned_fft` (cuFFT on a
+    card, PyTorch's FFT on the CPU).  It routes by device and shape alone.
+    The batch step takes it where it does not take :func:`search_power`:
+    at lengths without a split, and on the CPU."""
     if x.device.type == "cuda" and r2c_split(x.shape[-1]) is not None:
         return rfft_r2c(x)
     return planned_fft(torch.fft.rfft, x)
@@ -164,7 +207,8 @@ def power_from_rfft(F: torch.Tensor, *, nsamples: int) -> torch.Tensor:
     """``(re*re + im*im) * float32(1/nsamples)`` of the complex spectra
     ``F[..., L]``, each multiply and add rounded on its own, DC bin zeroed
     per spectrum: the plain version of the power epilogue that kernel C
-    forms from the complex spectrum (``ops/harmonic.py::sumspec_spectrum``)."""
+    forms from the complex spectrum (``ops/harmonic.py::sumspec_spectrum``)
+    and that :func:`search_power`'s kernel forms in the transform."""
     ps = (F.real * F.real + F.imag * F.imag) * float(np.float32(1.0 / nsamples))
     ps[..., 0] = 0.0
     return ps

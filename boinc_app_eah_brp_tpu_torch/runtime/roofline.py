@@ -213,6 +213,13 @@ def rfft_cost(T: int, nsamples: int) -> StageCost:
     return StageCost("rfft", "fft", bytes=T * nsamples * F32 + T * (nsamples // 2 + 1) * C64)
 
 
+def rfft_power_cost(T: int, nsamples: int, fund_hi: int) -> StageCost:
+    """The rfft with its power pass at one pass: the real input read once,
+    the fold's float power at the bins it reads written once."""
+    read = _fold_read(nsamples // 2 + 1, state_width(fund_hi))
+    return StageCost("fft_r2c_power", "fft", bytes=T * nsamples * F32 + T * read * F32)
+
+
 def fold_cost(T: int, nsamples: int, fund_hi: int, complex_input: bool = True) -> StageCost:
     """Kernel C: the spectrum prefix it reads (complex64 with the power
     epilogue inside, ``fold_spectrum``; or float power, ``fold``) and the

@@ -12,11 +12,14 @@ events around ``--repeat`` calls after one warm-up; on the CPU
 * ``resample_ms``: kernel A with its statistics (``ops/resample.py::
   resample_stream``);
 * ``fftprep_ms``: kernel B (``fftprep``);
-* ``rfft_ms``: the step's R2C (``ops/spectrum.py::search_rfft``: the
-  kernel pair of ``csrc/rfft.cu`` on a card at the production length;
-  ``chip_smoke.py`` times cuFFT's beside it);
-* ``fold_spectrum_ms``: kernel C on the complex spectrum, the power
-  epilogue inside it (``ops/harmonic.py::sumspec_spectrum``);
+* ``rfft_ms``: the step's R2C (``models/search.py::fold_input``: on a card
+  at the production length the kernel pair of ``csrc/rfft.cu`` with the
+  power epilogue in its second pass; ``chip_smoke.py`` times cuFFT's
+  beside it);
+* ``fold_spectrum_ms``: kernel C on what the R2C gave
+  (``models/search.py::fold_batch``: its float entry on that power; on the
+  complex spectrum of cuFFT or the CPU, its complex entry with the power
+  epilogue inside);
 * ``merge_ms``: the max/argmax merge into (M, T) (``BankStep.merge``);
 * ``batch_step_ms``: the whole step;
 * ``running_median_ms``: the device running median over one spectrum
@@ -27,8 +30,8 @@ events around ``--repeat`` calls after one warm-up; on the CPU
   over the same spectrum.
 
 The artifact (``--json``) also carries the JAX tool's keys: ``resample_s``
-(A and B: the padded series the FFT reads), ``rfft_power_s`` (the rfft; the
-power is inside C here), ``harmonic_sum_s`` (C), ``total_s`` (the five
+(A and B: the padded series the FFT reads), ``rfft_power_s`` (the rfft, with
+the power where the step forms it there), ``harmonic_sum_s`` (C), ``total_s`` (the five
 stages) and ``templates_per_sec_pipeline``.
 
 ``--whiten`` decomposes the whitening pass instead (``ops/whiten.py``),
@@ -94,12 +97,11 @@ def stage_times(problem, device: str = "cuda", batch: int | None = None, repeat:
 
     from ..device import resolve_device
     from ..models.search import (
-        BankStep, SearchGeometry, bank_params_host, init_state, lut_step_for_bank, lut_tiles_for_bank,
-        max_slope_for_bank, upload_bank,
+        BankStep, SearchGeometry, bank_params_host, fold_batch, fold_input, init_state, lut_step_for_bank,
+        lut_tiles_for_bank, max_slope_for_bank, upload_bank,
     )
-    from ..ops import harmonic, native_median, resample
+    from ..ops import native_median, resample
     from ..ops.median import running_median
-    from ..ops.spectrum import search_rfft
     from ..ops.whiten import whiten_and_zap
 
     dev = resolve_device(device)
@@ -122,7 +124,6 @@ def stage_times(problem, device: str = "cuda", batch: int | None = None, repeat:
     host_params = bank_params_host(P[:B], tau[:B], psi[:B], geom.dt)
     params = resample.stream_params(*host_params, device=dev)
     kw = dict(n_unpadded=geom.n_unpadded, dt=geom.dt)
-    fold_kw = dict(nsamples=geom.nsamples, fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
 
     stages = {}
     stages["resample_ms"] = timed(lambda: resample.resample_stream(ts, params, **kw), repeat)
@@ -132,12 +133,12 @@ def stage_times(problem, device: str = "cuda", batch: int | None = None, repeat:
     del raw
     # the kernel's first pass overwrites x: the spectrum the later stages
     # read comes first, and the timed calls run on what it left there
-    F = search_rfft(x)
-    stages["rfft_ms"] = timed(lambda: search_rfft(x), repeat)
+    S = fold_input(x, geom)
+    stages["rfft_ms"] = timed(lambda: fold_input(x, geom), repeat)
     del x
-    stages["fold_spectrum_ms"] = timed(lambda: harmonic.sumspec_spectrum(F, **fold_kw), repeat)
-    sums = harmonic.sumspec_spectrum(F, **fold_kw)
-    del F
+    stages["fold_spectrum_ms"] = timed(lambda: fold_batch(S, geom), repeat)
+    sums = fold_batch(S, geom)
+    del S
     bank = upload_bank(host_params, B, dev)
     step = BankStep(geom, bank, B, state=init_state(geom, dev))
     stages["merge_ms"] = timed(lambda: step.merge(sums, 0, B), repeat)

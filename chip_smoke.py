@@ -25,7 +25,10 @@ Phases:
    1e-5 of max |F| against cuFFT's, which is timed beside it as its
    library yardstick, against its plain version, and, template by
    template at each sector phase of F, against the float64 transform
-   with cuFFT's distance beside it), the eager power epilogue and a
+   with cuFFT's distance beside it), the rfft with its power pass
+   (``search_power``: bitwise the power of the complex pass's spectrum,
+   timed at 32 templates and, beside the complex pass and both fold
+   entries, at 128), the eager power epilogue and a
    whole batch step, whitened and unwhitened (its means computed ahead),
    are timed alone, and the merge into (M, T) and the device and host
    running medians over one spectrum (the stages of
@@ -56,7 +59,7 @@ Phases:
    reads on the next run; then the loop at batch 32 with the metrics and
    the host tracer off and on, in turns;
 8. the out-of-memory ladder (c), against a whitened ``--no-rescore``
-   baseline at batch 32: a batch this card cannot hold (1024) and an
+   baseline at batch 32: a batch this card cannot hold (2048) and an
    injected ``dispatch:oom@n=2`` must both finish with
    ``resilience.batch_halved`` >= 1 and the baseline's rows;
 9. a supervised restart (d): ``--supervised 2`` with
@@ -193,7 +196,7 @@ Phases:
    no launch, no cuFFT plan and no result;
 19. print the kernel table as one JSON line (launches from the whitened
    run; the serial mean's from the unwhitened one, A1's from the health
-   run, C's float-power entry's from the audits, the exact-sine ones from
+   run, the exact-sine ones from
    the ``--exact-sin`` run), the `bounds` line of the package's roofline
    model (``runtime/roofline.py``), the runs' numbers, and last
    ``{"ok": true, "device": {...}}``.
@@ -254,27 +257,29 @@ KERNEL_ROWS = {
     # sort that XLA runs
     "median": ("boinc_app_eah_brp_tpu/ops/median.py:57", "median.cu"),
     # no Pallas kernel: the JAX package's rfft_packed_split, matrix products
-    # that XLA runs
+    # that XLA runs; with its power pass, also the |X|^2/N epilogue of C's
+    # producer _deinterleave
     "fft_r2c": ("boinc_app_eah_brp_tpu/ops/fft.py:268", "rfft.cu"),
+    "fft_r2c_power": ("boinc_app_eah_brp_tpu/ops/fft.py:268 + ops/pallas_sumspec.py:96", "rfft.cu"),
 }
 # the kernels the search's loop launches at the production length; the
 # whitened command line (the main path) launches these and the median, the
 # unwhitened one these and the serial mean
-SEARCH_PATH = ("resample", "fftprep", "fft_r2c", "fold_spectrum")
+# (the rfft's second pass writes the fold's power, C takes its float entry)
+SEARCH_PATH = ("resample", "fftprep", "fft_r2c_power", "fold")
 MAIN_PATH = SEARCH_PATH + ("median",)
 UNWHITENED_PATH = SEARCH_PATH + ("serial_mean",)
 # the phase whose launches a kernel's row reports: the sentinel probe runs
-# kernel A at T = 1 (phase f, health), the precision audit's harmonic-sum
-# tap kernel C's float-power entry (phase f, audit)
+# kernel A at T = 1 (phase f, health)
 LAUNCHES_FROM = {
-    "serial_mean": "unwhitened", "resample_t1": "health", "fold": "audit",
+    "serial_mean": "unwhitened", "resample_t1": "health",
     "resample_exact": "exact_sin", "resample_t1_exact": "exact_sin", "serial_mean_exact": "exact_sin",
 }
 EXACT_SIN = ("resample_exact", "resample_t1_exact", "serial_mean_exact")
-EXACT_SIN_PATH = ("resample_exact", "resample_t1_exact", "fftprep", "fold_spectrum", "serial_mean_exact")
+EXACT_SIN_PATH = ("resample_exact", "resample_t1_exact", "fftprep", "fft_r2c_power", "fold", "serial_mean_exact")
 QUIT_AFTER = 3  # batches before the interrupted run quits
 TILE = 33  # the exact mean is also run on bank200 tiled this often: 6,600 templates
-OOM_BATCH = 1024  # a batch the card cannot hold at this width (~153 MB a template)
+OOM_BATCH = 2048  # a batch the card cannot hold at this width (~72 MB a template: the series and the fold's power)
 HANG_DEADLINE_S = 10  # the supervised run's dispatch deadline
 SERVE_MEM_SLACK = 64 << 20  # device memory a served workunit may leave above the post-warm value
 SHARDS = 3  # the mesh of phase (g) repeats cuda:0 this often
@@ -381,7 +386,9 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
     the package's roofline model (``runtime/roofline.py``) of this call."""
     from boinc_app_eah_brp_tpu_torch.models import search
     from boinc_app_eah_brp_tpu_torch.ops import harmonic, kernels, resample
-    from boinc_app_eah_brp_tpu_torch.ops.spectrum import power_from_rfft, rfft_fourstep_plain, search_rfft
+    from boinc_app_eah_brp_tpu_torch.ops.spectrum import (
+        power_from_rfft, rfft_fourstep_plain, search_power, search_rfft,
+    )
     from boinc_app_eah_brp_tpu_torch.runtime import roofline
 
     n, nsamples, half = geom.n_unpadded, geom.nsamples, geom.n_unpadded // 2
@@ -490,6 +497,7 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
     # of x comes first; then it and the eager power epilogue, each alone
     F_lib = torch.fft.rfft(x)
     library_ms = time_ms(torch, lambda: torch.fft.rfft(x), 5)
+    x_power = x.clone()  # the power pass's own series
     F64 = torch.fft.rfft(x.double())
     F_plain = rfft_fourstep_plain(x)
     plain_ms = time_ms(torch, lambda: rfft_fourstep_plain(x), 2)
@@ -537,8 +545,41 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
         library_ms=library_ms, **roofline.rfft_cost(T, nsamples).bound(),
     )
     out["fft_r2c"]["passes"] = stages["rfft_ms"] / out["fft_r2c"]["bound_ms"]
-    del x
     fold_kw = dict(fund_hi=geom.fund_hi, harm_hi=geom.harm_hi)
+
+    # the main path's R2C: the same passes, the second writing the fold's
+    # power at the bins it reads, bitwise the power of F; its library
+    # yardstick cuFFT and the eager epilogue, its plain version the plain
+    # transform's power
+    read = harmonic.fold_read(nsamples // 2 + 1, harmonic.state_width(geom.fund_hi))
+    ps_kernel = search_power(x_power, read=read)
+    ps_want = power_from_rfft(F[:, :read], nsamples=nsamples)
+    torch.cuda.synchronize()
+    check(torch.equal(ps_kernel.view(torch.int32), ps_want.view(torch.int32)),
+          "rfft power pass != the power of the complex pass's spectrum")
+    del ps_want
+    out["fft_r2c_power"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(torch, lambda: search_power(x_power, read=read), 5),
+        plain_ms=time_ms(torch, lambda: power_from_rfft(rfft_fourstep_plain(x)[:, :read], nsamples=nsamples), 2),
+        library_ms=time_ms(torch, lambda: power_from_rfft(torch.fft.rfft(x)[:, :read], nsamples=nsamples), 5),
+        **roofline.rfft_power_cost(T, nsamples, geom.fund_hi).bound(),
+    )
+    # the same at the benchmark's batch of 128 (the series tiled): the
+    # complex pass and the power pass, then C's complex and float entries
+    # on their outputs
+    x128 = x.repeat(4, 1)
+    stages["rfft_ms_t128"] = time_ms(torch, lambda: search_rfft(x128), 3)
+    stages["rfft_power_ms_t128"] = time_ms(torch, lambda: search_power(x128, read=read), 3)
+    del x128
+    F128 = F.repeat(4, 1)
+    stages["fold_spectrum_ms_t128"] = time_ms(
+        torch, lambda: harmonic.sumspec_spectrum(F128, nsamples=nsamples, **fold_kw), 3
+    )
+    del F128
+    ps128 = ps_kernel.repeat(4, 1)
+    stages["fold_ms_t128"] = time_ms(torch, lambda: harmonic.sumspec_batch(ps128, **fold_kw), 3)
+    del ps128, ps_kernel, x_power, x
 
     # C on float power spectra (the counterpart of sumspec_pallas_batch)
     ps = power_from_rfft(F, nsamples=nsamples)
@@ -569,8 +610,9 @@ def check_kernels(torch, dev, geom, bank, samples) -> dict:
     stages["running_median_native_ms"] = (time.perf_counter() - t0) * 1e3
     del ps, sums, sums_p, spectrum, host
 
-    # C on the complex spectrum, the main path's entry: the power epilogue
-    # (3 multiplies and an add a bin) inside the fold
+    # C on the complex spectrum, the entry of lengths without a split of the
+    # port's R2C: the power epilogue (3 multiplies and an add a bin) inside
+    # the fold
     sk = dict(nsamples=nsamples, **fold_kw)
     sums = harmonic.sumspec_spectrum(F, **sk)
     sums_p = harmonic.sumspec_spectrum_plain(F, **sk)
@@ -686,10 +728,12 @@ def run_main_path(torch, geom, bank, workdir: str, wu: str, P_inj: float, tau_in
         check(launches[name] > 0, f"kernel {name} was not launched by the search")
     check(launches["median"] == 1, f"the whitened search launched the median {launches['median']} times")
     batches = -(-len(bank) // BATCH)
-    check(launches["fft_r2c"] == batches,
-          f"the search launched the R2C kernel {launches['fft_r2c']} times for {batches} batches")
+    for name in ("fft_r2c_power", "fold"):
+        check(launches[name] == batches,
+              f"the search launched {name} {launches[name]} times for {batches} batches")
     check(not search_plans, f"the search's R2C made cuFFT plans: {search_plans}")
-    check(launches["fold"] == 0, "the search folded a float power tensor")
+    check(launches["fft_r2c"] == 0 and launches["fold_spectrum"] == 0,
+          "the search stored and folded a complex spectrum")
     check(launches["serial_mean"] == 0, "the whitened search took the serial mean")
 
     # The same run again from scratch, now that cuFFT plans and the median
@@ -1352,14 +1396,14 @@ def run_health_precision(torch, geom, bank, workdir: str, wu: str, unwhite_rows,
     # (2) a NaN-poisoned fold under abort: RADPUL_EVAL and a black box
     bb = os.path.join(workdir, "blackbox")
     os.makedirs(bb)
-    real_fold = search.sumspec_spectrum
-    search.sumspec_spectrum = lambda *a, **k: real_fold(*a, **k) * float("nan")
+    real_fold = search.fold_batch
+    search.fold_batch = lambda *a, **k: real_fold(*a, **k) * float("nan")
     try:
         env = {health.HEALTH_EVERY_ENV: str(BATCH), health.HEALTH_ACTION_ENV: "abort", "ERP_BLACKBOX_DIR": bb}
         with _env(env):
             rc = cli_main(argv("poisoned"))
     finally:
-        search.sumspec_spectrum = real_fold
+        search.fold_batch = real_fold
     check(rc == RADPUL_EVAL, f"the poisoned run exited with {rc}, not RADPUL_EVAL")
     check(not os.path.exists(os.path.join(workdir, "poisoned.cand")), "the poisoned run wrote a result")
     dumps = sorted(glob.glob(os.path.join(bb, "erp-blackbox-*.json")))
@@ -2070,9 +2114,11 @@ def run_step_report(workdir: str, wu: str, measured: dict) -> dict:
     other = sorted((k for k in device.get("kernels", []) if k["stage"] == "other"), key=lambda k: -k["ms"])
     print(json.dumps({"rfft_kernels": rfft_kernels, "other_kernels": other[:10]}), flush=True)
     print(step_report.render(doc), flush=True)
+    # the roofline's stage names; the step's rfft is the power pass and its
+    # fold C's float entry
     phase3 = {
         "resample": measured["resample"]["ms"], "fftprep": measured["fftprep"]["ms"],
-        "rfft": measured["stages"]["rfft_ms"], "fold_spectrum": measured["fold_spectrum"]["ms"],
+        "rfft": measured["fft_r2c_power"]["ms"], "fold_spectrum": measured["fold"]["ms"],
     }
     for name, ms in phase3.items():
         print(f"(j2) {name}: measured {stages[name]['measured_ms_per_window']} ms a window "
@@ -2151,11 +2197,11 @@ def run_smoke_modes(workdir: str) -> dict:
             for k, n in smoke._launches(_report(os.path.join(mdir, name, r))).items():
                 launches[k] = launches.get(k, 0) + n
         # the fixture's 4,096 samples have no split of the port's R2C: its
-        # transform is cuFFT's
-        check(not launches.get("fft_r2c"), f"(j4) smoke {' '.join(argv)} launched the R2C kernel")
-        for k in UNWHITENED_PATH:
-            if k != "fft_r2c":
-                check(launches.get(k, 0) > 0, f"(j4) smoke {' '.join(argv)} did not launch {k}")
+        # transform is cuFFT's, folded by C's complex entry
+        check(not launches.get("fft_r2c") and not launches.get("fft_r2c_power"),
+              f"(j4) smoke {' '.join(argv)} launched the R2C kernel")
+        for k in ("resample", "fftprep", "fold_spectrum", "serial_mean"):
+            check(launches.get(k, 0) > 0, f"(j4) smoke {' '.join(argv)} did not launch {k}")
         out[name] = dict(wall_s=time.perf_counter() - t0, result=last, launches=launches)
     return out
 

@@ -377,6 +377,95 @@ def test_rfft_kernel_refuses_what_it_does_not_take(dev):
         spectrum.rfft_r2c(torch.zeros((2, 10 << 10), dtype=torch.float32, device=dev))
 
 
+# the card tests' search length (every bin, and the fold's 16W + 16 of
+# test_fold_spectrum_matches_plain's geometry) and the production length at
+# its fold's read (W = 329,552)
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("nsamples,fund_hi", [(3 << 16, 0), (3 << 16, 5149), (12582912, 329552)])
+def test_rfft_power_pass_is_the_power_of_the_complex_pass(dev, nsamples, fund_hi, T):
+    """``search_power`` (``erp_fft_r2c_power``) bitwise the power of the
+    complex pass's spectrum (``power_from_rfft``, the epilogue kernel C
+    forms) at every bin below ``read``, DC 0; one ``fft_r2c_power`` launch
+    a call and none of ``fft_r2c``; two calls give the same bits."""
+    from boinc_app_eah_brp_tpu_torch.ops import spectrum
+
+    L = nsamples // 2 + 1
+    read = harmonic.fold_read(L, harmonic.state_width(fund_hi)) if fund_hi else L
+    assert fund_hi == 0 or read < L
+    x = torch.from_numpy(_r2c_input(T, nsamples, nsamples + T + fund_hi)).to(dev)
+    want = spectrum.power_from_rfft(spectrum.rfft_r2c(x.clone())[:, :read], nsamples=nsamples)
+    before = dict(kernels.launch_counts)
+    p = spectrum.search_power(x.clone(), read=read)
+    p2 = spectrum.search_power(x.clone(), read=read)
+    assert kernels.launch_counts["fft_r2c_power"] == before["fft_r2c_power"] + 2
+    assert kernels.launch_counts["fft_r2c"] == before["fft_r2c"]
+    torch.cuda.synchronize(dev)
+    assert p.shape == (T, read) and p.dtype == torch.float32
+    assert (p[:, 0] == 0).all()
+    assert torch.equal(p.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(p.view(torch.int32), p2.view(torch.int32))
+
+
+def _small_geom(n, b):
+    from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
+
+    d = DerivedParams.derive(n, DT * 1e6, SearchConfig(padding=3.0, f0=400.0, window=1000))
+    return search.SearchGeometry.from_derived(
+        d,
+        max_slope=search.max_slope_for_bank(b[:, 0], b[:, 1]),
+        lut_step=search.lut_step_for_bank(b[:, 0], DT),
+        lut_tiles=search.lut_tiles_for_bank(b[:, 0], b[:, 2], n, DT),
+    )
+
+
+# n = 2^16: nsamples 196,608 has a split (32 x 3072); n = 4096: 12,288 has
+# none (N1 = 2), so the step keeps cuFFT
+@pytest.mark.parametrize("n", [1 << 16, 4096])
+def test_bank_step_routes_the_power_pass_by_length(dev, n, monkeypatch):
+    """At a split length a ``BankStep`` batch takes the power pass and C's
+    float entry: per batch one ``fft_r2c_power``, one ``fold``, no
+    ``fold_spectrum`` and no ``fft_r2c``, and one ``fft.r2c_power_batches``
+    beside one ``fft.r2c_kernel_batches``; its (M, T) bitwise those of the
+    complex route (``rfft_r2c`` and ``sumspec_spectrum``) on the same batch.
+    A length without a split keeps cuFFT and C's complex entry, and counts
+    none of the power pass's launches or batches."""
+    from boinc_app_eah_brp_tpu_torch.ops import spectrum
+    from boinc_app_eah_brp_tpu_torch.runtime import metrics
+
+    b = np.loadtxt(BANK200)[[0, 5, 17, 57]]
+    geom = _small_geom(n, b)
+    split = spectrum.r2c_split(geom.nsamples) is not None
+    assert split == (n == 1 << 16)
+    ts = torch.from_numpy(np.random.default_rng(n).normal(0, 1, n).astype(np.float32)).to(dev)
+    bank = search.upload_bank(search.bank_params_host(b[:, 0], b[:, 1], b[:, 2], DT), 4, dev)
+
+    def counted(name):
+        return metrics.snapshot()["counters"].get(name, {}).get("value", 0)
+
+    names = ("fft_r2c_power", "fold", "fold_spectrum", "fft_r2c")
+    batches = ("fft.r2c_power_batches", "fft.r2c_kernel_batches")
+    assert metrics.configure(force=True)
+    try:
+        launches, before = dict(kernels.launch_counts), {c: counted(c) for c in batches}
+        M, T = search.BankStep(geom, bank, 4)(ts, 0, 4)
+        torch.cuda.synchronize(dev)
+        got = {k: kernels.launch_counts[k] - launches[k] for k in names}
+        got.update({c: counted(c) - before[c] for c in batches})
+    finally:
+        metrics.finish(0)
+    if split:
+        assert got == {"fft_r2c_power": 1, "fold": 1, "fold_spectrum": 0, "fft_r2c": 0,
+                       "fft.r2c_power_batches": 1, "fft.r2c_kernel_batches": 1}, got
+    else:
+        assert got == {"fft_r2c_power": 0, "fold": 0, "fold_spectrum": 1, "fft_r2c": 0,
+                       "fft.r2c_power_batches": 0, "fft.r2c_kernel_batches": 0}, got
+    # the complex route on the same batch
+    complex_route = spectrum.rfft_r2c if split else spectrum.search_rfft
+    monkeypatch.setattr(search, "fold_input", lambda x, g: complex_route(x))
+    Mc, Tc = search.BankStep(geom, bank, 4)(ts, 0, 4)
+    assert torch.equal(M.view(torch.int32), Mc.view(torch.int32)) and torch.equal(T, Tc)
+
+
 @pytest.mark.parametrize("exact_mean", [False, True])
 def test_bank_step_card_matches_cpu(dev, exact_mean):
     """A search of a few batches on the card against the same search on
@@ -505,7 +594,7 @@ def test_warmed_scheduler_serves_without_builds_or_plans(dev, tmp_path, monkeypa
             assert r.ok, r.error
             assert r.recompiles == 0
             assert r.step_cache_hits >= 1 and r.step_cache_misses == 0
-            for k in ("resample", "fftprep", "fold_spectrum"):
+            for k in ("resample", "fftprep", "fft_r2c_power", "fold"):
                 assert kernels.launch_counts[k] > 0
             assert kernels.launch_counts["serial_mean"] == int(not white)
             assert torch.cuda.memory_allocated(dev) == base
@@ -545,8 +634,8 @@ def test_health_vector_card_matches_cpu(dev, case):
 
 def test_template_sumspec_is_a_step_row_on_the_card(dev):
     """The sentinel probe's one-template search launches kernel A at T = 1,
-    B, a batch-1 rfft and C, and gives the batch step's row for that
-    template."""
+    B, a batch-1 rfft with its power pass and C's float entry, and gives
+    the batch step's row for that template."""
     n = 1 << 16
     b = np.loadtxt(BANK200)[[17]]
     from boinc_app_eah_brp_tpu_torch.oracle import DerivedParams, SearchConfig
@@ -561,7 +650,7 @@ def test_template_sumspec_is_a_step_row_on_the_card(dev):
     ts = torch.from_numpy(np.random.default_rng(2).normal(0, 1, n).astype(np.float32)).to(dev)
     before = dict(kernels.launch_counts)
     one = search.template_sumspec(ts, b[0, 0], b[0, 1], b[0, 2], geom)
-    for k in ("resample_t1", "fftprep", "fold_spectrum"):
+    for k in ("resample_t1", "fftprep", "fft_r2c_power", "fold"):
         assert kernels.launch_counts[k] == before[k] + 1, k
     bank = search.upload_bank(search.bank_params_host(b[:, 0], b[:, 1], b[:, 2], DT), 2, dev)
     step = search.BankStep(geom, bank, 2, with_health=True)

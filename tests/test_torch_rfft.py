@@ -1,7 +1,8 @@
 """PyTorch port, the search's real-to-complex transform
 (``ops/spectrum.py``): the four-step split of ``csrc/rfft.cu``, its twiddle
-tables and its plain version against numpy's float64 ``rfft``, and the
-batch step's routing on the CPU.  The kernel itself runs in
+tables and its plain version against numpy's float64 ``rfft``, the power
+form's plain version (``search_power``), and the batch step's routing on
+the CPU.  The kernel itself runs in
 ``tests/test_torch_rfft_emulated.py`` (on the host) and
 ``tests/test_torch_cuda.py`` (on the card).
 
@@ -9,11 +10,15 @@ Tolerance: max |dF| <= 1e-5 max |F|, the rule the kernel is held to
 against cuFFT (float32 sums in another order than either transform's).
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
-from boinc_app_eah_brp_tpu_torch.ops import spectrum
+from boinc_app_eah_brp_tpu_torch.models import search
+from boinc_app_eah_brp_tpu_torch.ops import harmonic, kernels, spectrum
+from boinc_app_eah_brp_tpu_torch.runtime import metrics
 
 
 def r2c_input(T: int, nsamples: int, seed: int) -> np.ndarray:
@@ -95,3 +100,48 @@ def test_search_rfft_on_the_cpu_is_torchs_transform(nsamples):
 def test_plain_version_refuses_a_length_without_a_split():
     with pytest.raises(ValueError, match="split"):
         spectrum.rfft_fourstep_plain(torch.zeros((1, 10 << 10)))
+
+
+@pytest.mark.parametrize("read", [(3 << 14) + 1, 4880, 1])
+def test_search_power_on_the_cpu_is_the_power_of_the_plain_version(read):
+    """float32[T, read], the plain transform's power bin for bin (DC 0),
+    with no kernel launched and nothing counted."""
+    x = torch.from_numpy(r2c_input(2, 3 << 15, 6))
+    launches = dict(kernels.launch_counts)
+    p = spectrum.search_power(x, read=read)
+    want = spectrum.power_from_rfft(spectrum.rfft_fourstep_plain(x), nsamples=3 << 15)[:, :read]
+    assert p.dtype == torch.float32 and p.shape == (2, read)
+    assert torch.equal(p, want) and (p[:, 0] == 0).all()
+    assert kernels.launch_counts == launches
+
+
+@pytest.mark.parametrize("read", [0, (3 << 14) + 2])
+def test_search_power_refuses_a_read_outside_the_spectrum(read):
+    with pytest.raises(ValueError, match="read"):
+        spectrum.search_power(torch.zeros((1, 3 << 15)), read=read)
+
+
+# read = 16W + 16 below M + 1 at both; the second folds 16 harmonics of
+# bins near the top of what is read
+@pytest.mark.parametrize("fund_hi,harm_hi", [(300, 4000), (2000, 32000)])
+def test_cpu_step_folds_the_complex_spectrum_and_power_folds_to_the_same_sums(fund_hi, harm_hi):
+    """On the CPU the step's fold input is the complex spectrum (PyTorch's
+    FFT; no power pass counted), folded by C's complex entry; its power cut
+    to the bins the fold reads, folded by C's float entry, gives the same
+    sums bit for bit: the card's route differs only in where the power is
+    formed."""
+    nsamples = 3 << 15
+    geom = SimpleNamespace(nsamples=nsamples, fund_hi=fund_hi, harm_hi=harm_hi)
+    x = torch.from_numpy(r2c_input(2, nsamples, 7))
+    assert metrics.configure(force=True)
+    try:
+        F = search.fold_input(x, geom)
+        counters = metrics.snapshot()["counters"]
+    finally:
+        metrics.finish(0)
+    assert F.is_complex() and torch.equal(F, torch.fft.rfft(x))
+    assert counters.get("fft.r2c_power_batches", {}).get("value", 0) == 0
+    read = harmonic.fold_read(nsamples // 2 + 1, harmonic.state_width(fund_hi))
+    assert read < nsamples // 2 + 1
+    ps = spectrum.power_from_rfft(F, nsamples=nsamples)[:, :read].contiguous()
+    assert torch.equal(search.fold_batch(ps, geom), search.fold_batch(F, geom))

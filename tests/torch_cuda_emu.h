@@ -112,28 +112,34 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) { std:
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
 
-// kernel<<<grid, threads, smem, stream>>>(args...), rewritten by the test
+// kernel<<<grid, threads, smem, stream>>>(args...), rewritten by the test.
+// The launch's threads are made once and run the blocks in turn: thread 0
+// sets up each block between two barriers of all of them.
 template <class K, class... A>
 void emu_launch(emu_dim3 grid, int threads, int smem, K kernel, A... args) {
   gridDim = grid;
   const int warps = (threads + 31) / 32;
   std::vector<unsigned long long> slots(32 * warps);
-  for (unsigned b = 0; b < grid.x * grid.y; ++b) {
-    blockIdx.x = b % grid.x;
-    blockIdx.y = b / grid.x;
-    emu_dynamic_shared.assign(smem / 8 + 1, 0xdeadbeefdeadbeefull);
-    std::barrier<> block(threads);
-    emu_block_barrier = &block;
-    std::vector<std::unique_ptr<std::barrier<>>> warp;
-    for (int i = 0; i < warps; ++i) warp.emplace_back(new std::barrier<>(std::min(32, threads - 32 * i)));
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, t] {
-        threadIdx.x = t;
-        emu_warp_barrier = warp[t / 32].get();
-        emu_warp_slots = &slots[32 * (t / 32)];
+  std::barrier<> block(threads);
+  emu_block_barrier = &block;
+  std::vector<std::unique_ptr<std::barrier<>>> warp;
+  for (int i = 0; i < warps; ++i) warp.emplace_back(new std::barrier<>(std::min(32, threads - 32 * i)));
+  std::vector<std::thread> ts;
+  for (int t = 0; t < threads; ++t)
+    ts.emplace_back([&, t] {
+      threadIdx.x = t;
+      emu_warp_barrier = warp[t / 32].get();
+      emu_warp_slots = &slots[32 * (t / 32)];
+      for (unsigned b = 0; b < grid.x * grid.y; ++b) {
+        if (t == 0) {
+          blockIdx.x = b % grid.x;
+          blockIdx.y = b / grid.x;
+          emu_dynamic_shared.assign(smem / 8 + 1, 0xdeadbeefdeadbeefull);
+        }
+        block.arrive_and_wait();  // the block is set up
         kernel(args...);
-      });
-    for (auto& t : ts) t.join();
-  }
+        block.arrive_and_wait();  // every thread has left it
+      }
+    });
+  for (auto& t : ts) t.join();
 }
